@@ -5,17 +5,36 @@
 
 Phases, in order; the first that fails ends the run with a non-zero exit:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: every kernel of `tpupose_torch/csrc` with nvcc for sm_90a;
+  2. build: every kernel of `tpupose_torch/csrc` with nvcc for sm_90a, one
+     process per source, all at once;
   3. K1 (heatmap decode) against its plain torch version on the card at the
      main path's shape (640, 17, 96, 72) f32, all three refinement modes,
-     on random heatmaps with planted ties, plateaus and border peaks;
-     median times of both;
-  4. the main path at full width: `Pipeline.process_clip` with
+     on random heatmaps with planted ties, plateaus, border peaks and
+     non-finite neighbours (NaN compared as equal); median times of both;
+  4. K2 (int8 conv) against its plain torch version, `torch.equal`, at every
+     distinct quantized conv shape of HRNet-W48 384x288 (on 8 crops) and
+     YOLOv3-416 (on 4 images), float and int8 input, dequantize and
+     requant-relu epilogue, plus one dilated shape; then at the full
+     main-path batch the times of K2, of the bf16 cuDNN conv of the same
+     shape, and of the plain version on the sub-batch, for HRNet branch 0's
+     3x3 48->48 at 96x72 (x640) and YOLO's 3x3 128->256 at 52x52 (x160);
+  5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
      720x1280 uint8 frames; the decode launch count, the stage A / stage B
      split, peak memory;
-  5. the tracker on a synthetic scene with 5 views and 3 people: the same
+  6. the int8 main path: `Pipeline.quantize_models` on 8 frames of one view
+     (on_drift="warn": random weights drift by design, so the self-check
+     report is printed and not gated on), then `process_clip` twice on the
+     same clip; K1 and K2 launch counts, stage A, peak memory, and the
+     int8-vs-bf16 keypoint shift (for information);
+  7. int8-resident blocks: one HRNet-W48 forward with `int8_resident=True`
+     on 8 crops in f32, each block held against the generic int8 block on
+     the same input within the bound of the JAX package's test;
+  8. the staged API: `process_frame` over the first 4 frames against
+     `process_clip` on those frames (equal masks, detections within atol
+     2e-2 / rtol 1e-3);
+  9. the tracker on a synthetic scene with 5 views and 3 people: the same
      detections replayed through `person_track` on the card and on the CPU
      must give the same track ids, and 3 confirmed tracks.
 It prints a JSON line per phase, then `{"kernels": [...]}`, the
@@ -35,6 +54,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 H100_F32_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
+H100_INT8_OPS_PER_S = 1.979e15  # H100 SXM int8 tensor cores, dense
+SUB_CROPS, SUB_IMAGES = 8, 4     # K2's comparison batches (HRNet, YOLO)
 
 
 def fail(msg, code=1):
@@ -75,7 +96,8 @@ def cuda_time_ms(fn, warmup=3, reps=20):
 
 def planted_heatmaps(n, j, h, w, gen):
     """(n, j, h, w) f32 on the card: noise, one random peak per plane, and
-    planted flat planes, plateaus, ties and border peaks in the first ones."""
+    planted flat planes, plateaus, ties, border peaks and non-finite
+    neighbours in the first ones."""
     import torch
 
     heat = torch.randn((n, j, h, w), generator=gen, device="cuda") * 0.1
@@ -94,7 +116,37 @@ def planted_heatmaps(n, j, h, w, gen):
     p[9] = 0.0
     p[9, 6, 6], p[9, 6, 7], p[9, 6, 5] = 3.0, 1.0, 1.0  # equal neighbours
     p[10] = -0.5                                 # negative plateau
+    inf = float("inf")
+    for k in range(11, 16):
+        p[k] = 0.0
+        p[k, 6, 6] = 3.0                         # a finite interior peak
+    p[11, 6, 5] = p[11, 6, 7] = -inf             # -inf on both sides (x)
+    p[12, 5, 6] = p[12, 7, 6] = -inf             # -inf on both sides (y)
+    p[13] = -inf                                 # all -inf
+    p[14, 6, 6] = inf                            # +inf peak
+    p[15, 6, 7] = float("nan")                   # NaN neighbour (the peak)
     return heat
+
+
+def check_equal_nan(got, ref, what, ulps=0):
+    """got equals ref, NaN where ref is NaN, finite values within `ulps`
+    units in the last place (exactly equal otherwise). Returns the largest
+    difference over the entries that are finite in both."""
+    import torch
+
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(got), nan):
+        fail(f"{what}: NaN where the plain version has none, or the reverse")
+    fin = torch.isfinite(ref)
+    if not torch.equal(got[~fin & ~nan], ref[~fin & ~nan]):
+        fail(f"{what}: infinities differ from the plain version")
+    g, r = got[fin], ref[fin]
+    err = torch.abs(g - r)
+    tol = (torch.abs(torch.nextafter(r, torch.full_like(r, torch.inf)) - r) * ulps
+           if ulps else torch.zeros_like(r))
+    if bool((err > tol).any()):
+        fail(f"{what}: differs from the plain version by up to {float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
 
 
 def phase_kernel(th, torch, gen):
@@ -109,19 +161,14 @@ def phase_kernel(th, torch, gen):
         got = th.decode_heatmaps_cuda(heat, boxes, refine)
         ref = th.decode_heatmaps(heat, boxes, refine)
         torch.cuda.synchronize()
-        if not torch.equal(got[..., 2], ref[..., 2]):
-            fail(f"K1 {refine}: scores differ from the plain version")
-        ulp = torch.abs(torch.nextafter(ref[..., :2], torch.full_like(ref[..., :2], torch.inf))
-                        - ref[..., :2])
-        err = torch.abs(got[..., :2] - ref[..., :2])
-        if bool((err > ulp).any()):
-            fail(f"K1 {refine}: coordinates differ by more than 1 ulp "
-                 f"(max {float(err.max())})")
-        max_err = max(max_err, float(torch.abs(got - ref).max()))
+        check_equal_nan(got[..., 2], ref[..., 2], f"K1 {refine} scores")
+        err = check_equal_nan(got[..., :2], ref[..., :2], f"K1 {refine} coordinates", ulps=1)
+        if refine == "quarter" and not bool(torch.isnan(ref[11 // j, 11 % j, 0])):
+            fail("K1 quarter: the plain version lost the NaN of inf - inf")
+        max_err = max(max_err, err)
         ms = cuda_time_ms(lambda: th.decode_heatmaps_cuda(heat, boxes, refine))
         plain_ms = cuda_time_ms(lambda: th.decode_heatmaps(heat, boxes, refine), reps=10)
-        result["modes"][refine] = {"ms": ms, "plain_ms": plain_ms,
-                                   "max_abs_err": float(torch.abs(got - ref).max())}
+        result["modes"][refine] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
     bytes_moved = heat.numel() * 4 + boxes.numel() * 4 + n * j * 3 * 4
     ops = heat.numel()  # one compare per element; refinement is per plane
     bound_ms = max(bytes_moved / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S) * 1e3
@@ -129,6 +176,135 @@ def phase_kernel(th, torch, gen):
                   bound_by="bytes" if bytes_moved / H100_BYTES_PER_S >= ops / H100_F32_OPS_PER_S
                   else "operations", bytes=bytes_moved)
     return result
+
+
+def conv_shapes(torch, model, x, skip):
+    """{(cin, h, w, cout, k, stride, dilation): count} of the quantized convs
+    (every Conv2d not in `skip`) in one forward of `model` on x."""
+    from tpupose_torch.models.layers import Conv2d
+
+    seen, hooks = {}, []
+
+    def hook(mod, args):
+        _, c, h, w = args[0].shape
+        key = (c, h, w, mod.out_channels, mod.kernel_size[0], mod.stride[0],
+               mod.dilation[0])
+        seen[key] = seen.get(key, 0) + 1
+
+    for m in model.modules():
+        if isinstance(m, Conv2d) and m not in skip:
+            hooks.append(m.register_forward_pre_hook(hook))
+    try:
+        model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def main_path_conv_shapes(torch):
+    """The distinct quantized conv shapes of HRNet-W48 384x288 and
+    YOLOv3-416, counted on meta tensors (no memory, no kernels)."""
+    from tpupose_torch.models import quantize as tq
+    from tpupose_torch.models.hrnet import HRNet, hrnet_w48_config
+    from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.models.yolov3 import YOLOv3, YoloConfig
+
+    with torch.device("meta"):
+        hr = fold_batchnorm(HRNet(hrnet_w48_config()))
+        yo = fold_batchnorm(YOLOv3(YoloConfig()))
+        hr_shapes = conv_shapes(torch, hr, torch.empty(1, 3, 384, 288), tq.hrnet_skip_ids(hr))
+        yo_shapes = conv_shapes(torch, yo, torch.empty(1, 3, 416, 416),
+                                tq.yolo_skip_ids(yo, YoloConfig()))
+    return hr_shapes, yo_shapes
+
+
+def k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype):
+    """Random operands of one K2 call: weights, input, 1/x_scale and the
+    epilogue vectors, scaled so that int8 outputs spread over [0, 127]."""
+    cin, h, w, cout, k, _, _ = shape
+    kk = cin * k * k
+    wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.int8)
+    if in_dtype == torch.int8:
+        x = torch.randint(-127, 128, (batch, cin, h, w), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        code_std = 73.3
+    else:
+        x = (torch.randn((batch, cin, h, w), generator=gen, device="cuda") * 2.0).to(in_dtype)
+        code_std = 2.0 * 127.0 / 8.0
+    inv = torch.tensor([127.0 / 8.0], device="cuda")
+    acc_std = code_std * 73.3 * kk ** 0.5
+    rnd = torch.rand((cout,), generator=gen, device="cuda") + 0.5
+    if out_dtype == torch.int8:
+        mul, add = rnd * (40.0 / acc_std), torch.randn((cout,), generator=gen, device="cuda") * 10
+    else:
+        mul, add = rnd / acc_std, torch.randn((cout,), generator=gen, device="cuda")
+    return wq, k2.pack_weight(wq), x, inv, mul, add
+
+
+def phase_k2(torch, gen, card):
+    """K2 against its plain version at every quantized conv shape of the
+    main path, then timed at the full batch of two shapes."""
+    import torch.nn.functional as F
+
+    from tpupose_torch.ops import int8_conv as k2
+
+    hr_shapes, yo_shapes = main_path_conv_shapes(torch)
+    if (len(hr_shapes), sum(hr_shapes.values()), len(yo_shapes), sum(yo_shapes.values())) \
+            != (27, 292, 20, 72):
+        fail(f"quantized conv shapes: HRNet {len(hr_shapes)} / {sum(hr_shapes.values())}, "
+             f"YOLO {len(yo_shapes)} / {sum(yo_shapes.values())}, expected 27 / 292, 20 / 72")
+    b16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    modes = [(b16, b16), (b16, i8), (i8, b16), (i8, i8)]
+    dilated = (48, 96, 72, 48, 3, 1, 2)
+    cases = ([(sh, SUB_CROPS, modes) for sh in sorted(hr_shapes)]
+             + [(sh, SUB_IMAGES, modes) for sh in sorted(yo_shapes)]
+             + [(dilated, SUB_CROPS, modes + [(f32, f32), (f32, i8)])])
+    checked, max_err = 0, 0.0
+    for shape, batch, shape_modes in cases:
+        for in_dtype, out_dtype in shape_modes:
+            wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype)
+            _, _, _, _, k, stride, dil = shape
+            got = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, out_dtype, stride, dil)
+            ref = k2.int8_conv_plain(x, wq, inv, mul, add, out_dtype, stride, dil)
+            err = float((got.float() - ref.float()).abs().max())
+            max_err = max(max_err, err)
+            if not torch.equal(got, ref):
+                fail(f"K2 {shape} batch {batch} {in_dtype} -> {out_dtype}: differs from "
+                     f"the plain version by up to {err}")
+            if out_dtype == i8 and not (ref.min() == 0 and ref.max() == 127 and bool(ref.any())):
+                fail(f"K2 {shape}: the requant check does not span [0, 127]")
+            checked += 1
+    timed = {}
+    for name, shape, batch, sub in (("hrnet_branch0_3x3_48", (48, 96, 72, 48, 3, 1, 1), 640, SUB_CROPS),
+                                    ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), 160, SUB_IMAGES)):
+        cin, h, w, cout, k, stride, dil = shape
+        wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, b16, b16)
+        y = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil)
+        ms = cuda_time_ms(lambda: k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil),
+                          reps=10)
+        wb = torch.randn((cout, cin, k, k), generator=gen, device="cuda").to(b16)
+        cudnn_ms = cuda_time_ms(lambda: F.conv2d(x, wb, padding=k // 2), reps=10)
+        xs = x[:sub].contiguous()
+        plain_ms = cuda_time_ms(lambda: k2.int8_conv_plain(xs, wq, inv, mul, add, b16, stride, dil),
+                                warmup=1, reps=3)
+        kk = cin * k * k
+        m = batch * y.shape[2] * y.shape[3]
+        moved = x.numel() * 2 + wq.numel() + y.numel() * 2 + 2 * cout * 4 + 4
+        ops = 2 * m * cout * kk
+        t_bytes, t_ops = moved / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS_PER_S * 1e3
+        timed[name] = {"shape": [batch, cin, h, w, cout, k, stride], "ms": ms,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                       "bytes": moved, "int_ops": ops, "bf16_cudnn_ms": cudnn_ms,
+                       "plain_ms": plain_ms, "plain_batch": sub}
+        del x, y, xs
+    return {"card": card, "checked": checked, "distinct_shapes": {
+                "hrnet_w48": len(hr_shapes), "yolov3_416": len(yo_shapes), "dilated": 1},
+            "quantized_convs": {"hrnet_w48": sum(hr_shapes.values()),
+                                "yolov3_416": sum(yo_shapes.values())},
+            "max_abs_err": max_err, "timed": timed, "library_ms": None}
 
 
 def phase_main_path(torch, gen, card):
@@ -187,17 +363,7 @@ def phase_main_path(torch, gen, card):
     if launches < 1:
         fail("the main path never launched the heatmap decode kernel")
 
-    T, J = tcfg.max_tracks, tcfg.num_joints
-    expect = {"valid": (frames, T), "track_id": (frames, T), "pose3d": (frames, T, J, 3),
-              "n_views": (frames, T, J), "pose2d": (frames, T, views, J, 3),
-              "pose2d_now": (frames, T, views)}
-    for field, shape in expect.items():
-        if tuple(getattr(outs, field).shape) != shape:
-            fail(f"FrameOutput.{field} has shape {tuple(getattr(outs, field).shape)}")
-    if tuple(dets.shape) != (frames, views, 4, J, 3) or tuple(mask.shape) != (frames, views, 4):
-        fail(f"detections have shapes {tuple(dets.shape)} and {tuple(mask.shape)}")
-    if not (torch.isfinite(dets).all() and torch.isfinite(outs.pose3d).all()):
-        fail("non-finite detections or poses")
+    check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
     ms = statistics.median(clip_ms)
     return {
         "config": "YOLOv3-416 (max_candidates=4) + HRNet-W48 384x288, BN folded, "
@@ -209,7 +375,210 @@ def phase_main_path(torch, gen, card):
         "decode_launches": launches, "clips": 2,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "peak_mem_gib": peak_gib,
+    }, (pipe, clip, frame_ids, dets, mask)
+
+
+def check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg):
+    """Shapes and finiteness of a full-width process_clip result."""
+    T, J = tcfg.max_tracks, tcfg.num_joints
+    expect = {"valid": (frames, T), "track_id": (frames, T), "pose3d": (frames, T, J, 3),
+              "n_views": (frames, T, J), "pose2d": (frames, T, views, J, 3),
+              "pose2d_now": (frames, T, views)}
+    for field, shape in expect.items():
+        if tuple(getattr(outs, field).shape) != shape:
+            fail(f"FrameOutput.{field} has shape {tuple(getattr(outs, field).shape)}")
+    if tuple(dets.shape) != (frames, views, 4, J, 3) or tuple(mask.shape) != (frames, views, 4):
+        fail(f"detections have shapes {tuple(dets.shape)} and {tuple(mask.shape)}")
+    if not (torch.isfinite(dets).all() and torch.isfinite(outs.pose3d).all()):
+        fail("non-finite detections or poses")
+
+
+def phase_int8_path(torch, card, main):
+    """int8 serving on the main path's pipeline: quantize_models on 8
+    frames of one view, then process_clip twice on the same clip."""
+    import io
+    from contextlib import redirect_stdout
+
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.ops import int8_conv as k2
+    from tpupose_torch.ops import lap
+    from tpupose_torch.tracking.tracker import track_clip
+
+    pipe, clip, frame_ids, dets_bf16, mask_bf16 = main
+    frames, views = clip.shape[0], clip.shape[1]
+    tcfg = pipe.tracker_cfg
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with redirect_stdout(log):
+        # random weights drift by design: report the check, do not gate on it
+        pipe.quantize_models(clip[:8, 0].contiguous(), on_drift="warn")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    print(log.getvalue().rstrip(), flush=True)
+    report = dict(pipe.last_quant_report)
+    pipe.track_restart()
+
+    t0 = time.perf_counter()
+    pipe.process_clip(frame_ids, clip)  # warm-up
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dets, mask = pipe.process_clip_nn(clip)
+    torch.cuda.synchronize()
+    stage_a_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        track_clip(tcfg, pipe.cams, pipe.state, dets, mask, frame_ids.cuda())
+    torch.cuda.synchronize()
+    stage_b_ms = (time.perf_counter() - t0) * 1e3
+
+    # the int8 main path: counts from 0, two clips, counts read right after
+    torch.cuda.reset_peak_memory_stats()
+    th.launches = 0
+    k2.launches = 0
+    lap.host_syncs = 0
+    clip_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs, dets, mask = pipe.process_clip(frame_ids, clip)
+        torch.cuda.synchronize()
+        clip_ms.append((time.perf_counter() - t0) * 1e3)
+    k1_launches, k2_launches, syncs = th.launches, k2.launches, lap.host_syncs
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if k1_launches < 1 or k2_launches < 1:
+        fail(f"the int8 main path launched K1 {k1_launches} and K2 {k2_launches} times")
+    check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
+    k2_ms, k2_calls = k2_time_in_stage_a(torch, pipe, clip)
+    both = (mask & mask_bf16)
+    shift = torch.linalg.norm(dets[..., :2] - dets_bf16[..., :2], dim=-1)[both]
+    ms = statistics.median(clip_ms)
+    return {
+        "config": "the main path's pipeline after quantize_models (int8 YOLOv3-416 and "
+                  "HRNet-W48 through K2, float heads)",
+        "card": card, "quantize_s": quantize_s, "self_check": report,
+        "first_clip_s": first_s, "clip_ms": clip_ms, "ms_per_clip": ms,
+        "fps": frames * 1e3 / ms, "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
+        "k2_launches": k2_launches, "k2_launches_per_clip": k2_launches / 2,
+        "k1_launches": k1_launches, "clips": 2,
+        "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
+        "host_syncs_per_frame": syncs / (2 * frames),
+        "detections_valid": int(mask.sum()), "masks_equal_bf16": bool(torch.equal(mask, mask_bf16)),
+        "kps_shift_vs_bf16_px": {"median": float(shift.median()), "p95": float(shift.quantile(0.95)),
+                                 "max": float(shift.max()), "n": int(shift.numel())},
+        "peak_mem_gib": peak_gib,
     }
+
+
+def k2_time_in_stage_a(torch, pipe, clip):
+    """Summed device time of the K2 launches in one int8 stage A, by CUDA
+    events around each launch (after the counted runs; no host syncs)."""
+    from tpupose_torch.ops import int8_conv as k2
+
+    events, inner = [], k2.int8_conv_cuda
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = inner(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return y
+
+    k2.int8_conv_cuda = timed
+    try:
+        pipe.process_clip_nn(clip)
+    finally:
+        k2.int8_conv_cuda = inner
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events), len(events)
+
+
+def phase_resident(torch, card, pipe, clip):
+    """One HRNet-W48 forward with int8_resident=True on SUB_CROPS crops in
+    f32; each fused block against the generic int8 block on its input.
+
+    Bound (tests/test_quantize.py, test_int8_resident_block_matches_generic_path):
+    the two paths round the same value of each inter-conv tensor, so its
+    codes differ by at most one, and the output by at most
+    3 * step * max_co sum|w| of the conv after it (3 codes, loosely). For a
+    bottleneck the mid-1 code moves conv2's output by x_scale2 * |w2|_1,
+    i.e. that over x_scale3 codes of mid 2, plus its own rounding:
+    3 * (x_scale2 * |w2|_1 + x_scale3) * |w3|_1."""
+    import dataclasses
+
+    from tpupose_torch.models.hrnet import BasicBlock, Bottleneck
+    from tpupose_torch.pipeline.facade import _pose_crops
+
+    model = pipe.pose_model
+    with torch.inference_mode():
+        x = clip[:2, 0].to(torch.bfloat16) / 255.0
+        boxes, _, _ = pipe.person_detect(clip[:2, 0])
+        _, crops = _pose_crops(pipe.pose_cfg, x, boxes)
+    crops = crops[:SUB_CROPS].float()
+
+    def l1(conv):
+        return float((conv.weight_q.float().abs() * conv.w_scale[:, None, None, None])
+                     .sum(dim=(1, 2, 3)).max())
+
+    worst, checked = [0.0, 0.0], [0]
+
+    def hook(block, args, out):
+        x_in = args[0]
+        generic = block.forward(x_in, False)
+        if isinstance(block, BasicBlock):
+            bound = 3 * float(block.conv2.x_scale) * l1(block.conv2)
+        else:
+            bound = 3 * (float(block.conv2.x_scale) * l1(block.conv2)
+                         + float(block.conv3.x_scale)) * l1(block.conv3)
+        err = float((out - generic).abs().max())
+        if err > bound:
+            fail(f"int8-resident {type(block).__name__}: differs from the generic int8 "
+                 f"block by {err} > {bound}")
+        worst[0] = max(worst[0], err)
+        worst[1] = max(worst[1], err / bound)
+        checked[0] += 1
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        generic_heat = model(crops, torch.float32)
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (BasicBlock, Bottleneck))]
+    try:
+        with torch.inference_mode():
+            model.cfg = dataclasses.replace(cfg, int8_resident=True)
+            resident_heat = model(crops, torch.float32)
+    finally:
+        model.cfg = cfg
+        for h in hooks:
+            h.remove()
+    if checked[0] != len(hooks) or not checked[0]:
+        fail(f"int8-resident: {checked[0]} of {len(hooks)} blocks checked")
+    return {"card": card, "crops": SUB_CROPS, "blocks_checked": checked[0],
+            "max_abs_diff": worst[0], "max_diff_over_bound": worst[1],
+            "heatmap_max_abs_diff": float((resident_heat - generic_heat).abs().max())}
+
+
+def phase_staged(torch, card, pipe, clip, frame_ids):
+    """process_frame over the first 4 frames against process_clip on them."""
+    n = 4
+    pipe.track_restart()
+    outs_c, dets_c, mask_c = pipe.process_clip(frame_ids[:n], clip[:n])
+    pipe.track_restart()
+    worst = 0.0
+    for t in range(n):
+        out, dets, mask = pipe.process_frame(t, clip[t])
+        if not torch.equal(mask, mask_c[t]):
+            fail(f"process_frame {t}: masks differ from process_clip")
+        if not torch.equal(out.valid, outs_c.valid[t]):
+            fail(f"process_frame {t}: track validity differs from process_clip")
+        err = (dets - dets_c[t]).abs()
+        if bool((err > 2e-2 + 1e-3 * dets_c[t].abs()).any()):
+            fail(f"process_frame {t}: detections differ from process_clip by up to "
+                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return {"card": card, "frames": n, "masks_equal": True, "dets_max_abs_diff": worst}
 
 
 def phase_tracker(torch, card):
@@ -300,21 +669,43 @@ def main():
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
 
-    main_path = phase_main_path(torch, gen, card)
+    k2 = phase_k2(torch, gen, card)
+    emit("k2_vs_plain", **k2)
+
+    main_path, state = phase_main_path(torch, gen, card)
     emit("main_path", **main_path)
+
+    int8 = phase_int8_path(torch, card, state)
+    emit("int8_main_path", **int8)
+    pipe, clip, frame_ids = state[:3]
+
+    emit("int8_resident", **phase_resident(torch, card, pipe, clip))
+    emit("staged_api", **phase_staged(torch, card, pipe, clip, frame_ids))
+    del pipe, clip, state
 
     tracker = phase_tracker(torch, card)
     emit("tracker_scene", **tracker)
 
     quarter = k1["modes"]["quarter"]
+    conv = k2["timed"]["hrnet_branch0_3x3_48"]
     print(json.dumps({"kernels": [{
         "name": "heatmap_decode", "route": "cuda",
         "source": "tpupose_torch/csrc/heatmap_decode.cu",
         "replaces": "tpupose/ops/pallas_heatmap.py:69",
-        "launches": main_path["decode_launches"],
+        "launches": int8["k1_launches"],
         "max_abs_err": k1["max_abs_err"], "ms": quarter["ms"],
         "plain_ms": quarter["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
+    }, {
+        "name": "int8_conv", "route": "cuda",
+        "source": "tpupose_torch/csrc/int8_conv.cu",
+        "replaces": "tpupose/models/quantize.py:210",
+        "launches": int8["k2_launches"],
+        "max_abs_err": k2["max_abs_err"], "ms": conv["ms"],
+        "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
+        "bound_by": conv["bound_by"], "library_ms": None,
+        "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
+        "plain_batch": conv["plain_batch"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -93,6 +93,37 @@ def test_plain_decode_equals_interpreted_pallas(fixture, refine):
     np.testing.assert_array_equal(got, ref)
 
 
+def _nonfinite():
+    """Non-finite planes (NHWC, 2 crops x 8 x 6 x 5 joints)."""
+    inf = np.float32(np.inf)
+    heat = np.random.default_rng(5).normal(scale=0.1, size=(2, 8, 6, 5)).astype(np.float32)
+    heat[:, 3, 2, :] = 1.0                     # a finite interior peak
+    heat[0, 3, 1, 0] = heat[0, 3, 3, 0] = -inf  # -inf left and right
+    heat[0, 2, 2, 1] = heat[0, 4, 2, 1] = -inf  # -inf up and down
+    heat[0, :, :, 2] = -inf                    # all -inf
+    heat[0, 3, 2, 3] = inf                     # +inf peak, finite neighbours
+    heat[0, 5, 4, 4] = np.nan                  # NaN counts as the largest
+    heat[1, 3, 1, 0] = -inf                    # -inf on one side only
+    heat[1, 3, 2, 1] = heat[1, 3, 3, 1] = inf  # +inf peak with a +inf neighbour
+    heat[1, 3, 1, 2] = np.nan                  # NaN neighbour of the peak
+    heat[1, 2, 2, 3] = heat[1, 4, 2, 3] = inf  # +inf above and below the peak
+    heat[1, :, :, 4] = np.nan                  # all NaN
+    return heat
+
+
+@pytest.mark.parametrize("refine", [False, True, "parabolic"])
+def test_non_finite_planes_decode_as_jax(refine):
+    # Quarter refinement next to two -inf (or +inf) neighbours takes the
+    # sign of inf - inf = NaN: jnp.sign gives NaN, torch.sign gives 0.
+    heat = _nonfinite()
+    boxes = np.tile(np.float32([[10, 20, 70, 100]]), (2, 1))
+    ref = np.asarray(j_decode(jnp.asarray(heat), jnp.asarray(boxes), refine=refine))
+    got = th.decode_heatmaps(_nchw(heat), torch.as_tensor(boxes), refine=refine).numpy()
+    np.testing.assert_array_equal(got, ref)  # NaN equals NaN here
+    if refine is True:
+        assert np.isnan(got[0, 0, 0]) and np.isnan(got[0, 1, 1])
+
+
 def test_planted_cases_decode_as_specified():
     heat = _planted()
     boxes = np.tile(np.float32([[0, 0, 12, 16]]), (6, 1))  # 1 px per cell

@@ -19,9 +19,13 @@ def _module_names():
 
 
 def test_import_loads_no_jax_and_no_tpupose():
+    names = _module_names()
+    for name in ("tpupose_torch.models.quantize", "tpupose_torch.ops.int8_conv",
+                 "tpupose_torch.pipeline.facade", "tpupose_torch.kernels"):
+        assert name in names, name
     code = (
         "import importlib, sys\n"
-        f"for name in {_module_names()!r}:\n"
+        f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'tpupose' or m.startswith('tpupose.'))\n"

@@ -7,6 +7,7 @@ so network outputs agree to 1e-4 of their largest magnitude (the JAX
 package's own folding test allows 1e-3); folded weights agree to f32
 rounding (rtol 1e-6). Key sets and shapes are exact.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -146,9 +147,11 @@ def test_hrnet_keys_equal_official(cfg_fn, fixture):
 
 
 def test_unported_hrnet_options_raise():
-    for kw in ({"pack_branch0": True}, {"int8_resident": True}):
-        with pytest.raises(NotImplementedError):
-            th.HRNet(th.HRNetConfig(**kw))
+    with pytest.raises(NotImplementedError, match="pack_branch0"):
+        th.HRNet(th.HRNetConfig(pack_branch0=True))
+    # int8_resident is ported (tests/test_torch_quantize.py runs it)
+    cfg = dataclasses.replace(th.tiny_test_config(), int8_resident=True)
+    assert th.HRNet(cfg).cfg.int8_resident
 
 
 def test_yolov3_f32_heads_and_decode_match_jax():

@@ -48,18 +48,23 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+// jnp.sign: -1, +-0 or 1, and NaN for NaN (a peak between two -inf or two
+// +inf neighbours gives inf - inf).
 __device__ __forceinline__ float sign_of(float d) {
+  if (isnan(d)) return d;
   return d > 0.f ? 1.f : (d < 0.f ? -1.f : d);
 }
 
 __device__ __forceinline__ float refine_offset(float c, float hi, float lo,
                                                int mode) {
   if (mode == 1) return __fmul_rn(0.25f, sign_of(__fsub_rn(hi, lo)));
-  // parabolic: (hi - lo) / (2 * max(2c - hi - lo, 1e-6)), clipped to 0.5
+  // parabolic: (hi - lo) / (2 * max(2c - hi - lo, 1e-6)), clipped to 0.5;
+  // the max and the clip keep NaN, as jnp.maximum and jnp.clip do (fmaxf
+  // and fminf would drop it)
   float den = __fsub_rn(__fsub_rn(__fmul_rn(2.f, c), hi), lo);
-  den = fmaxf(den, 1e-6f);
+  if (!isnan(den)) den = fmaxf(den, 1e-6f);
   const float d = __fdiv_rn(__fsub_rn(hi, lo), __fmul_rn(2.f, den));
-  return fminf(fmaxf(d, -0.5f), 0.5f);
+  return isnan(d) ? d : fminf(fmaxf(d, -0.5f), 0.5f);
 }
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)

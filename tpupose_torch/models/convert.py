@@ -4,7 +4,10 @@ The JAX trees are nested dicts whose key paths are torch state_dict names
 with HWIO conv kernels; `np.asarray` of every leaf gives the input here.
 The result loads with `load_state_dict(strict=True)` into the matching
 module: `HRNet` / `YOLOv3` for a plain tree, the same module after
-`fold_batchnorm` for a folded tree (whose BN dicts are empty).
+`fold_batchnorm` for a folded tree (whose BN dicts are empty), and for a
+quantized tree the module that `quantize.quantize_convs` returns for the
+same skip set (int8 `weight_q` HWIO -> OIHW; `w_scale`, `x_scale` and
+`bias` as they are).
 """
 from __future__ import annotations
 
@@ -22,11 +25,12 @@ def _flatten(tree, prefix=""):
 
 
 def state_dict_from_jax(tree) -> dict:
-    """Nested numpy tree -> flat torch state_dict: 4-D conv kernels
-    HWIO -> OIHW, and a zero `num_batches_tracked` beside every BN."""
+    """Nested numpy tree -> flat torch state_dict: 4-D conv kernels (float
+    `weight` and int8 `weight_q`) HWIO -> OIHW, and a zero
+    `num_batches_tracked` beside every BN."""
     sd = {}
     for name, arr in _flatten(tree):
-        if arr.ndim == 4 and name.endswith("weight"):
+        if arr.ndim == 4 and name.endswith(("weight", "weight_q")):
             arr = arr.transpose(3, 2, 0, 1)
         sd[name] = torch.tensor(arr)
         if name.endswith("running_var"):

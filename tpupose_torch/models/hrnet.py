@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpupose_torch.models import quantize
 from tpupose_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
@@ -33,10 +34,14 @@ class HRNetConfig:
     layer1_planes: int = 64
     stage_modules: tuple = (1, 4, 3)  # stages 2, 3, 4
     stage_blocks: int = 4
-    #: Width-packed branch 0 and int8-resident blocks are serving options of
-    #: the JAX package that the port does not have yet; setting either
-    #: makes `HRNet` raise NotImplementedError.
+    #: Width-packed branch 0 is a serving option of the JAX package that the
+    #: port does not have yet; setting it makes `HRNet` raise
+    #: NotImplementedError.
     pack_branch0: bool = False
+    #: Fused int8-resident blocks: in a quantized model, each basic block and
+    #: bottleneck whose convs are all quantized (BN folded) requantizes in
+    #: the conv epilogue, so the inter-conv tensors move as int8
+    #: (`quantize.quantized_basic_block` / `quantized_bottleneck`).
     int8_resident: bool = False
     #: Sub-pixel decode refinement: "quarter" (official HRNet, default) or
     #: "parabolic".
@@ -78,6 +83,13 @@ def _conv_bn(cin, cout, k, stride=1):
     return nn.Sequential(Conv2d(cin, cout, k, stride=stride), BatchNorm2d(cout))
 
 
+def _fusable(block, convs, bns):
+    """Every conv quantized and no live BN between them (folded BNs are
+    nn.Identity): the condition for an int8-resident block."""
+    return (all(quantize.is_quantized_conv(getattr(block, c)) for c in convs)
+            and all(isinstance(getattr(block, b), nn.Identity) for b in bns))
+
+
 class BasicBlock(nn.Module):
     def __init__(self, cin, cout):
         super().__init__()
@@ -87,7 +99,9 @@ class BasicBlock(nn.Module):
         self.bn2 = BatchNorm2d(cout)
         self.downsample = _conv_bn(cin, cout, 1) if cin != cout else None
 
-    def forward(self, x):
+    def forward(self, x, resident=False):
+        if resident and _fusable(self, ("conv1", "conv2"), ("bn1", "bn2")):
+            return quantize.quantized_basic_block(self, x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         skip = x if self.downsample is None else self.downsample(x)
@@ -108,7 +122,9 @@ class Bottleneck(nn.Module):
         self.bn3 = BatchNorm2d(cout)
         self.downsample = _conv_bn(cin, cout, 1) if cin != cout else None
 
-    def forward(self, x):
+    def forward(self, x, resident=False):
+        if resident and _fusable(self, ("conv1", "conv2", "conv3"), ("bn1", "bn2", "bn3")):
+            return quantize.quantized_bottleneck(self, x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -145,8 +161,12 @@ class HighResolutionModule(nn.Module):
             fuse.append(nn.ModuleList(row))
         self.fuse_layers = nn.ModuleList(fuse)
 
-    def forward(self, xs):
-        ys = [branch(x) for branch, x in zip(self.branches, xs)]
+    def forward(self, xs, resident=False):
+        ys = []
+        for branch, x in zip(self.branches, xs):
+            for block in branch:
+                x = block(x, resident)
+            ys.append(x)
         outs = []
         for i, row in enumerate(self.fuse_layers):
             acc = None
@@ -179,9 +199,9 @@ class HRNet(nn.Module):
 
     def __init__(self, cfg: HRNetConfig):
         super().__init__()
-        if cfg.pack_branch0 or cfg.int8_resident:
+        if cfg.pack_branch0:
             raise NotImplementedError(
-                "pack_branch0 and int8_resident are not ported to tpupose_torch")
+                "pack_branch0 (width-packed branch 0) is not ported to tpupose_torch")
         self.cfg = cfg
         w = cfg.branch_channels
         self.conv1 = Conv2d(3, cfg.stem_channels, 3, stride=2)
@@ -213,16 +233,18 @@ class HRNet(nn.Module):
         x = x.to(compute_dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
-        x = self.layer1(x)
+        resident = self.cfg.int8_resident
+        for block in self.layer1:
+            x = block(x, resident)
         xs = [self.transition1[0](x), self.transition1[1](x)]
         for module in self.stage2:
-            xs = module(xs)
+            xs = module(xs, resident)
         xs = xs + [self.transition2[2](xs[-1])]
         for module in self.stage3:
-            xs = module(xs)
+            xs = module(xs, resident)
         xs = xs + [self.transition3[3](xs[-1])]
         for module in self.stage4:
-            xs = module(xs)
+            xs = module(xs, resident)
         return self.final_layer(xs[0]).to(torch.float32)
 
 

@@ -11,13 +11,18 @@ names follow torch state_dict conventions (`weight`, `bias`,
 * `BatchNorm2d` is inference-mode BN with the JAX package's arithmetic
   (x * inv + (beta - mean * inv), inv = gamma / sqrt(var + eps)).
 * `fold_batchnorm` absorbs every (conv, bn) pair into the conv.
-The int8 and fake-quant conv paths of the JAX package are not ported.
+* `QuantConv2d` is the int8 serving conv (the JAX package's quantized conv
+  dict, with the same keys); `Conv2d.forward` reports its input to an
+  active `ActRecorder` for calibration (`tpupose_torch.models.quantize`).
+The fake-quant (QAT) conv path of the JAX package is not ported.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpupose_torch.ops.int8_conv import pack_weight
 
 
 def conv_apply(weight, bias, x, stride=1, dilation=1):
@@ -36,14 +41,97 @@ def bn_apply(bn, x, eps=1e-5):
     return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
+class ActRecorder:
+    """Collects per-conv input range statistics during one forward.
+
+    While a recorder is `active`, every `Conv2d.forward` calls
+    `observe(conv, x)`; taps are keyed by the conv module. `percentile=None`
+    records absmax, a float the `percentile`-th percentile of |x| (linear
+    interpolation, as jnp.quantile); `per_channel` records a vector over
+    input channels instead of a scalar.
+    """
+
+    active = None
+
+    def __init__(self, percentile=None, per_channel=False):
+        self.taps = []  # (conv module, range tensor)
+        self.percentile = percentile
+        self.per_channel = per_channel
+
+    def observe(self, conv, x):
+        if self.percentile is None:
+            dims = (0, 2, 3) if self.per_channel else None
+            v = (x.abs().amax(dim=dims) if dims else x.abs().amax()).to(torch.float32)
+        else:
+            a = x.to(torch.float32).abs()
+            a = a.transpose(0, 1).reshape(a.shape[1], -1) if self.per_channel else a.reshape(1, -1)
+            v = quantile_linear(a, self.percentile / 100.0)
+            v = v if self.per_channel else v[0]
+        self.taps.append((conv, v))
+
+
+def quantile_linear(a, q):
+    """jnp.quantile(a, q, axis=1) with linear interpolation, in f32, on a
+    2-D tensor (torch.quantile refuses more than 2^24 elements): the
+    position q * (n - 1) in f32, low and high order statistics by kthvalue,
+    low * (1 - w) + high * w."""
+    n = a.shape[1]
+    f32 = dict(dtype=torch.float32)
+    pos = torch.tensor(q, **f32) * (torch.tensor(float(n), **f32) - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    w_high = pos - low
+    w_low = 1 - w_high
+    lo = int(min(max(float(low), 0), n - 1))
+    hi = int(min(max(float(high), 0), n - 1))
+    lo_v = torch.kthvalue(a, lo + 1, dim=1).values
+    hi_v = lo_v if hi == lo else torch.kthvalue(a, hi + 1, dim=1).values
+    return lo_v * w_low.to(a.device) + hi_v * w_high.to(a.device)
+
+
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d with padding k//2 that computes in the input's dtype."""
+    """nn.Conv2d with padding k//2 that computes in the input's dtype and
+    reports its input to an active `ActRecorder`."""
 
     def __init__(self, cin, cout, k, stride=1, bias=False):
         super().__init__(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 
     def forward(self, x):
+        if ActRecorder.active is not None:
+            ActRecorder.active.observe(self, x)
         return conv_apply(self.weight, self.bias, x, self.stride, self.dilation)
+
+
+class QuantConv2d(nn.Module):
+    """int8 serving conv: the JAX package's quantized conv dict as buffers.
+
+    `weight_q` (Cout, Cin, kh, kw) int8, `w_scale` (Cout,) f32, `x_scale` 0-d
+    f32 and, where the float conv had one, `bias` (Cout,) f32: the state_dict
+    keys equal the quantized JAX tree's key paths. `weight_k` is the kernel's
+    layout of `weight_q` (`ops.int8_conv.pack_weight`), kept out of the
+    state_dict and rebuilt whenever one is loaded. The forward quantizes its
+    input at `x_scale`, convolves in int8 with int32 sums and dequantizes to
+    the input's dtype (`quantize.quantized_conv_apply`). Move it with
+    `.to(device)` only: a dtype cast would round the scales.
+    """
+
+    def __init__(self, weight_q, w_scale, x_scale, bias=None, stride=1, dilation=1):
+        super().__init__()
+        self.stride = stride
+        self.dilation = dilation
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("x_scale", x_scale)
+        self.register_buffer("bias", bias)
+        self.register_buffer("weight_k", pack_weight(weight_q), persistent=False)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.weight_k = pack_weight(self.weight_q)
+
+    def forward(self, x):
+        from tpupose_torch.models.quantize import quantized_conv_apply
+
+        return quantized_conv_apply(self, x, self.stride, self.dilation)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -1,5 +1,5 @@
 """Numerical ops: LAP, smoothing, heatmap decode (kernel K1), image
-resampling, NMS."""
+resampling, NMS; the int8 conv (kernel K2) is `ops.int8_conv`."""
 from tpupose_torch.ops.heatmap import (
     decode_heatmaps,
     decode_heatmaps_auto,

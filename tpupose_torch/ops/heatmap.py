@@ -34,6 +34,11 @@ def refine_mode(refine) -> int:
         raise ValueError(f"unknown decode refinement {refine!r}") from None
 
 
+def _sign(d):
+    """jnp.sign: NaN stays NaN (torch.sign(NaN) is 0)."""
+    return torch.where(torch.isnan(d), d, torch.sign(d))
+
+
 def decode_heatmaps(heat, boxes, refine=True):
     """Decode keypoints from heatmaps (plain torch).
 
@@ -79,8 +84,8 @@ def decode_heatmaps(heat, boxes, refine=True):
             px = px + torch.where(interior, torch.clamp(dx, -0.5, 0.5), zero)
             py = py + torch.where(interior, torch.clamp(dy, -0.5, 0.5), zero)
         else:
-            px = px + torch.where(interior, 0.25 * torch.sign(right - left), zero)
-            py = py + torch.where(interior, 0.25 * torch.sign(up - down), zero)
+            px = px + torch.where(interior, 0.25 * _sign(right - left), zero)
+            py = py + torch.where(interior, 0.25 * _sign(up - down), zero)
 
     x0, y0 = boxes[:, 0:1], boxes[:, 1:2]
     bw = boxes[:, 2:3] - boxes[:, 0:1]

@@ -1,9 +1,11 @@
 """End-to-end pipeline facade: detect -> crop -> 2D pose -> decode -> track.
 
-Counterpart of `tpupose/pipeline/facade.py` (the clip path and the replay
-step). Stage A (`_clip_detections`) runs YOLOv3 and HRNet over every frame
-of a clip as one batch; stage B runs the tracker over the frames. The
-pipeline lives on one device, CUDA unless the caller passes another.
+Counterpart of `tpupose/pipeline/facade.py`: the clip path, the staged API
+(`person_detect`, `person_pose_detect`, `person_track`, `process_frame`,
+`process_clips_nn`) and int8 serving (`quantize_models` with its drift
+self-check). Stage A (`_clip_detections`) runs YOLOv3 and HRNet over every
+frame of a clip as one batch; stage B runs the tracker over the frames.
+The pipeline lives on one device, CUDA unless the caller passes another.
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ from tpupose_torch.tracking.tracker import (
 )
 
 
+# Fewest sample frames for which int8 activation-scale calibration and the
+# drift self-check are trusted without a warning.
+MIN_CALIB_SAMPLES = 8
+
+
 def resolve_device(device=None) -> torch.device:
     """`device`, or CUDA when None; raises if CUDA is asked for and absent
     (the port never moves to the CPU on its own)."""
@@ -53,7 +60,6 @@ def _clip_detections(det_cfg, pose_cfg, tcfg, detector, pose_model, images,
     Returns:
       dets: (N, D, J, 3) (x, y, score); mask: (N, D) bool.
     """
-    in_h, in_w = pose_cfg.input_size
     n, h, w, _ = images.shape
     # bf16 preprocessing, as the JAX package: uint8 values are exact in
     # bf16 and the resample products accumulate in f32.
@@ -61,12 +67,9 @@ def _clip_detections(det_cfg, pose_cfg, tcfg, detector, pose_model, images,
     ximg = prepare_yolo_images(det_cfg, x)
     boxes, _, valid = detect_people(detector, det_cfg, ximg, (h, w), compute_dtype)
     k = boxes.shape[1]
-    eboxes = expand_box_to_aspect(boxes.reshape(-1, 4), in_h / in_w)
-    crops = crop_and_resize(x, eboxes.reshape(n, k, 4), (in_h, in_w))
-    crops = normalize_image(crops.reshape(n * k, in_h, in_w, 3), value_scale=1.0)
-    heat = pose_model(crops.permute(0, 3, 1, 2).contiguous(), compute_dtype)  # f32 NCHW
-    kps = decode_heatmaps_auto(heat, eboxes.contiguous(),
-                               refine=pose_cfg.decode_refine)
+    eboxes, crops = _pose_crops(pose_cfg, x, boxes)
+    heat = pose_model(crops, compute_dtype)  # f32 NCHW
+    kps = decode_heatmaps_auto(heat, eboxes, refine=pose_cfg.decode_refine)
     kps = kps.reshape(n, k, pose_cfg.num_joints, 3)
     d = tcfg.max_dets
     if k >= d:
@@ -76,6 +79,31 @@ def _clip_detections(det_cfg, pose_cfg, tcfg, detector, pose_model, images,
     mask = valid.new_zeros((n, d))
     mask[:, :k] = valid
     return dets, mask
+
+
+def _box_iou(box, others):
+    """IoU of one (4,) xyxy box against (M, 4) boxes (numpy)."""
+    x1 = np.maximum(box[0], others[:, 0])
+    y1 = np.maximum(box[1], others[:, 1])
+    x2 = np.minimum(box[2], others[:, 2])
+    y2 = np.minimum(box[3], others[:, 3])
+    inter = np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)
+    a = np.clip(box[2] - box[0], 0, None) * np.clip(box[3] - box[1], 0, None)
+    b = np.clip(others[:, 2] - others[:, 0], 0, None) * np.clip(
+        others[:, 3] - others[:, 1], 0, None)
+    return inter / np.maximum(a + b - inter, 1e-9)
+
+
+def _pose_crops(pose_cfg, x, boxes):
+    """(N, H, W, 3) bf16 frames in [0, 1] and (N, K, 4) boxes -> the
+    aspect-expanded (N*K, 4) boxes and the (N*K, 3, h, w) normalized crops
+    HRNet reads."""
+    in_h, in_w = pose_cfg.input_size
+    n, k = boxes.shape[:2]
+    eboxes = expand_box_to_aspect(boxes.reshape(-1, 4), in_h / in_w)
+    crops = crop_and_resize(x, eboxes.reshape(n, k, 4), (in_h, in_w))
+    crops = normalize_image(crops.reshape(n * k, in_h, in_w, 3), value_scale=1.0)
+    return eboxes.contiguous(), crops.permute(0, 3, 1, 2).contiguous()
 
 
 class Pipeline:
@@ -127,6 +155,195 @@ class Pipeline:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                                dtype=dtype, device=self.device)
 
+    # -- int8 serving ------------------------------------------------------------
+
+    def quantize_models(self, sample_images, qat_steps=0, qat_lr=1e-5,
+                        qat_batch=8, qat_log=None, check_px=2.5,
+                        on_drift="escalate", escalate_steps=900,
+                        box_lost_gate=0.25):
+        """Switch both backbones to int8 serving, after a drift self-check.
+
+        Calibrates the activation scales by running the real preprocess ->
+        detect -> crop path on `sample_images` ((N, H, W, 3) uint8 RGB
+        frames, ideally from the deployment scenes) in the pipeline's
+        compute dtype, then replaces `detector` and `pose_model` with int8
+        copies (`tpupose_torch.models.quantize`); every later call runs
+        them.
+
+        Self-check (on unless `check_px=None`): the decoded keypoints of the
+        int8 pose model are compared with the float model's on the
+        calibration crops, and the int8 detector's boxes with the float
+        detector's. If the median keypoint shift exceeds `check_px` px, or
+        more than `box_lost_gate` of the float boxes have no IoU >= 0.5
+        int8 counterpart, `on_drift` decides:
+
+          * ``"raise"``: raise `QuantizationDriftError`;
+          * ``"warn"``: print the measured drift and keep the int8 models;
+          * ``"escalate"`` (default): the JAX package re-runs as label-free
+            distill-QAT; that training is not ported yet, so a failing
+            check raises NotImplementedError here (a passing one serves).
+
+        `qat_steps > 0` (distill-QAT) raises NotImplementedError for the
+        same reason; `qat_lr`, `qat_batch`, `qat_log` and `escalate_steps`
+        belong to it. `last_quant_report` holds the check's numbers.
+        """
+        from tpupose_torch.models.quantize import (
+            QuantizationDriftError,
+            quantize_hrnet,
+            quantize_yolo,
+        )
+
+        if on_drift not in ("escalate", "raise", "warn"):
+            raise ValueError(f"on_drift must be escalate/raise/warn, "
+                             f"got {on_drift!r}")
+        not_ported = ("distill-QAT (label-free quantization-aware "
+                      "fine-tuning) is not ported to tpupose_torch yet; "
+                      "on_drift='raise' or on_drift='warn' with qat_steps=0 "
+                      "work today")
+        if qat_steps > 0:
+            raise NotImplementedError(f"qat_steps={qat_steps}: {not_ported}")
+
+        det_f, pose_f = self.detector, self.pose_model
+        x = self._as_input(sample_images)
+        n, h, w, _ = x.shape
+        if n < MIN_CALIB_SAMPLES:
+            print(
+                f"WARNING: int8 calibration + self-check running on only "
+                f"{n} sample frame(s) (< {MIN_CALIB_SAMPLES}); the "
+                "activation scales AND the drift check may not represent "
+                "the deployment scenes — pass more frames "
+                "(--int8-calib >= 8)"
+            )
+        dt = self.compute_dtype
+        with torch.inference_mode():
+            # calibrate on the same bf16 preprocessing as the clip program;
+            # the float models' boxes, crops and keypoints are the pose
+            # calibration input and the self-check's baseline in one pass
+            xf = x.to(torch.bfloat16) / 255.0
+            ximg = prepare_yolo_images(self.det_cfg, xf)
+            boxes, _, valid = detect_people(det_f, self.det_cfg, ximg, (h, w), dt)
+            eboxes, crops = _pose_crops(self.pose_cfg, xf, boxes)
+        det_q = quantize_yolo(det_f, self.det_cfg,
+                              ximg.permute(0, 3, 1, 2).contiguous(), dt)
+        pose_q = quantize_hrnet(pose_f, self.pose_cfg, crops, compute_dtype=dt)
+
+        if check_px is not None:
+            report = self._quant_self_check(det_f, pose_f, det_q, pose_q,
+                                            ximg, (h, w), crops, eboxes, valid)
+            failed = (report["kps_median_px"] > check_px
+                      or report["box_lost_frac"] > box_lost_gate)
+            msg = ("int8 self-check: keypoint shift median "
+                   f"{report['kps_median_px']:.2f} px / p95 "
+                   f"{report['kps_p95_px']:.2f} px vs bf16 (gate "
+                   f"{check_px} px); boxes lost "
+                   f"{report['box_lost_frac'] * 100:.1f}% (gate "
+                   f"{box_lost_gate * 100:.0f}%) "
+                   f"[checked on {n} frames / {crops.shape[0]} crops]")
+            if failed and on_drift == "escalate":
+                raise NotImplementedError(
+                    f"{msg} -> FAILED; the JAX package escalates to "
+                    f"label-free distill-QAT here, but {not_ported}")
+            if failed and on_drift == "raise":
+                raise QuantizationDriftError(
+                    f"{msg} — refusing to serve a provably-drifted int8 "
+                    "model. Remedies: more/representative --int8-calib "
+                    "frames, --qat-steps 900, or on_drift='warn' to "
+                    "override."
+                )
+            print(msg + (" -> FAILED (continuing: on_drift='warn')"
+                         if failed else " -> ok"))
+            self.last_quant_report = report
+
+        self.detector = det_q
+        self.pose_model = pose_q
+
+    def _quant_self_check(self, det_f, pose_f, det_q, pose_q, ximg, hw, crops,
+                          eboxes, valid):
+        """Decoded-keypoint and box drift of the int8 models against the
+        float models on the calibration inputs. Returns summary floats."""
+        dt = self.compute_dtype
+        with torch.inference_mode():
+            def decode(model):
+                return decode_heatmaps_auto(model(crops, dt), eboxes,
+                                            refine=self.pose_cfg.decode_refine)
+
+            kps_ref = decode(pose_f).cpu().numpy()  # (n*k, J, 3)
+            kps_q = decode(pose_q).cpu().numpy()
+            boxes_ref, _, valid_ref = detect_people(det_f, self.det_cfg, ximg, hw, dt)
+            boxes_q, _, valid_q = detect_people(det_q, self.det_cfg, ximg, hw, dt)
+        vmask = valid.cpu().numpy().reshape(-1)
+        shift = np.linalg.norm(kps_q[..., :2] - kps_ref[..., :2], axis=-1)[vmask]
+        if shift.size == 0:
+            # no people in the calibration frames: keypoint drift unknowable
+            kps_median = kps_p95 = 0.0
+            print("int8 self-check: WARNING — no detections in the "
+                  "calibration frames; keypoint drift not assessed. "
+                  "Use frames that contain people.")
+        else:
+            kps_median = float(np.median(shift))
+            kps_p95 = float(np.percentile(shift, 95))
+        br = boxes_ref.cpu().numpy().astype(np.float32)
+        bq = boxes_q.cpu().numpy().astype(np.float32)
+        vr = valid_ref.cpu().numpy()
+        vq = valid_q.cpu().numpy()
+        lost = total = 0
+        for i in range(br.shape[0]):
+            for j in np.flatnonzero(vr[i]):
+                total += 1
+                if not vq[i].any():
+                    lost += 1
+                    continue
+                if _box_iou(br[i, j], bq[i][vq[i]]).max() < 0.5:
+                    lost += 1
+        return {
+            "kps_median_px": kps_median,
+            "kps_p95_px": kps_p95,
+            "kps_n": int(shift.size),
+            "box_lost_frac": (lost / total) if total else 0.0,
+            "box_n": total,
+        }
+
+    # -- staged API --------------------------------------------------------------
+
+    def person_detect(self, images):
+        """(C, H, W, 3) uint8 RGB -> (boxes (C, K, 4), scores (C, K),
+        valid (C, K)), with the clip program's bf16 preprocessing."""
+        x = self._as_input(images)
+        with torch.inference_mode():
+            xf = prepare_yolo_images(self.det_cfg, x.to(torch.bfloat16) / 255.0)
+            return detect_people(self.detector, self.det_cfg, xf,
+                                 (x.shape[1], x.shape[2]), self.compute_dtype)
+
+    def person_pose_detect(self, images, boxes, box_valid):
+        """Top-down 2D pose on the (C, K, 4) detection boxes of (C, H, W, 3)
+        uint8 frames, batched across cameras. Returns (C, K, J, 3)
+        keypoints (x, y, score) and the (C, K) mask."""
+        x = self._as_input(images)
+        boxes = self._as_input(boxes, torch.float32)
+        c, k = boxes.shape[:2]
+        with torch.inference_mode():
+            eboxes, crops = _pose_crops(self.pose_cfg, x.to(torch.bfloat16) / 255.0, boxes)
+            kps = decode_heatmaps_auto(self.pose_model(crops, self.compute_dtype),
+                                       eboxes, refine=self.pose_cfg.decode_refine)
+        return kps.reshape(c, k, self.pose_cfg.num_joints, 3), box_valid
+
+    def process_frame(self, frame_id, images):
+        """Detect, pose and track one multi-view frame.
+
+        Args:
+          images: (C, H, W, 3) uint8 RGB.
+        Returns:
+          (FrameOutput, detections (C, D, J, 3), det_mask (C, D)).
+        """
+        x = self._as_input(images)
+        with torch.inference_mode():
+            dets, mask = _clip_detections(
+                self.det_cfg, self.pose_cfg, self.tracker_cfg, self.detector,
+                self.pose_model, x, self.compute_dtype)
+            self.state, out = tracker_step(self.tracker_cfg, self.cams, self.state,
+                                           dets, mask, int(frame_id))
+        return out, dets, mask
+
     def person_track(self, frame_id, detections, det_mask) -> FrameOutput:
         """One tracker step on (C, D, J, 3) detections and a (C, D) mask;
         returns the FrameOutput and updates self.state."""
@@ -149,6 +366,12 @@ class Pipeline:
         d = dets.shape[1]
         return (dets.reshape(f, c, d, self.tracker_cfg.num_joints, 3),
                 mask.reshape(f, c, d))
+
+    def process_clips_nn(self, clips):
+        """Stage A for a batch of clips: (B, F, C, H, W, 3) uint8 ->
+        ((B, F, C, D, J, 3) detections, (B, F, C, D) mask)."""
+        outs = [self.process_clip_nn(clip) for clip in self._as_input(clips)]
+        return (torch.stack([d for d, _ in outs]), torch.stack([m for _, m in outs]))
 
     def process_clip(self, frame_ids, clip_images):
         """Batched NN over the whole clip (stage A), then the tracker over
