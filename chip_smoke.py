@@ -12,12 +12,15 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      on random heatmaps with planted ties, plateaus, border peaks and
      non-finite neighbours (NaN compared as equal); median times of both;
   4. K2 (int8 conv) against its plain torch version, `torch.equal`, at every
-     distinct quantized conv shape of HRNet-W48 384x288 (on 8 crops) and
-     YOLOv3-416 (on 4 images), float and int8 input, dequantize and
-     requant-relu epilogue, plus one dilated shape; then at the full
-     main-path batch the times of K2, of the bf16 cuDNN conv of the same
-     shape, and of the plain version on the sub-batch, for HRNet branch 0's
-     3x3 48->48 at 96x72 (x640) and YOLO's 3x3 128->256 at 52x52 (x160);
+     distinct quantized conv shape of HRNet-W48 384x288 and YOLOv3-416 at
+     the main path's batch (640 crops, 160 images), float input with a
+     planted NaN and int8 input, dequantize and requant-relu epilogue, plus
+     one dilated shape: K2 runs on the whole batch, and its first and last
+     8 crops / 4 images are held against the plain version on those
+     images (the last ones sit at the largest offsets); then the times of
+     K2, of its plain version and of the bf16 cuDNN conv, all on the whole
+     batch, for HRNet branch 0's 3x3 48->48 at 96x72 (x640) and YOLO's 3x3
+     128->256 at 52x52 (x160);
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
@@ -55,7 +58,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 H100_F32_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
 H100_INT8_OPS_PER_S = 1.979e15  # H100 SXM int8 tensor cores, dense
-SUB_CROPS, SUB_IMAGES = 8, 4     # K2's comparison batches (HRNet, YOLO)
+MAIN_CROPS, MAIN_IMAGES = 640, 160  # the main path's batches (HRNet, YOLO)
+SUB_CROPS, SUB_IMAGES = 8, 4     # images of a K2 output held against plain
 
 
 def fail(msg, code=1):
@@ -221,7 +225,9 @@ def main_path_conv_shapes(torch):
 
 def k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype):
     """Random operands of one K2 call: weights, input, 1/x_scale and the
-    epilogue vectors, scaled so that int8 outputs spread over [0, 127]."""
+    epilogue vectors, scaled so that int8 outputs spread over [0, 127]. A
+    float input holds a NaN in its first and its last image (quantized to
+    0, as XLA converts NaN to int8)."""
     cin, h, w, cout, k, _, _ = shape
     kk = cin * k * k
     wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, device="cuda",
@@ -232,6 +238,7 @@ def k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype):
         code_std = 73.3
     else:
         x = (torch.randn((batch, cin, h, w), generator=gen, device="cuda") * 2.0).to(in_dtype)
+        x[0, 0, h // 2, w // 2] = x[-1, -1, h // 3, w // 3] = float("nan")
         code_std = 2.0 * 127.0 / 8.0
     inv = torch.tensor([127.0 / 8.0], device="cuda")
     acc_std = code_std * 73.3 * kk ** 0.5
@@ -245,7 +252,7 @@ def k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype):
 
 def phase_k2(torch, gen, card):
     """K2 against its plain version at every quantized conv shape of the
-    main path, then timed at the full batch of two shapes."""
+    main path and at its batch, then timed at two shapes."""
     import torch.nn.functional as F
 
     from tpupose_torch.ops import int8_conv as k2
@@ -258,37 +265,42 @@ def phase_k2(torch, gen, card):
     b16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     modes = [(b16, b16), (b16, i8), (i8, b16), (i8, i8)]
     dilated = (48, 96, 72, 48, 3, 1, 2)
-    cases = ([(sh, SUB_CROPS, modes) for sh in sorted(hr_shapes)]
-             + [(sh, SUB_IMAGES, modes) for sh in sorted(yo_shapes)]
-             + [(dilated, SUB_CROPS, modes + [(f32, f32), (f32, i8)])])
+    cases = ([(sh, MAIN_CROPS, SUB_CROPS, modes) for sh in sorted(hr_shapes)]
+             + [(sh, MAIN_IMAGES, SUB_IMAGES, modes) for sh in sorted(yo_shapes)]
+             + [(dilated, MAIN_CROPS, SUB_CROPS, modes + [(f32, f32), (f32, i8)])])
     checked, max_err = 0, 0.0
-    for shape, batch, shape_modes in cases:
+    for shape, batch, sub, shape_modes in cases:
+        _, _, _, _, k, stride, dil = shape
         for in_dtype, out_dtype in shape_modes:
             wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype)
-            _, _, _, _, k, stride, dil = shape
             got = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, out_dtype, stride, dil)
-            ref = k2.int8_conv_plain(x, wq, inv, mul, add, out_dtype, stride, dil)
-            err = float((got.float() - ref.float()).abs().max())
-            max_err = max(max_err, err)
-            if not torch.equal(got, ref):
-                fail(f"K2 {shape} batch {batch} {in_dtype} -> {out_dtype}: differs from "
-                     f"the plain version by up to {err}")
-            if out_dtype == i8 and not (ref.min() == 0 and ref.max() == 127 and bool(ref.any())):
-                fail(f"K2 {shape}: the requant check does not span [0, 127]")
+            what = f"K2 {shape} batch {batch} {in_dtype} -> {out_dtype}"
+            if out_dtype != i8 and not bool(torch.isfinite(got).all()):
+                fail(f"{what}: non-finite outputs")
+            for first in (0, batch - sub):
+                part = slice(first, first + sub)
+                ref = k2.int8_conv_plain(x[part], wq, inv, mul, add, out_dtype, stride, dil)
+                err = float((got[part].float() - ref.float()).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(got[part], ref):
+                    fail(f"{what}: images {first}..{first + sub - 1} differ from the "
+                         f"plain version by up to {err}")
+                if out_dtype == i8 and not (ref.min() == 0 and ref.max() == 127):
+                    fail(f"{what}: the requant check does not span [0, 127]")
             checked += 1
+            del x, got
     timed = {}
-    for name, shape, batch, sub in (("hrnet_branch0_3x3_48", (48, 96, 72, 48, 3, 1, 1), 640, SUB_CROPS),
-                                    ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), 160, SUB_IMAGES)):
+    for name, shape, batch in (("hrnet_branch0_3x3_48", (48, 96, 72, 48, 3, 1, 1), MAIN_CROPS),
+                               ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES)):
         cin, h, w, cout, k, stride, dil = shape
         wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, b16, b16)
         y = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil)
         ms = cuda_time_ms(lambda: k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil),
                           reps=10)
+        plain_ms = cuda_time_ms(lambda: k2.int8_conv_plain(x, wq, inv, mul, add, b16, stride, dil),
+                                warmup=1, reps=3)
         wb = torch.randn((cout, cin, k, k), generator=gen, device="cuda").to(b16)
         cudnn_ms = cuda_time_ms(lambda: F.conv2d(x, wb, padding=k // 2), reps=10)
-        xs = x[:sub].contiguous()
-        plain_ms = cuda_time_ms(lambda: k2.int8_conv_plain(xs, wq, inv, mul, add, b16, stride, dil),
-                                warmup=1, reps=3)
         kk = cin * k * k
         m = batch * y.shape[2] * y.shape[3]
         moved = x.numel() * 2 + wq.numel() + y.numel() * 2 + 2 * cout * 4 + 4
@@ -298,9 +310,12 @@ def phase_k2(torch, gen, card):
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                        "bytes": moved, "int_ops": ops, "bf16_cudnn_ms": cudnn_ms,
-                       "plain_ms": plain_ms, "plain_batch": sub}
-        del x, y, xs
-    return {"card": card, "checked": checked, "distinct_shapes": {
+                       "plain_ms": plain_ms}
+        del x, y
+    return {"card": card, "checked": checked, "batch": {"hrnet_w48": MAIN_CROPS,
+                                                        "yolov3_416": MAIN_IMAGES},
+            "compared_images": {"hrnet_w48": 2 * SUB_CROPS, "yolov3_416": 2 * SUB_IMAGES},
+            "distinct_shapes": {
                 "hrnet_w48": len(hr_shapes), "yolov3_416": len(yo_shapes), "dilated": 1},
             "quantized_convs": {"hrnet_w48": sum(hr_shapes.values()),
                                 "yolov3_416": sum(yo_shapes.values())},
@@ -705,7 +720,6 @@ def main():
         "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
         "bound_by": conv["bound_by"], "library_ms": None,
         "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
-        "plain_batch": conv["plain_batch"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

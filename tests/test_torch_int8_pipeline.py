@@ -227,6 +227,9 @@ def test_escalation_and_qat_are_not_ported_yet(capsys):
     assert "on_drift='raise'" in str(e.value) and "FAILED" in str(e.value)
     with pytest.raises(NotImplementedError, match="distill-QAT"):
         pipe.quantize_models(_images(), qat_steps=2)
+    # the QAT options that would have no effect are not taken at all
+    with pytest.raises(TypeError, match="escalate_steps"):
+        pipe.quantize_models(_images(), escalate_steps=5000)
     assert isinstance(pipe.pose_model.layer1[0].conv1, tl.Conv2d)
     capsys.readouterr()
     # a passing check serves as in the JAX package

@@ -123,23 +123,25 @@ def test_int8_conv_exact_and_apply_match_jax(shape):
     rng = np.random.default_rng(1)
     qj, qt = _quant_pair(rng, cin, cout, k, stride, dil)
     x = rng.standard_normal((2, 11, 9, cin)).astype(np.float32) * 2.0
+    x[1, 5, 4, 0] = np.nan  # XLA converts it to the int8 code 0
     xq = np.asarray(jq._quant_input(qj, jnp.asarray(x)))
-    got_q = tq._quant_input(qt, _nchw(x))
+    got_q = tk.quantize_input(_nchw(x), qt.inv_scale())
     np.testing.assert_array_equal(_nhwc(got_q), xq)
+    assert xq[1, 5, 4, 0] == 0
 
     ref = np.asarray(jq._int8_conv(jnp.asarray(xq), qj["weight_q"], stride, dilation=dil))
-    got = tq._int8_conv(got_q, qt.weight_q, stride, dil)
+    got = tk.conv_exact(got_q, qt.weight_q, stride, dil)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(_nhwc(got), ref)
     assert np.abs(ref).max() > 127  # a real sum, not a copy
 
     ref32 = np.asarray(jq.quantized_conv_apply(qj, jnp.asarray(x), stride, dilation=dil))
-    got32 = _nhwc(tq.quantized_conv_apply(qt, _nchw(x), stride, dil))
+    got32 = _nhwc(qt(_nchw(x)))
     assert got32.dtype == np.float32
     np.testing.assert_array_max_ulp(got32, ref32, maxulp=1)
     xb = jnp.asarray(x, jnp.bfloat16)
     refb = np.asarray(jq.quantized_conv_apply(qj, xb, stride, dilation=dil).astype(jnp.float32))
-    gotb = tq.quantized_conv_apply(qt, _nchw(x).to(torch.bfloat16), stride, dil)
+    gotb = qt(_nchw(x).to(torch.bfloat16))
     assert gotb.dtype == torch.bfloat16
     np.testing.assert_array_equal(_nhwc(gotb.float()), refb)
 
@@ -150,7 +152,7 @@ def test_requant_relu_bit_equal():
     qj2, qt2 = _quant_pair(rng, 16, 8, 3, absmax=5.0)
     y32 = rng.integers(-20000, 20000, size=(2, 7, 5, 16)).astype(np.int32)
     ref = np.asarray(jq._requant_relu(jnp.asarray(y32), qj1, qj2))
-    got = tq._requant_relu(_nchw(y32), qt1, qt2)
+    got = tk.epilogue(_nchw(y32), *tq.requant_vectors(qt1, qt2), torch.int8)
     assert got.dtype == torch.int8 and ref.min() == 0 and ref.max() == 127
     np.testing.assert_array_equal(_nhwc(got), ref)
 
@@ -334,9 +336,11 @@ def test_int8_conv_dispatch_keeps_cpu_tensors_on_the_plain_version(monkeypatch):
     _, qt = _quant_pair(rng, 5, 70, 3)
     x = _nchw(rng.standard_normal((1, 6, 7, 5)).astype(np.float32))
     before = tk.launches
-    mul, add = tq._dequant_vectors(qt)
-    got = tk.int8_conv(x, qt.weight_q, qt.weight_k, tq._inv_scale(qt), mul, add, torch.float32)
-    torch.testing.assert_close(got, tq.quantized_conv_apply(qt, x), rtol=0, atol=0)
+    mul, add = qt.dequant_vectors()
+    got = tk.int8_conv(x, qt.weight_q, qt.weight_k, qt.inv_scale(), mul, add, torch.float32)
+    torch.testing.assert_close(got, tk.int8_conv_plain(x, qt.weight_q, qt.inv_scale(), mul, add,
+                                                       torch.float32), rtol=0, atol=0)
+    torch.testing.assert_close(qt(x), got, rtol=0, atol=0)
     assert tk.launches == before
     # the kernel's weight operand: rows of weight_q in (ci, kh, kw) order,
     # Cout padded to 64 and K to 32 with zeros
@@ -346,7 +350,7 @@ def test_int8_conv_dispatch_keeps_cpu_tensors_on_the_plain_version(monkeypatch):
     assert not qt.weight_k[70:].any() and not qt.weight_k[:, 45:].any()
     assert "weight_k" not in qt.state_dict()
     with pytest.raises(ValueError, match="CUDA"):
-        tk.int8_conv_cuda(x, qt.weight_k, (3, 3), tq._inv_scale(qt), mul, add, torch.float32)
+        tk.int8_conv_cuda(x, qt.weight_k, (3, 3), qt.inv_scale(), mul, add, torch.float32)
     if not torch.cuda.is_available():
         from tpupose_torch.pipeline import resolve_device
 

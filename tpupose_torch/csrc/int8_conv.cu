@@ -14,6 +14,7 @@
 //   acc[n, co, oh, ow] = sum_k q(x[n, ci, oh*s - ph + r*d, ow*s - pw + c*d])
 //                              * wq[co, k]                       (int32)
 //   q(v) = clamp(rint(v * inv), -127, 127) for a float input (bf16 or f32),
+//          0 where v * inv is NaN (XLA's convert of NaN to int8),
 //   q(v) = v for an int8 input (the int8-resident blocks).
 // Padding is k//2 with zero-point 0, so an out-of-range tap is exactly 0.
 // Epilogue, per output channel co, with vectors the wrapper computes in the
@@ -102,8 +103,12 @@ template <> struct Src<kI8> {
   }
 };
 
+// A NaN input quantizes to 0, as XLA's float -> int8 convert gives it (fmaxf
+// would drop the NaN and give -127).
 __device__ __forceinline__ int quantize(float v, float inv) {
-  const float q = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
+  const float p = __fmul_rn(v, inv);
+  if (isnan(p)) return 0;
+  const float q = fminf(fmaxf(rintf(p), -127.f), 127.f);
   return static_cast<int>(q);
 }
 

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpupose_torch.ops.int8_conv import pack_weight
+from tpupose_torch.ops.int8_conv import int8_conv, pack_weight
 
 
 def conv_apply(weight, bias, x, stride=1, dilation=1):
@@ -108,10 +108,12 @@ class QuantConv2d(nn.Module):
     f32 and, where the float conv had one, `bias` (Cout,) f32: the state_dict
     keys equal the quantized JAX tree's key paths. `weight_k` is the kernel's
     layout of `weight_q` (`ops.int8_conv.pack_weight`), kept out of the
-    state_dict and rebuilt whenever one is loaded. The forward quantizes its
-    input at `x_scale`, convolves in int8 with int32 sums and dequantizes to
-    the input's dtype (`quantize.quantized_conv_apply`). Move it with
-    `.to(device)` only: a dtype cast would round the scales.
+    state_dict and rebuilt whenever one is loaded. The forward is the JAX
+    `quantized_conv_apply`: it quantizes its input at `x_scale`, convolves
+    in int8 with int32 sums, dequantizes per channel, adds the bias and
+    casts to the input's dtype, in one `ops.int8_conv.int8_conv` call (K2
+    on the card, its plain version on the CPU). Move it with `.to(device)`
+    only: a dtype cast would round the scales.
     """
 
     def __init__(self, weight_q, w_scale, x_scale, bias=None, stride=1, dilation=1):
@@ -128,10 +130,17 @@ class QuantConv2d(nn.Module):
         super()._load_from_state_dict(*args, **kwargs)
         self.weight_k = pack_weight(self.weight_q)
 
-    def forward(self, x):
-        from tpupose_torch.models.quantize import quantized_conv_apply
+    def inv_scale(self):
+        """1 / x_scale in f32 (IEEE quotient on either device)."""
+        return torch.ones_like(self.x_scale) / self.x_scale
 
-        return quantized_conv_apply(self, x, self.stride, self.dilation)
+    def dequant_vectors(self):
+        """(mul, add) of the dequantize epilogue: w_scale * x_scale and bias."""
+        return (self.w_scale * self.x_scale).to(torch.float32), self.bias
+
+    def forward(self, x):
+        return int8_conv(x, self.weight_q, self.weight_k, self.inv_scale(),
+                         *self.dequant_vectors(), x.dtype, self.stride, self.dilation)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -14,10 +14,13 @@ order:
 A quantized conv is a `layers.QuantConv2d` (buffers `weight_q`, `w_scale`,
 `x_scale`, `bias`, the JAX quantized dict's keys); `quantize_convs` returns
 a new module with those in place of the calibrated `Conv2d`s and leaves the
-float module as it was. On a CUDA tensor the conv runs the hand-written
-kernel K2 (`tpupose_torch/ops/int8_conv.py`); on a CPU tensor its plain
-version, which the functions `_quant_input`, `_int8_conv` and
-`_requant_relu` below also compute.
+float module as it was. Its forward is the JAX `quantized_conv_apply`.
+Every int8 conv, the int8-resident blocks' included, is one call of
+`tpupose_torch/ops/int8_conv.int8_conv`: kernel K2 on a CUDA tensor, its
+plain version on a CPU tensor. The plain version's parts are the JAX
+package's `_quant_input` (`quantize_input`), `_int8_conv` (`conv_exact`)
+and the epilogues; `_requant_relu` is `epilogue(acc, *requant_vectors(..),
+torch.int8)`.
 
 Not ported yet (queued in ROADMAP.md): distill-QAT (`fake_quant_convs`,
 `_lsq_qdq`, `distill_qat`, `requantize_after_qat`), `equalize_convs`,
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpupose_torch.models.layers import ActRecorder, Conv2d, QuantConv2d
-from tpupose_torch.ops.int8_conv import conv_exact, epilogue, int8_conv, quantize_input
+from tpupose_torch.ops.int8_conv import int8_conv
 
 __all__ = [
     "ActRecorder",
@@ -46,7 +49,7 @@ __all__ = [
     "quantize_yolo",
     "quantized_basic_block",
     "quantized_bottleneck",
-    "quantized_conv_apply",
+    "requant_vectors",
     "uncalibrated_scales",
     "yolo_detection_head_names",
     "yolo_skip_ids",
@@ -156,48 +159,13 @@ def quantize_convs(model: nn.Module, act_scales, skip=(), weight_mse=False) -> n
     return new
 
 
-def _inv_scale(p):
-    """1 / x_scale in f32 (IEEE quotient on either device)."""
-    return torch.ones_like(p.x_scale) / p.x_scale
-
-
-def _dequant_vectors(p):
-    """(mul, add) of the dequantize epilogue: w_scale * x_scale and bias."""
-    return (p.w_scale * p.x_scale).to(torch.float32), p.bias
-
-
-def _requant_vectors(p_from, p_to):
-    """(mul, add) of the requant-relu epilogue at `p_to`'s input scale:
-    w_scale * x_scale / next_x_scale and bias / next_x_scale."""
+def requant_vectors(p_from, p_to):
+    """(mul, add) of the requant-relu epilogue (the JAX `_requant_relu`) at
+    `p_to`'s input scale: w_scale * x_scale / next_x_scale and
+    bias / next_x_scale."""
     mul = (p_from.w_scale * p_from.x_scale / p_to.x_scale).to(torch.float32)
     add = None if p_from.bias is None else p_from.bias / p_to.x_scale
     return mul, add
-
-
-def _int8_conv(xq, wq, stride=1, dilation=1):
-    """int8 x int8 -> int32 conv with zero padding k//2 (plain, exact)."""
-    return conv_exact(xq, wq, stride, dilation)
-
-
-def _quant_input(p, x):
-    """Per-tensor symmetric input quantization at the conv's calibrated
-    activation scale, the scale-and-round in f32 (plain)."""
-    return quantize_input(x, _inv_scale(p))
-
-
-def quantized_conv_apply(p, x, stride=1, dilation=1):
-    """int8 conv: quantize the input per tensor, conv in int8 -> int32,
-    dequantize per channel, add the bias, cast to x's dtype. One launch of
-    K2 on the card, its plain version on the CPU."""
-    mul, add = _dequant_vectors(p)
-    return int8_conv(x, p.weight_q, p.weight_k, _inv_scale(p), mul, add, x.dtype,
-                     stride, dilation)
-
-
-def _requant_relu(y32, p_from, p_to):
-    """Conv epilogue: int32 accumulators -> relu -> int8 at the next conv's
-    calibrated input scale, without a float intermediate (plain)."""
-    return epilogue(y32, *_requant_vectors(p_from, p_to), torch.int8)
 
 
 def is_quantized_conv(p):
@@ -207,13 +175,13 @@ def is_quantized_conv(p):
 def _requant_conv(p_from, p_to, x):
     """conv `p_from` on x (float, or int8 at its input scale) with the
     requant-relu epilogue into `p_to`'s int8 input."""
-    return int8_conv(x, p_from.weight_q, p_from.weight_k, _inv_scale(p_from),
-                     *_requant_vectors(p_from, p_to), torch.int8)
+    return int8_conv(x, p_from.weight_q, p_from.weight_k, p_from.inv_scale(),
+                     *requant_vectors(p_from, p_to), torch.int8)
 
 
 def _dequant_conv(p, xq, dtype):
     """conv `p` on int8 input xq, dequantized to `dtype`."""
-    return int8_conv(xq, p.weight_q, p.weight_k, None, *_dequant_vectors(p), dtype)
+    return int8_conv(xq, p.weight_q, p.weight_k, None, *p.dequant_vectors(), dtype)
 
 
 def quantized_basic_block(block, x):

@@ -6,7 +6,8 @@ Counterpart of the int8 conv ops of `tpupose/models/quantize.py`
 XLA. Activations are NCHW, weights OIHW int8. One call computes
 
     acc = conv(q(x), weight_q)        int32, stride s, dilation d, pad k//2
-    q(x) = clamp(round(x * inv), -127, 127) for a float x, x for an int8 x
+    q(x) = clamp(round(x * inv), -127, 127) for a float x (0 for NaN),
+           x for an int8 x
     out = acc * mul + add             to `out_dtype` (f32 / bf16), or
     out = clamp(round(acc * mul + add), 0, 127)  to int8 (requant-relu)
 
@@ -62,8 +63,9 @@ def out_size(size, k, stride=1, dilation=1):
 
 def quantize_input(x, inv):
     """clamp(round(x * inv), -127, 127) as int8; the product in f32, round
-    half to even (as jnp.round)."""
-    return torch.clamp(torch.round(x.to(torch.float32) * inv), -127, 127).to(torch.int8)
+    half to even (as jnp.round), NaN to 0 (as XLA converts it to int8)."""
+    q = torch.clamp(torch.round(x.to(torch.float32) * inv), -127, 127)
+    return torch.where(torch.isnan(q), 0.0, q).to(torch.int8)
 
 
 def conv_exact(xq, weight_q, stride=1, dilation=1):

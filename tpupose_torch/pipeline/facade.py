@@ -157,10 +157,8 @@ class Pipeline:
 
     # -- int8 serving ------------------------------------------------------------
 
-    def quantize_models(self, sample_images, qat_steps=0, qat_lr=1e-5,
-                        qat_batch=8, qat_log=None, check_px=2.5,
-                        on_drift="escalate", escalate_steps=900,
-                        box_lost_gate=0.25):
+    def quantize_models(self, sample_images, qat_steps=0, check_px=2.5,
+                        on_drift="escalate", box_lost_gate=0.25):
         """Switch both backbones to int8 serving, after a drift self-check.
 
         Calibrates the activation scales by running the real preprocess ->
@@ -184,8 +182,9 @@ class Pipeline:
             check raises NotImplementedError here (a passing one serves).
 
         `qat_steps > 0` (distill-QAT) raises NotImplementedError for the
-        same reason; `qat_lr`, `qat_batch`, `qat_log` and `escalate_steps`
-        belong to it. `last_quant_report` holds the check's numbers.
+        same reason; the JAX package's other QAT options (`qat_lr`,
+        `qat_batch`, `qat_log`, `escalate_steps`) come with that port.
+        `last_quant_report` holds the check's numbers.
         """
         from tpupose_torch.models.quantize import (
             QuantizationDriftError,
