@@ -1,4 +1,4 @@
-"""int8 x int8 -> int32 convolution with fused quantization (kernel K2).
+"""int8 x int8 -> int32 convolution with its input quantization (kernel K2).
 
 Counterpart of the int8 conv ops of `tpupose/models/quantize.py`
 (`_quant_input`, `_int8_conv`, the dequantize epilogue of
@@ -17,9 +17,14 @@ with `mul` and `add` per output channel (`add` may be None).
   (`F.conv2d` in float64 on int8 values: every partial sum is an integer
   below 2^53, so any summation order is exact) between the quantization and
   the epilogue, each rounding as the JAX package does.
-* `int8_conv_cuda` launches the hand-written kernel
-  (`tpupose_torch/csrc/int8_conv.cu`) on the weights in the layout it reads
-  (`pack_weight`) and counts its launches in `launches`.
+* `int8_conv_cuda` runs the hand-written kernels of
+  `tpupose_torch/csrc/int8_conv.cu` on the weights in the layout they read
+  (`pack_weight`). For Cin % 16 == 0 (every conv of the main path but the
+  two RGB stems) that is two launches: K2a quantizes x once into a
+  channels-last int8 copy (`quantize_nhwc_plain` is its plain version) and
+  K2b, an implicit GEMM over it, computes the conv and the epilogue. Any
+  other Cin goes to the gather kernel, which quantizes as it loads NCHW.
+  `launches` counts convs, `quantize_launches` K2a launches.
 * `int8_conv` is what the models call: a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel, which raises rather than fall back.
 """
@@ -30,12 +35,18 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-#: Launches of the CUDA int8 conv kernel (reset freely; read by chip_smoke.py).
+#: Convs run on the card, one per `int8_conv_cuda` call (reset freely; read
+#: by chip_smoke.py).
 launches = 0
+#: Launches of K2a, the quantize-to-channels-last pass (reset freely).
+quantize_launches = 0
 
 #: Tile of the kernel's weight operand: rows padded to BLOCK_N, K to BLOCK_K.
 BLOCK_N = 64
 BLOCK_K = 32
+#: Channel granule of the channels-last path: Cin % CHANNELS == 0 takes it,
+#: and its int8 copy pads channels to a multiple of CHANNELS.
+CHANNELS = 16
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -44,15 +55,23 @@ def _round_up(v, m):
     return -(-v // m) * m
 
 
+def channels_last(cin):
+    """True where the conv takes the channels-last path (K2a + K2b)."""
+    return cin % CHANNELS == 0
+
+
 def pack_weight(weight_q):
-    """(Cout, Cin, kh, kw) int8 -> the kernel's (Cout_pad, K_pad) int8 operand:
-    row co is weight_q[co] flattened, zero-padded to K_pad = ceil(K/32)*32,
-    and Cout is padded to a multiple of 64 with zero rows."""
-    cout = weight_q.shape[0]
+    """(Cout, Cin, kh, kw) int8 -> the kernels' (Cout_pad, K_pad) int8
+    operand: Cout padded to a multiple of 64 and K = Cin*kh*kw to a multiple
+    of 32, with zeros. Row co holds weight_q[co] flattened in (r, c, ci)
+    order (the HWIO order of the JAX package's `_int8_conv`) where
+    `channels_last(Cin)`, else in (ci, r, c) order (the gather kernel's)."""
+    cout, cin = weight_q.shape[:2]
     k = weight_q[0].numel()
+    rows = weight_q.permute(0, 2, 3, 1) if channels_last(cin) else weight_q
     out = torch.zeros((_round_up(cout, BLOCK_N), _round_up(k, BLOCK_K)),
                       dtype=torch.int8, device=weight_q.device)
-    out[:cout, :k] = weight_q.reshape(cout, k)
+    out[:cout, :k] = rows.reshape(cout, k)
     return out
 
 
@@ -66,6 +85,18 @@ def quantize_input(x, inv):
     half to even (as jnp.round), NaN to 0 (as XLA converts it to int8)."""
     q = torch.clamp(torch.round(x.to(torch.float32) * inv), -127, 127)
     return torch.where(torch.isnan(q), 0.0, q).to(torch.int8)
+
+
+def quantize_nhwc_plain(x, inv):
+    """K2a's plain version: (N, C, H, W) f32 / bf16 / int8 -> (N, H, W, Cp)
+    int8, Cp = C rounded up to 16, pad channels 0. A float x is quantized
+    as `quantize_input`; an int8 x is copied through."""
+    xq = x if x.dtype == torch.int8 else quantize_input(x, inv)
+    n, c, h, w = xq.shape
+    out = torch.zeros((n, h, w, _round_up(c, CHANNELS)), dtype=torch.int8,
+                      device=x.device)
+    out[..., :c] = xq.permute(0, 2, 3, 1)
+    return out
 
 
 def conv_exact(xq, weight_q, stride=1, dilation=1):
@@ -96,20 +127,71 @@ def int8_conv_plain(x, weight_q, inv, mul, add, out_dtype, stride=1, dilation=1)
     return epilogue(conv_exact(xq, weight_q, stride, dilation), mul, add, out_dtype)
 
 
-def _kernel():
+def _kernel(name, argtypes):
     from tpupose_torch import kernels
 
-    fn = kernels.library("int8_conv").tpupose_int8_conv
+    fn = getattr(kernels.library("int8_conv"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_GATHER_ARGS = [_P, _I] + [_P] * 5 + [_I] * 15 + [_P]
+_QUANTIZE_ARGS = [_P, _I, _P, _P] + [_I] * 5 + [_P]
+_GEMM_ARGS = [_P] * 5 + [_I] * 15 + [_P]
+
+
+def _check_launch(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _check_inv(x, inv):
+    if x.dtype != torch.int8 and (inv.dtype != torch.float32 or inv.device != x.device
+                                  or inv.numel() != 1):
+        raise ValueError("int8_conv_cuda: inv must be one f32 on the input's device")
+
+
+def quantize_nhwc_cuda(x, inv):
+    """One launch of K2a: `quantize_nhwc_plain` on the card.
+
+    x: (N, C, H, W) contiguous f32, bf16 or int8 on a CUDA device; inv: one
+    f32 1 / x_scale on it (ignored for an int8 x). Returns the (N, H, W, Cp)
+    int8 copy. Launches on the current stream, does not synchronize, and
+    raises on a failed launch.
+    """
+    global quantize_launches
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_nhwc_cuda needs CUDA tensors, got {dev}")
+    if x.dtype not in _CODES or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"quantize_nhwc_cuda needs a contiguous NCHW f32 / bf16 / "
+                         f"int8 input, got {tuple(x.shape)} {x.dtype}")
+    _check_inv(x, inv)
+    n, c, h, w = x.shape
+    cp = _round_up(c, CHANNELS)
+    if max(c, cp) * h * w >= 2**31:
+        raise ValueError("quantize_nhwc_cuda: one image must hold fewer than "
+                         "2^31 elements")
+    y = torch.empty((n, h, w, cp), dtype=torch.int8, device=dev)
+    if y.numel() == 0:
+        return y
+    fn = _kernel("tpupose_quantize_nhwc", _QUANTIZE_ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), _CODES[x.dtype],
+                None if x.dtype == torch.int8 else inv.data_ptr(), y.data_ptr(),
+                n, c, h, w, cp, torch.cuda.current_stream().cuda_stream)
+    _check_launch(rc, "int8_conv quantize (K2a)")
+    quantize_launches += 1
+    return y
+
+
 def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
                    dilation=1):
-    """One launch of the hand-written kernel.
+    """One int8 conv on the card: K2a then K2b where `channels_last(Cin)`,
+    else one launch of the gather kernel.
 
     Args:
       x: (N, Cin, H, W) contiguous f32, bf16 or int8 on a CUDA device.
@@ -120,7 +202,7 @@ def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
       out_dtype: torch.float32 / torch.bfloat16 (dequantize) or torch.int8
         (requantize-relu).
     Launches on the current stream, does not synchronize, and raises on
-    anything the kernel does not take and on a failed launch.
+    anything the kernels do not take and on a failed launch of either pass.
     """
     global launches
     dev = x.device
@@ -142,13 +224,11 @@ def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
         raise ValueError(f"int8_conv_cuda: packed weight {tuple(weight_k.shape)} "
                          f"{weight_k.dtype} does not fit Cin={cin} k={kh}x{kw} "
                          f"Cout={cout}")
-    vectors = [mul] + ([] if add is None else [add])
-    if x.dtype != torch.int8:
-        vectors.append(inv.reshape(1))
-    for v in vectors:
+    _check_inv(x, inv)
+    for v in [mul] + ([] if add is None else [add]):
         if v.dtype != torch.float32 or v.device != dev or not v.is_contiguous():
-            raise ValueError("int8_conv_cuda: inv, mul and add must be "
-                             "contiguous f32 on the input's device")
+            raise ValueError("int8_conv_cuda: mul and add must be contiguous f32 "
+                             "on the input's device")
     if add is not None and add.shape != mul.shape:
         raise ValueError(f"int8_conv_cuda: add {tuple(add.shape)} != mul "
                          f"{tuple(mul.shape)}")
@@ -161,16 +241,24 @@ def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
     y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev)
     if n == 0:
         return y
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), _CODES[x.dtype], weight_k.data_ptr(),
-                None if x.dtype == torch.int8 else inv.data_ptr(),
-                mul.data_ptr(), None if add is None else add.data_ptr(),
-                y.data_ptr(), _CODES[out_dtype], n, cin, h, w, cout, kh, kw,
-                stride, kh // 2, kw // 2, dilation, ho, wo, kpad, stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {rc}")
+    add_p = None if add is None else add.data_ptr()
+    geometry = (cout, kh, kw, stride, kh // 2, kw // 2, dilation, ho, wo, kpad)
+    if channels_last(cin):
+        xq = quantize_nhwc_cuda(x, inv)
+        fn = _kernel("tpupose_int8_conv_nhwc", _GEMM_ARGS)
+        with torch.cuda.device(dev):
+            rc = fn(xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(), add_p,
+                    y.data_ptr(), _CODES[out_dtype], n, cin, h, w, *geometry,
+                    torch.cuda.current_stream().cuda_stream)
+        _check_launch(rc, "int8_conv GEMM (K2b)")
+    else:
+        fn = _kernel("tpupose_int8_conv", _GATHER_ARGS)
+        with torch.cuda.device(dev):
+            rc = fn(x.data_ptr(), _CODES[x.dtype], weight_k.data_ptr(),
+                    None if x.dtype == torch.int8 else inv.data_ptr(),
+                    mul.data_ptr(), add_p, y.data_ptr(), _CODES[out_dtype],
+                    n, cin, h, w, *geometry, torch.cuda.current_stream().cuda_stream)
+        _check_launch(rc, "int8_conv gather")
     launches += 1
     return y
 
