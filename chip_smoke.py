@@ -11,16 +11,22 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      main path's shape (640, 17, 96, 72) f32, all three refinement modes,
      on random heatmaps with planted ties, plateaus, border peaks and
      non-finite neighbours (NaN compared as equal); median times of both;
-  4. K2 (int8 conv) against its plain torch version, `torch.equal`, at every
-     distinct quantized conv shape of HRNet-W48 384x288 and YOLOv3-416 at
-     the main path's batch (640 crops, 160 images), float input with a
-     planted NaN and int8 input, dequantize and requant-relu epilogue, plus
-     one dilated shape: K2 runs on the whole batch, and its first and last
-     8 crops / 4 images are held against the plain version on those
-     images (the last ones sit at the largest offsets); then the times of
-     K2, of its plain version and of the bf16 cuDNN conv, all on the whole
+  4. K2 (int8 conv): first K2a, its quantize-to-channels-last pass, against
+     `quantize_nhwc_plain`, `torch.equal` on the whole output, at every
+     distinct (Cin, H, W) input of the quantized convs of HRNet-W48 384x288
+     and YOLOv3-416 at the main path's batch (640 crops, 160 images), bf16
+     with a planted NaN and int8 (f32 too at branch 0's input); then K2
+     against its plain version, `torch.equal`, at every distinct quantized
+     conv shape at that batch, float input with a planted NaN and int8
+     input, dequantize and requant-relu epilogue, plus one dilated shape:
+     K2 (K2a + the implicit GEMM K2b, or the gather kernel for the stems'
+     Cin of 3) runs on the whole batch, and its first and last 8 crops / 4
+     images are held against the plain version on those images (the last
+     ones sit at the largest offsets); then the times of K2, K2a and K2b
+     alone, the plain version and the bf16 cuDNN conv, all on the whole
      batch, for HRNet branch 0's 3x3 48->48 at 96x72 (x640) and YOLO's 3x3
-     128->256 at 52x52 (x160);
+     128->256 at 52x52 (x160), and of the gather kernel and cuDNN at
+     HRNet's stem 3x3 s2 3->64 at 384x288 (x640), each with its bound;
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
@@ -29,8 +35,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
   6. the int8 main path: `Pipeline.quantize_models` on 8 frames of one view
      (on_drift="warn": random weights drift by design, so the self-check
      report is printed and not gated on), then `process_clip` twice on the
-     same clip; K1 and K2 launch counts, stage A, peak memory, and the
-     int8-vs-bf16 keypoint shift (for information);
+     same clip; K1, K2 and K2a launch counts (364 K2 and 362 K2a per clip
+     expected), stage A, peak memory, and the int8-vs-bf16 keypoint shift
+     (for information);
   7. int8-resident blocks: one HRNet-W48 forward with `int8_resident=True`
      on 8 crops in f32, each block held against the generic int8 block on
      the same input within the bound of the JAX package's test;
@@ -250,11 +257,99 @@ def k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype):
     return wq, k2.pack_weight(wq), x, inv, mul, add
 
 
-def phase_k2(torch, gen, card):
-    """K2 against its plain version at every quantized conv shape of the
-    main path and at its batch, then timed at two shapes."""
+def k2a_input(torch, gen, shape, batch, dtype):
+    """A K2a input of (cin, h, w) at `batch`: int8 codes, or a float tensor
+    with a NaN in its first and its last image."""
+    cin, h, w = shape
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, (batch, cin, h, w), generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+    x = (torch.randn((batch, cin, h, w), generator=gen, device="cuda") * 2.0).to(dtype)
+    x[0, 0, h // 2, w // 2] = x[-1, -1, h // 3, w // 3] = float("nan")
+    return x
+
+
+def phase_k2a(torch, gen, hr_shapes, yo_shapes):
+    """K2a against its plain version, torch.equal on the whole output, at
+    every distinct (Cin, H, W) of the quantized convs at the main path's
+    batch: bf16 and int8 inputs, and f32 at branch 0's input."""
+    from tpupose_torch.ops import int8_conv as k2
+
+    inv = torch.tensor([127.0 / 8.0], device="cuda")
+    inputs = sorted({(sh[:3], MAIN_CROPS) for sh in hr_shapes}
+                    | {(sh[:3], MAIN_IMAGES) for sh in yo_shapes})
+    checked = 0
+    for shape, batch in inputs:
+        dtypes = [torch.bfloat16, torch.int8]
+        if shape == (48, 96, 72):
+            dtypes.append(torch.float32)
+        for dtype in dtypes:
+            x = k2a_input(torch, gen, shape, batch, dtype)
+            got = k2.quantize_nhwc_cuda(x, inv)
+            ref = k2.quantize_nhwc_plain(x, inv)
+            if not torch.equal(got, ref):
+                fail(f"K2a {shape} batch {batch} {dtype}: differs from the plain version "
+                     f"in {int((got != ref).sum())} codes")
+            if dtype != torch.int8 and got[0, shape[1] // 2, shape[2] // 2, 0] != 0:
+                fail(f"K2a {shape} {dtype}: the planted NaN did not quantize to 0")
+            checked += 1
+            del x, got, ref
+    return {"checked": checked, "distinct_inputs": len(inputs), "max_abs_err": 0.0}
+
+
+def bound(moved, ops, ops_per_s):
+    t_bytes, t_ops = moved / H100_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": moved, "ops": ops}
+
+
+def time_k2(torch, gen, shape, batch, with_plain=True):
+    """Times of one conv shape at `batch`, bf16 in and out: K2 as the main
+    path calls it, and, on the channels-last path, K2a and K2b alone; the
+    plain version and the bf16 cuDNN conv; each kernel with its bound."""
     import torch.nn.functional as F
 
+    from tpupose_torch.ops import int8_conv as k2
+
+    b16 = torch.bfloat16
+    cin, h, w, cout, k, stride, dil = shape
+    wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, b16, b16)
+    y = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil)
+    vectors = 2 * cout * 4 + 4
+    ops = 2 * y.numel() * cin * k * k
+    out = {"shape": [batch, cin, h, w, cout, k, stride],
+           "ms": cuda_time_ms(lambda: k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16,
+                                                        stride, dil), reps=10),
+           **bound(x.numel() * 2 + wq.numel() + y.numel() * 2 + vectors, ops,
+                   H100_INT8_OPS_PER_S)}
+    if k2.channels_last(cin):
+        xq = k2.quantize_nhwc_cuda(x, inv)
+        out["k2a"] = {"ms": cuda_time_ms(lambda: k2.quantize_nhwc_cuda(x, inv), reps=10),
+                      **bound(x.numel() * 2 + xq.numel(), 4 * x.numel(), H100_F32_OPS_PER_S)}
+        out["k2b"] = {"ms": cuda_time_ms(lambda: k2.gemm_nhwc_cuda(
+                          xq, wk, (k, k), mul, add, b16, stride, dil), reps=10),
+                      **bound(xq.numel() + wq.numel() + y.numel() * 2 + vectors, ops,
+                              H100_INT8_OPS_PER_S)}
+        out["design_bytes"] = out["k2a"]["bytes"] + out["k2b"]["bytes"]
+        out["design_bound_ms"] = out["design_bytes"] / H100_BYTES_PER_S * 1e3
+        if with_plain:
+            out["k2a"]["plain_ms"] = cuda_time_ms(lambda: k2.quantize_nhwc_plain(x, inv),
+                                                  warmup=1, reps=5)
+        del xq
+    if with_plain:
+        out["plain_ms"] = cuda_time_ms(
+            lambda: k2.int8_conv_plain(x, wq, inv, mul, add, b16, stride, dil),
+            warmup=1, reps=3)
+    wb = torch.randn((cout, cin, k, k), generator=gen, device="cuda").to(b16)
+    out["bf16_cudnn_ms"] = cuda_time_ms(
+        lambda: F.conv2d(x, wb, stride=stride, padding=k // 2, dilation=dil), reps=10)
+    return out
+
+
+def phase_k2(torch, gen, card):
+    """K2a and K2 against their plain versions at every quantized conv shape
+    of the main path and at its batch, then timed at three shapes."""
     from tpupose_torch.ops import int8_conv as k2
 
     hr_shapes, yo_shapes = main_path_conv_shapes(torch)
@@ -262,13 +357,14 @@ def phase_k2(torch, gen, card):
             != (27, 292, 20, 72):
         fail(f"quantized conv shapes: HRNet {len(hr_shapes)} / {sum(hr_shapes.values())}, "
              f"YOLO {len(yo_shapes)} / {sum(yo_shapes.values())}, expected 27 / 292, 20 / 72")
+    k2a = phase_k2a(torch, gen, hr_shapes, yo_shapes)
     b16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     modes = [(b16, b16), (b16, i8), (i8, b16), (i8, i8)]
     dilated = (48, 96, 72, 48, 3, 1, 2)
     cases = ([(sh, MAIN_CROPS, SUB_CROPS, modes) for sh in sorted(hr_shapes)]
              + [(sh, MAIN_IMAGES, SUB_IMAGES, modes) for sh in sorted(yo_shapes)]
              + [(dilated, MAIN_CROPS, SUB_CROPS, modes + [(f32, f32), (f32, i8)])])
-    checked, max_err = 0, 0.0
+    checked, gathered, max_err = 0, 0, 0.0
     for shape, batch, sub, shape_modes in cases:
         _, _, _, _, k, stride, dil = shape
         for in_dtype, out_dtype in shape_modes:
@@ -288,32 +384,15 @@ def phase_k2(torch, gen, card):
                 if out_dtype == i8 and not (ref.min() == 0 and ref.max() == 127):
                     fail(f"{what}: the requant check does not span [0, 127]")
             checked += 1
+            gathered += not k2.channels_last(shape[0])
             del x, got
-    timed = {}
-    for name, shape, batch in (("hrnet_branch0_3x3_48", (48, 96, 72, 48, 3, 1, 1), MAIN_CROPS),
-                               ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES)):
-        cin, h, w, cout, k, stride, dil = shape
-        wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, b16, b16)
-        y = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil)
-        ms = cuda_time_ms(lambda: k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil),
-                          reps=10)
-        plain_ms = cuda_time_ms(lambda: k2.int8_conv_plain(x, wq, inv, mul, add, b16, stride, dil),
-                                warmup=1, reps=3)
-        wb = torch.randn((cout, cin, k, k), generator=gen, device="cuda").to(b16)
-        cudnn_ms = cuda_time_ms(lambda: F.conv2d(x, wb, padding=k // 2), reps=10)
-        kk = cin * k * k
-        m = batch * y.shape[2] * y.shape[3]
-        moved = x.numel() * 2 + wq.numel() + y.numel() * 2 + 2 * cout * 4 + 4
-        ops = 2 * m * cout * kk
-        t_bytes, t_ops = moved / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS_PER_S * 1e3
-        timed[name] = {"shape": [batch, cin, h, w, cout, k, stride], "ms": ms,
-                       "bound_ms": max(t_bytes, t_ops),
-                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                       "bytes": moved, "int_ops": ops, "bf16_cudnn_ms": cudnn_ms,
-                       "plain_ms": plain_ms}
-        del x, y
-    return {"card": card, "checked": checked, "batch": {"hrnet_w48": MAIN_CROPS,
-                                                        "yolov3_416": MAIN_IMAGES},
+    timed = {name: time_k2(torch, gen, shape, batch, with_plain)
+             for name, shape, batch, with_plain in (
+                 ("hrnet_branch0_3x3_48", (48, 96, 72, 48, 3, 1, 1), MAIN_CROPS, True),
+                 ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES, True),
+                 ("hrnet_stem_3x3_s2_3_64", (3, 384, 288, 64, 3, 2, 1), MAIN_CROPS, False))}
+    return {"card": card, "checked": checked, "checked_on_gather_path": gathered,
+            "k2a": k2a, "batch": {"hrnet_w48": MAIN_CROPS, "yolov3_416": MAIN_IMAGES},
             "compared_images": {"hrnet_w48": 2 * SUB_CROPS, "yolov3_416": 2 * SUB_IMAGES},
             "distinct_shapes": {
                 "hrnet_w48": len(hr_shapes), "yolov3_416": len(yo_shapes), "dilated": 1},
@@ -452,6 +531,7 @@ def phase_int8_path(torch, card, main):
     torch.cuda.reset_peak_memory_stats()
     th.launches = 0
     k2.launches = 0
+    k2.quantize_launches = 0
     lap.host_syncs = 0
     clip_ms = []
     for _ in range(2):
@@ -460,9 +540,11 @@ def phase_int8_path(torch, card, main):
         torch.cuda.synchronize()
         clip_ms.append((time.perf_counter() - t0) * 1e3)
     k1_launches, k2_launches, syncs = th.launches, k2.launches, lap.host_syncs
+    k2a_launches = k2.quantize_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if k1_launches < 1 or k2_launches < 1:
-        fail(f"the int8 main path launched K1 {k1_launches} and K2 {k2_launches} times")
+    if k1_launches < 1 or (k2_launches, k2a_launches) != (2 * 364, 2 * 362):
+        fail(f"two int8 clips launched K1 {k1_launches}, K2 {k2_launches} and K2a "
+             f"{k2a_launches} times, expected >= 1, 728 and 724")
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
     k2_ms, k2_calls = k2_time_in_stage_a(torch, pipe, clip)
     both = (mask & mask_bf16)
@@ -475,6 +557,7 @@ def phase_int8_path(torch, card, main):
         "first_clip_s": first_s, "clip_ms": clip_ms, "ms_per_clip": ms,
         "fps": frames * 1e3 / ms, "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
         "k2_launches": k2_launches, "k2_launches_per_clip": k2_launches / 2,
+        "quantize_launches": k2a_launches, "quantize_launches_per_clip": k2a_launches / 2,
         "k1_launches": k1_launches, "clips": 2,
         "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
         "host_syncs_per_frame": syncs / (2 * frames),
@@ -719,7 +802,17 @@ def main():
         "max_abs_err": k2["max_abs_err"], "ms": conv["ms"],
         "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
         "bound_by": conv["bound_by"], "library_ms": None,
+        "k2b_ms": conv["k2b"]["ms"], "design_bound_ms": conv["design_bound_ms"],
         "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
+    }, {
+        "name": "quantize_nhwc", "route": "cuda",
+        "source": "tpupose_torch/csrc/int8_conv.cu",
+        "replaces": "tpupose/models/quantize.py:229",
+        "launches": int8["quantize_launches"],
+        "max_abs_err": k2["k2a"]["max_abs_err"], "ms": conv["k2a"]["ms"],
+        "plain_ms": conv["k2a"]["plain_ms"], "bound_ms": conv["k2a"]["bound_ms"],
+        "bound_by": conv["k2a"]["bound_by"], "library_ms": None,
+        "shape": conv["shape"][:4],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

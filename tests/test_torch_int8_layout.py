@@ -151,3 +151,6 @@ def test_channels_last_convs_stay_on_the_plain_version_on_the_cpu(monkeypatch):
     assert (tk.launches, tk.quantize_launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         tk.quantize_nhwc_cuda(x, qt.inv_scale())
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.gemm_nhwc_cuda(tk.quantize_nhwc_plain(x, qt.inv_scale()), qt.weight_k, (3, 3),
+                          mul, add, torch.float32)

@@ -1,18 +1,17 @@
-// int8 x int8 -> int32 convolution with fused input quantization and a fused
+// int8 x int8 -> int32 convolution with its input quantization and a fused
 // epilogue (K2) for Hopper.
 //
-// Replaces, in one launch per conv, what the JAX package runs as separate XLA
-// ops (tpupose/models/quantize.py): `_quant_input` (per-tensor symmetric
+// Replaces what the JAX package runs as separate XLA ops
+// (tpupose/models/quantize.py:210-272): `_quant_input` (per-tensor symmetric
 // quantization of the conv input), `_int8_conv` (the int8 x int8 -> int32
 // `conv_general_dilated`), and either the dequantize-plus-bias epilogue of
 // `quantized_conv_apply` or the requantize-relu epilogue `_requant_relu`.
 // It is not a port of a Pallas kernel: the JAX package left this op to XLA,
 // and PyTorch has no int8 convolution with int32 accumulators.
 //
-// What it computes, as an implicit GEMM with M = N*Ho*Wo output pixels,
-// N = Cout and K = Cin*kh*kw (k = (ci*kh + r)*kw + c, OIHW order):
-//   acc[n, co, oh, ow] = sum_k q(x[n, ci, oh*s - ph + r*d, ow*s - pw + c*d])
-//                              * wq[co, k]                       (int32)
+// What it computes, with M = N*Ho*Wo output pixels and K = Cin*kh*kw:
+//   acc[n, co, oh, ow] = sum_{r, c, ci} q(x[n, ci, oh*s - ph + r*d, ow*s - pw + c*d])
+//                                       * wq[co, ci, r, c]              (int32)
 //   q(v) = clamp(rint(v * inv), -127, 127) for a float input (bf16 or f32),
 //          0 where v * inv is NaN (XLA's convert of NaN to int8),
 //   q(v) = v for an int8 input (the int8-resident blocks).
@@ -24,58 +23,100 @@
 // Each step uses a round-to-nearest intrinsic (__fmul_rn, __fadd_rn,
 // __int2float_rn, __float2bfloat16_rn) so nvcc cannot contract a*b+c into an
 // FMA: the output is bit-equal to the plain torch version
-// (tpupose_torch/ops/int8_conv.py), which rounds after every operation.
+// (tpupose_torch/ops/int8_conv.py), which rounds after every operation. Any
+// order of the int32 sums gives the same result, so the two paths below
+// agree with it and with each other.
 //
-// Bound: bytes, at the shapes that take the time. The heaviest conv of the
-// main path, HRNet-W48 branch 0's 3x3 48->48 at 96x72 on 640 crops, reads
-// and writes 849 MB of bf16 (0.254 ms at 3.35 TB/s) for 0.183 T int-ops
-// (0.093 ms at 1,979 TOPS); the 1x1 convs are more byte-bound still.
+// Bound: bytes, at the shapes that take the time. HRNet-W48 branch 0's 3x3
+// 48->48 at 96x72 on 640 crops, the heaviest conv of the main path, must
+// read and write 849.4 MB of bf16 if quantization and epilogue are fused
+// into one pass (0.2535 ms at 3.35 TB/s), for 0.183 T int-ops (0.093 ms at
+// 1,979 TOPS); the 1x1 convs are more byte-bound still.
 //
-// Design (simple first; the speed work is queued): one block of 4 warps
-// computes a 128 x 64 output tile, stepping K by 32.
-//   * A (activations) is gathered by each thread for its own output pixel,
-//     so neighbouring threads read neighbouring addresses of the NCHW input.
-//     The k -> (input offset, dh, dw) table of each K step is computed once
-//     per block into shared memory, so the gather does no division. The
-//     values are quantized as they are stored to shared memory as int8.
-//   * B (weights) is read as 16-byte vectors from a [Cout_pad][K_pad] int8
-//     copy made once at quantize time (Cout padded to 64, K to 32, zeros),
-//     so it needs no bounds checks.
-//   * Each warp owns a 64 x 32 sub-tile: 4 x 4 `mma.sync.m16n8k32` s8 tensor
-//     core products per K step, int32 accumulators in registers. Shared rows
-//     are 48 bytes apart, which makes the fragment loads conflict-free.
-//   * Two shared buffers: the global loads of step k+1 are in flight while
-//     the tensor cores work on step k, and one barrier separates the steps.
-//   * The epilogue writes NCHW directly from the accumulators.
-// What this leaves on the table, against the byte bound: the float input is
-// re-read and re-quantized once per tap (9x for a 3x3) and once per 64
-// output channels, and outputs are stored 8 elements per segment. Fixes
-// (a quantized int8 activation layout between convs, TMA tiles, wgmma) are
-// later work.
+// Two paths, chosen by Cin alone (the wrapper decides):
+//
+// Cin % 16 == 0, every conv of the main path but the two RGB stems: two
+// launches.
+//   K2a `quantize_nhwc_kernel` quantizes x once into an (N, H, W, Cp) int8
+//   copy (Cp = Cin rounded up to 16, pad channels 0; an int8 x is copied
+//   through). A block moves 64 channels x 64 pixels through shared memory:
+//   loads run along W (4 pixels a thread), each pixel's channels leave as
+//   16-byte stores.
+//   K2b `int8_conv_nhwc_kernel` is an implicit GEMM over that copy, with K
+//   in (r, c, ci) order (the HWIO order of `_int8_conv`; `pack_weight`
+//   writes the weights so). A 16-byte segment of a K step is 16 channels of
+//   one tap of one pixel, copied by one `cp.async.cg` of 16 bytes, zero-
+//   filled (src-size 0) for taps outside the image, pixels past M and K past
+//   its end. Each thread keeps the (r, c, ci) of its own segment column and
+//   steps it with the K loop, so no division runs in the loop. A block of 4
+//   warps computes 128 pixels x 64 channels over a ring of 4 shared-memory
+//   stages of 64 K (`cp.async.commit_group` / `wait_group`, 48 KB), whose
+//   16-byte chunks are XOR-swizzled by row so that `ldmatrix` reads them
+//   without bank conflicts into the fragments of `mma.sync.m16n8k32` s8
+//   (each warp 64 x 32, int32 accumulators in registers). Consecutive
+//   blocks share their 128 pixels, so the A rows of the later ones come
+//   from L2. Measured on an H100 80GB HBM3 at 700 W, 128 x 128 and
+//   256 x 64 blocks, 64 x 64 warp tiles and 3 stages were no faster summed
+//   over the main path's convs. The epilogue stages the output tile through shared memory,
+//   so a warp writes runs of consecutive pixels of one channel (NCHW) as
+//   16-byte stores; a run that leaves its image or its alignment stores
+//   scalars.
+//   This design moves more than the fused bound: at branch 0 the quantize
+//   pass reads 424.7 MB of bf16 and writes 212.3 MB of int8, the GEMM reads
+//   212.3 MB and writes 424.7 MB, about 1,274 MB (0.380 ms at 3.35 TB/s).
+//   Left for later: `wgmma` with TMA; int8 NHWC activations written by the
+//   previous conv's epilogue, so that K2a disappears; a 48-wide N tile for
+//   branch 0, whose Cout of 48 wastes a quarter of a 64-wide tile.
+//
+// Any other Cin (the stems' 3): one launch of the gather kernel
+// `int8_conv_kernel`, which reads NCHW and quantizes as it loads. Its K is
+// in (ci, r, c) order. Each thread gathers the 32 K values of its own output
+// pixel per step through a per-block table k -> (input offset, dh, dw), so
+// neighbouring threads read neighbouring addresses; B comes as 16-byte
+// vectors; two shared buffers; each warp 64 x 32 of `mma.sync.m16n8k32`.
+// It re-quantizes each input element once per tap and per 64 output
+// channels, which is why the main path's other convs take the two-pass
+// path.
 //
 // Traps, and what the code does about them:
-//   * Ragged K (27 for the RGB stems, 432, 576, 4,608): the weight copy is
-//     zero-padded to 32 and a tap with k >= K reads nothing (its table entry
-//     fails the row bounds check), so the padding adds exact zeros.
+//   * Ragged K (27 for the RGB stems, 432, 576, 4,608): the weight operand
+//     is zero-padded to 32; a K position past K loads zeros on the A side.
 //   * Ragged Cout (48, 96, 192, 384 are not multiples of 64): padded weight
 //     rows are zero and the epilogue stores only co < Cout.
-//   * Ragged M: a thread past M loads zeros and stores nothing.
+//   * Ragged M: a pixel past M loads zeros and stores nothing.
 //   * 64-bit offsets: a stem output holds 1.13e9 elements and M*K reaches
-//     2.5e9 > 2^31, so pixel and image offsets are 64-bit; one image's Cin*H*W
-//     and Cout*Ho*Wo must fit in 31 bits (the wrapper checks).
-//   * A launch that is refused never runs: the C entry returns
-//     cudaGetLastError() and the wrapper raises on anything but 0.
+//     2.5e9 > 2^31, so image and pixel offsets (NCHW and NHWC) are 64-bit;
+//     one image's Cin*H*W and Cout*Ho*Wo must fit in 31 bits (the wrapper
+//     checks).
+//   * A launch that is refused never runs: each C entry returns
+//     cudaGetLastError() (0 on success), and the wrapper raises on
+//     anything else.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// Gather kernel (Cin % 16 != 0).
 constexpr int kBM = 128;      // output pixels per block
 constexpr int kBN = 64;       // output channels per block
 constexpr int kBK = 32;       // K per step (one m16n8k32)
 constexpr int kThreads = 128; // 4 warps, 2 x 2, each 64 x 32
 constexpr int kRow = kBK + 16;  // shared row stride in bytes
+
+// K2a, the quantize-to-channels-last pass.
+constexpr int kQP = 64;          // pixels per block
+constexpr int kQC = 64;          // channels per block
+constexpr int kQThreads = 256;   // 16 pixel quads x 16 channel quads
+constexpr int kQWords = kQC / 4 + 1;  // shared words per pixel row (+1: banks)
+
+// K2b, the implicit GEMM on the channels-last copy.
+constexpr int kGM = 128;         // output pixels per block
+constexpr int kGN = 64;          // output channels per block
+constexpr int kGK = 64;          // K bytes per stage: 4 segments of 16
+constexpr int kStages = 4;       // cp.async ring
+constexpr int kGThreads = 128;   // 4 warps, 2 x 2, each 64 x 32
+constexpr int kGRows = kGThreads / 4;  // rows a pass of 16-byte copies covers
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -339,8 +380,382 @@ int dispatch_out(int out_type, const void* x, const int8_t* wk,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// K2a: (N, C, H, W) f32 / bf16 / int8 -> (N, H, W, Cp) int8.
+
+// Four consecutive elements of one channel plane, quantized. VEC: one
+// aligned vector load (the plane length is a multiple of 4 and x is
+// aligned); else four scalar loads, each checked against the plane's end.
+template <int IN, bool VEC>
+__device__ __forceinline__ void load_quad(const void* x, long long i, int left,
+                                          float inv, int (&q)[4]) {
+  if constexpr (VEC) {
+    if constexpr (IN == kF32) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(x) + i));
+      q[0] = quantize(v.x, inv); q[1] = quantize(v.y, inv);
+      q[2] = quantize(v.z, inv); q[3] = quantize(v.w, inv);
+    } else if constexpr (IN == kBF16) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+          static_cast<const unsigned short*>(x) + i));
+      q[0] = quantize(__uint_as_float(v.x << 16), inv);
+      q[1] = quantize(__uint_as_float(v.x & 0xffff0000u), inv);
+      q[2] = quantize(__uint_as_float(v.y << 16), inv);
+      q[3] = quantize(__uint_as_float(v.y & 0xffff0000u), inv);
+    } else {
+      const unsigned v = __ldg(reinterpret_cast<const unsigned*>(
+          static_cast<const signed char*>(x) + i));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[j] = static_cast<signed char>(v >> (8 * j));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = j < left ? code<IN>(Src<IN>::load(x, i + j), inv) : 0;
+  }
+}
+
+template <int IN, bool VEC>
+__global__ void __launch_bounds__(kQThreads)
+quantize_nhwc_kernel(const void* __restrict__ x, const float* __restrict__ inv_p,
+                     int8_t* __restrict__ y, int c, int plane, int cp) {
+  __shared__ uint32_t tile[kQP * kQWords];
+  const int tid = threadIdx.x;
+  const int pq = tid & 15, cq = tid >> 4;
+  const int p0 = blockIdx.x * kQP;
+  const int c0 = blockIdx.y * kQC;
+  const long long img = blockIdx.z;
+  float inv = 1.f;
+  if constexpr (IN != kI8) inv = __ldg(inv_p);
+
+  // Load: channel c0 + 4*cq + j, pixels p0 + 4*pq .. + 3; a warp reads
+  // 16 quads of pixels of each of two channels.
+  const int p = p0 + 4 * pq;
+  int q[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int ch = c0 + 4 * cq + j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[j][i] = 0;
+    if (ch < c && p < plane)
+      load_quad<IN, VEC>(x, (img * c + ch) * plane + p, plane - p, inv, q[j]);
+  }
+  // Transpose: pixel p0 + 4*pq + i gets its four channels as one word.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = (static_cast<uint32_t>(q[0][i]) & 0xffu) |
+                          ((static_cast<uint32_t>(q[1][i]) & 0xffu) << 8) |
+                          ((static_cast<uint32_t>(q[2][i]) & 0xffu) << 16) |
+                          (static_cast<uint32_t>(q[3][i]) << 24);
+    tile[(4 * pq + i) * kQWords + cq] = word;
+  }
+  __syncthreads();
+
+  // Store: 16 channels of one pixel per thread, 16 bytes, four threads per
+  // pixel row of the tile.
+  const int chunks = min(kQC, cp - c0) / 16;
+  const int px = tid >> 2, ck = tid & 3;
+  if (ck < chunks && p0 + px < plane) {
+    const uint32_t* src = &tile[px * kQWords + 4 * ck];
+    *reinterpret_cast<uint4*>(y + (img * plane + p0 + px) * cp + c0 + 16 * ck) =
+        make_uint4(src[0], src[1], src[2], src[3]);
+  }
+}
+
+template <int IN>
+int launch_quantize(const void* x, const float* inv, int8_t* y, int n, int c,
+                    int plane, int cp, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((plane + kQP - 1) / kQP),
+                  static_cast<unsigned>((cp + kQC - 1) / kQC), static_cast<unsigned>(n));
+  constexpr int kSize = IN == kF32 ? 4 : IN == kBF16 ? 2 : 1;
+  if (plane % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * kSize) == 0) {
+    quantize_nhwc_kernel<IN, true><<<grid, kQThreads, 0, stream>>>(x, inv, y, c, plane, cp);
+  } else {
+    quantize_nhwc_kernel<IN, false><<<grid, kQThreads, 0, stream>>>(x, inv, y, c, plane, cp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// K2b: implicit GEMM over the (N, H, W, Cp) int8 copy.
+
+template <int OUT> struct Out;
+template <> struct Out<kF32> { using T = float; };
+template <> struct Out<kBF16> { using T = __nv_bfloat16; };
+template <> struct Out<kI8> { using T = int8_t; };
+
+template <int OUT>
+__device__ __forceinline__ typename Out<OUT>::T finish(int acc, float mul, float add,
+                                                       bool has_add) {
+  float v = __fmul_rn(__int2float_rn(acc), mul);
+  if (has_add) v = __fadd_rn(v, add);
+  if constexpr (OUT == kI8) {
+    return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(v), 0.f), 127.f)));
+  } else if constexpr (OUT == kBF16) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled (nothing read) where !ok.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// Byte offset of 16-byte chunk `chunk` (0..3) of row `row` in a stage whose
+// rows are 64 bytes: the chunk index is XORed with bits 1-2 of the row, so
+// the eight rows an `ldmatrix` phase reads fall on eight distinct 16-byte
+// bank groups.
+__device__ __forceinline__ int swizzle(int row, int chunk) {
+  return row * kGK + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+// Image and pixel of output row m0 + r (r >= 0) from those of m0, with a
+// 32-bit division only where the row lies in a later image. hw < 2^31.
+__device__ __forceinline__ void locate(long long img0, int p0, int r, int hw,
+                                       long long& img, int& p) {
+  const unsigned q = static_cast<unsigned>(p0) + static_cast<unsigned>(r);
+  if (q < static_cast<unsigned>(hw)) {
+    img = img0;
+    p = static_cast<int>(q);
+  } else {
+    const unsigned d = q / static_cast<unsigned>(hw);
+    img = img0 + d;
+    p = static_cast<int>(q - d * static_cast<unsigned>(hw));
+  }
+}
+
+// Dynamic shared memory: the cp.async ring, reused by the epilogue's
+// output tile (kGN rows of kGM outputs, each row padded by 16 bytes).
+template <int OUT>
+constexpr int gemm_smem() {
+  constexpr int pipe = kStages * (kGM + kGN) * kGK;
+  constexpr int tile = kGN * (kGM * static_cast<int>(sizeof(typename Out<OUT>::T)) + 16);
+  return pipe > tile ? pipe : tile;
+}
+
+// 4 blocks an SM: at most 128 registers a thread (64 accumulators). s.cin is
+// the channel count of the copy (a multiple of 16), s.k = kh*kw*s.cin.
+template <int OUT>
+__global__ void __launch_bounds__(kGThreads, 4)
+int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
+                      const float* __restrict__ mul, const float* __restrict__ add,
+                      void* __restrict__ y, const Shape s) {
+  using O = typename Out<OUT>::T;
+  constexpr int kAPass = kGM / kGRows, kBPass = kGN / kGRows;
+  constexpr int kAStage = kGM * kGK, kBStage = kGN * kGK;
+  extern __shared__ __align__(128) int8_t smem[];
+  int8_t* const a_s = smem;
+  int8_t* const b_s = smem + kStages * kAStage;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (s.cout + kGN - 1) / kGN;
+  // Consecutive blocks share their pixels and walk the channel tiles, so
+  // the A rows they read come from L2.
+  const long long m0 = static_cast<long long>(blockIdx.x / n_tiles) * kGM;
+  const int n0 = static_cast<int>(blockIdx.x % n_tiles) * kGN;
+  const int hw_out = s.ho * s.wo;
+  const long long m_total = static_cast<long long>(s.n) * hw_out;
+  const long long img0 = m0 / hw_out;  // the block's one 64-bit division
+  const int p0 = static_cast<int>(m0 - img0 * hw_out);
+
+  // This thread copies segment `seg` (16 K bytes) of rows row0 + i*kGRows.
+  const int seg = tid & 3, row0 = tid >> 2;
+  long long a_pix[kAPass];
+  int a_ih[kAPass], a_iw[kAPass];
+#pragma unroll
+  for (int i = 0; i < kAPass; ++i) {
+    const long long m = m0 + row0 + i * kGRows;
+    a_pix[i] = 0;
+    a_ih[i] = -(1 << 29);  // fails every bounds check: a pixel past M
+    a_iw[i] = 0;
+    if (m < m_total) {
+      long long img;
+      int p;
+      locate(img0, p0, row0 + i * kGRows, hw_out, img, p);
+      const int oh = p / s.wo, ow = p - oh * s.wo;
+      a_ih[i] = oh * s.stride - s.pad_h;
+      a_iw[i] = ow * s.stride - s.pad_w;
+      a_pix[i] = ((img * s.h + a_ih[i]) * s.w + a_iw[i]) * s.cin;
+    }
+  }
+  // K position of this thread's segment: tap (kr, kc), channel kci.
+  int kr = 0, kc = 0, kci = seg * 16;
+  auto settle = [&]() {
+    while (kci >= s.cin) {
+      kci -= s.cin;
+      if (++kc == s.kw) { kc = 0; ++kr; }
+    }
+  };
+  settle();
+
+  auto load_stage = [&](int slot, int step) {
+    const bool k_ok = kr < s.kh;
+    const int dh = kr * s.dil, dw = kc * s.dil;
+    const int tap = (dh * s.w + dw) * s.cin + kci;
+    const uint32_t a_dst = smem_addr(a_s + slot * kAStage);
+#pragma unroll
+    for (int i = 0; i < kAPass; ++i) {
+      const int ih = a_ih[i] + dh, iw = a_iw[i] + dw;
+      const bool ok = k_ok && static_cast<unsigned>(ih) < static_cast<unsigned>(s.h) &&
+                      static_cast<unsigned>(iw) < static_cast<unsigned>(s.w);
+      cp_async16(a_dst + swizzle(row0 + i * kGRows, seg), ok ? xq + (a_pix[i] + tap) : xq, ok);
+    }
+    kci += kGK;
+    settle();
+    const int kb = step * kGK + seg * 16;
+    const uint32_t b_dst = smem_addr(b_s + slot * kBStage);
+#pragma unroll
+    for (int i = 0; i < kBPass; ++i) {
+      const int n = n0 + row0 + i * kGRows;  // < Cout padded to 64: a weight row
+      const bool ok = kb < s.kpad;
+      cp_async16(b_dst + swizzle(row0 + i * kGRows, seg),
+                 ok ? wk + static_cast<long long>(n) * s.kpad + kb : wk, ok);
+    }
+  };
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+
+  auto compute = [&](int slot) {
+    const uint32_t a_base = smem_addr(a_s + slot * kAStage);
+    const uint32_t b_base = smem_addr(b_s + slot * kBStage);
+#pragma unroll
+    for (int kk = 0; kk < kGK / 32; ++kk) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(af[mi], a_base + swizzle(wm * 64 + mi * 16 + (lane & 15),
+                                             2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int pair = 0; pair < 2; ++pair) {
+        uint32_t r[4];
+        ldmatrix_x4(r, b_base + swizzle(wn * 32 + pair * 16 + ((lane >> 4) << 3) + (lane & 7),
+                                        2 * kk + ((lane >> 3) & 1)));
+        bf[2 * pair][0] = r[0];
+        bf[2 * pair][1] = r[1];
+        bf[2 * pair + 1][0] = r[2];
+        bf[2 * pair + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+    }
+  };
+
+  const int steps = (s.k + kGK - 1) / kGK;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) load_stage(st, st);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage `step` has landed; stage step-1 is consumed
+    const int next = step + kStages - 1;
+    if (next < steps) load_stage(next % kStages, next);
+    cp_async_commit();
+    compute(step % kStages);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Epilogue, staged: o_s[co][m] in the output type, rows padded by 16 bytes
+  // (conflict-free fragment writes). Accumulator (mi, ni, r) is row
+  // wm*64 + mi*16 + g + 8*(r >> 1), column wn*32 + ni*8 + 2t + (r & 1).
+  constexpr int kORow = kGM * static_cast<int>(sizeof(O)) + 16;
+  int8_t* const o_s = smem;
+  const bool has_add = add != nullptr;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = wn * 32 + ni * 8 + 2 * t + j;
+      const int co = n0 + col;
+      const float cm = co < s.cout ? __ldg(mul + co) : 0.f;
+      const float ca = (co < s.cout && has_add) ? __ldg(add + co) : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = wm * 64 + mi * 16 + g + 8 * half;
+          *reinterpret_cast<O*>(o_s + col * kORow + row * static_cast<int>(sizeof(O))) =
+              finish<OUT>(acc[mi][ni][2 * half + j], cm, ca, has_add);
+        }
+    }
+  __syncthreads();
+
+  // Store: each channel row of the tile as 16-byte runs of E consecutive
+  // pixels; a run that crosses an image or is misaligned stores scalars.
+  constexpr int E = 16 / static_cast<int>(sizeof(O));
+  constexpr int kRuns = kGM / E;
+  const int rows = min(kGN, s.cout - n0);
+  O* const out = static_cast<O*>(y);
+  for (int e = tid; e < rows * kRuns; e += kGThreads) {
+    const int col = e / kRuns, run = e % kRuns;
+    if (m0 + run * E >= m_total) continue;
+    long long img;
+    int p;
+    locate(img0, p0, run * E, hw_out, img, p);
+    const int co = n0 + col;
+    const long long o = (img * s.cout + co) * hw_out + p;
+    const int8_t* src = o_s + col * kORow + run * 16;
+    if (p + E <= hw_out && o % E == 0) {
+      *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(src);
+    } else {
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        if (m0 + run * E + i >= m_total) break;
+        locate(img0, p0, run * E + i, hw_out, img, p);
+        out[(img * s.cout + co) * hw_out + p] = reinterpret_cast<const O*>(src)[i];
+      }
+    }
+  }
+}
+
+template <int OUT>
+int launch_gemm(const int8_t* xq, const int8_t* wk, const float* mul,
+                const float* add, void* y, const Shape& s, cudaStream_t stream) {
+  constexpr int kSmem = gemm_smem<OUT>();
+  // More would need cudaFuncSetAttribute(MaxDynamicSharedMemorySize) first.
+  static_assert(kSmem <= 48 * 1024, "K2b's shared memory passes the default 48 KB");
+  const long long m_tiles = (static_cast<long long>(s.n) * s.ho * s.wo + kGM - 1) / kGM;
+  const long long blocks = m_tiles * ((s.cout + kGN - 1) / kGN);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int8_conv_nhwc_kernel<OUT><<<static_cast<unsigned>(blocks), kGThreads, kSmem, stream>>>(
+      xq, wk, mul, add, y, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// The gather kernel (Cin % 16 != 0).
 // x: (n, cin, h, w) contiguous, in_type 0 f32 / 1 bf16 (quantized on load
 // with *inv) / 2 int8 (used as is; inv may be null).
 // wk: (ceil(cout/64)*64, kpad) int8 contiguous, kpad = ceil(cin*kh*kw/32)*32,
@@ -365,6 +780,54 @@ extern "C" int tpupose_int8_conv(const void* x, int in_type, const int8_t* wk,
     case kF32: return dispatch_out<kF32>(out_type, x, wk, inv, mul, add, y, s, st);
     case kBF16: return dispatch_out<kBF16>(out_type, x, wk, inv, mul, add, y, s, st);
     case kI8: return dispatch_out<kI8>(out_type, x, wk, inv, mul, add, y, s, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K2a. x: (n, c, h, w) contiguous, in_type 0 f32 / 1 bf16 (quantized with
+// *inv) / 2 int8 (copied; inv may be null). y: (n, h, w, cp) int8, cp the
+// multiple of 16 at or above c; channels c..cp-1 are written as 0.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int tpupose_quantize_nhwc(const void* x, int in_type, const float* inv,
+                                     int8_t* y, int n, int c, int h, int w, int cp,
+                                     void* stream) {
+  if (static_cast<long long>(n) * h * w == 0 || cp == 0) return 0;
+  if (cp % 16 != 0 || cp < c || reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (in_type) {
+    case kF32: return launch_quantize<kF32>(x, inv, y, n, c, h * w, cp, st);
+    case kBF16: return launch_quantize<kBF16>(x, inv, y, n, c, h * w, cp, st);
+    case kI8: return launch_quantize<kI8>(x, inv, y, n, c, h * w, cp, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K2b. xq: (n, h, w, cp) int8 from K2a, cp % 16 == 0. wk: (ceil(cout/64)*64,
+// kpad) int8 contiguous, kpad = ceil(cp*kh*kw/32)*32, row co holding
+// weight_q[co] in (r, c, ci) order, zeros elsewhere. mul, add: (cout,) f32;
+// add may be null. y: (n, cout, ho, wo) contiguous, out_type 0 f32 / 1 bf16
+// (dequantize) or 2 int8 (requantize-relu). xq, wk and y 16-byte aligned.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int tpupose_int8_conv_nhwc(const int8_t* xq, const int8_t* wk,
+                                      const float* mul, const float* add, void* y,
+                                      int out_type, int n, int cp, int h, int w,
+                                      int cout, int kh, int kw, int stride,
+                                      int pad_h, int pad_w, int dil, int ho, int wo,
+                                      int kpad, void* stream) {
+  const Shape s{n, cp, h, w, cout, kh, kw, stride, pad_h, pad_w, dil, ho, wo,
+                    cp * kh * kw, kpad};
+  if (static_cast<long long>(n) * ho * wo == 0 || cout == 0) return 0;
+  if (cp % 16 != 0 || kpad % kBK != 0 || kpad < s.k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wk) |
+       reinterpret_cast<uintptr_t>(y)) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (out_type) {
+    case kF32: return launch_gemm<kF32>(xq, wk, mul, add, y, s, st);
+    case kBF16: return launch_gemm<kBF16>(xq, wk, mul, add, y, s, st);
+    case kI8: return launch_gemm<kI8>(xq, wk, mul, add, y, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -24,7 +24,9 @@ with `mul` and `add` per output channel (`add` may be None).
   channels-last int8 copy (`quantize_nhwc_plain` is its plain version) and
   K2b, an implicit GEMM over it, computes the conv and the epilogue. Any
   other Cin goes to the gather kernel, which quantizes as it loads NCHW.
-  `launches` counts convs, `quantize_launches` K2a launches.
+  `quantize_nhwc_cuda` and `gemm_nhwc_cuda` launch K2a and K2b alone.
+  `launches` counts K2b and gather launches, one per conv;
+  `quantize_launches` counts K2a launches.
 * `int8_conv` is what the models call: a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel, which raises rather than fall back.
 """
@@ -35,8 +37,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-#: Convs run on the card, one per `int8_conv_cuda` call (reset freely; read
-#: by chip_smoke.py).
+#: Launches of K2b and of the gather kernel, one per conv run on the card
+#: (reset freely; read by chip_smoke.py).
 launches = 0
 #: Launches of K2a, the quantize-to-channels-last pass (reset freely).
 quantize_launches = 0
@@ -188,6 +190,69 @@ def quantize_nhwc_cuda(x, inv):
     return y
 
 
+def _conv_geometry(what, dev, cin, h, w, weight_k, kernel_hw, mul, add, stride,
+                   dilation):
+    """Checks the weight operand and the epilogue vectors of a conv on a
+    (N, cin, h, w) input; returns (ho, wo, kpad)."""
+    kh, kw = kernel_hw
+    cout = mul.shape[0]
+    kpad = _round_up(cin * kh * kw, BLOCK_K)
+    if (weight_k.dtype != torch.int8 or weight_k.device != dev
+            or tuple(weight_k.shape) != (_round_up(cout, BLOCK_N), kpad)
+            or not weight_k.is_contiguous()):
+        raise ValueError(f"{what}: packed weight {tuple(weight_k.shape)} "
+                         f"{weight_k.dtype} does not fit Cin={cin} k={kh}x{kw} "
+                         f"Cout={cout}")
+    for v in [mul] + ([] if add is None else [add]):
+        if v.dtype != torch.float32 or v.device != dev or not v.is_contiguous():
+            raise ValueError(f"{what}: mul and add must be contiguous f32 on the "
+                             f"input's device")
+    if add is not None and add.shape != mul.shape:
+        raise ValueError(f"{what}: add {tuple(add.shape)} != mul {tuple(mul.shape)}")
+    ho, wo = out_size(h, kh, stride, dilation), out_size(w, kw, stride, dilation)
+    if ho < 1 or wo < 1:
+        raise ValueError(f"{what}: empty output for {h}x{w} input")
+    if max(cin * h * w, cout * ho * wo) >= 2**31:
+        raise ValueError(f"{what}: one image must hold fewer than 2^31 elements "
+                         f"in and out")
+    return ho, wo, kpad
+
+
+def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
+                   dilation=1):
+    """One launch of K2b: the int8 conv of K2a's (N, H, W, Cin) int8 output
+    (Cin % 16 == 0) with the epilogue, to a new (N, Cout, Ho, Wo) tensor.
+    Arguments as `int8_conv_cuda`'s. Launches on the current stream, does
+    not synchronize, and raises on a failed launch."""
+    global launches
+    dev = xq.device
+    if dev.type != "cuda":
+        raise ValueError(f"gemm_nhwc_cuda needs CUDA tensors, got {dev}")
+    if (xq.dtype != torch.int8 or xq.dim() != 4 or not xq.is_contiguous()
+            or not channels_last(xq.shape[3])):
+        raise ValueError(f"gemm_nhwc_cuda needs a contiguous (N, H, W, 16k) int8 "
+                         f"input, got {tuple(xq.shape)} {xq.dtype}")
+    if out_dtype not in _CODES:
+        raise TypeError(f"gemm_nhwc_cuda writes f32 / bf16 / int8, not {out_dtype}")
+    n, h, w, cin = xq.shape
+    kh, kw = kernel_hw
+    ho, wo, kpad = _conv_geometry("gemm_nhwc_cuda", dev, cin, h, w, weight_k,
+                                  kernel_hw, mul, add, stride, dilation)
+    cout = mul.shape[0]
+    y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev)
+    if n == 0:
+        return y
+    fn = _kernel("tpupose_int8_conv_nhwc", _GEMM_ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(),
+                None if add is None else add.data_ptr(), y.data_ptr(),
+                _CODES[out_dtype], n, cin, h, w, cout, kh, kw, stride, kh // 2,
+                kw // 2, dilation, ho, wo, kpad, torch.cuda.current_stream().cuda_stream)
+    _check_launch(rc, "int8_conv GEMM (K2b)")
+    launches += 1
+    return y
+
+
 def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
                    dilation=1):
     """One int8 conv on the card: K2a then K2b where `channels_last(Cin)`,
@@ -214,51 +279,26 @@ def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"int8_conv_cuda needs a contiguous NCHW input, got "
                          f"{tuple(x.shape)}")
+    _check_inv(x, inv)
     n, cin, h, w = x.shape
     kh, kw = kernel_hw
+    ho, wo, kpad = _conv_geometry("int8_conv_cuda", dev, cin, h, w, weight_k,
+                                  kernel_hw, mul, add, stride, dilation)
+    if channels_last(cin):
+        return gemm_nhwc_cuda(quantize_nhwc_cuda(x, inv), weight_k, kernel_hw, mul,
+                              add, out_dtype, stride, dilation)
     cout = mul.shape[0]
-    kpad = _round_up(cin * kh * kw, BLOCK_K)
-    if (weight_k.dtype != torch.int8 or weight_k.device != dev
-            or tuple(weight_k.shape) != (_round_up(cout, BLOCK_N), kpad)
-            or not weight_k.is_contiguous()):
-        raise ValueError(f"int8_conv_cuda: packed weight {tuple(weight_k.shape)} "
-                         f"{weight_k.dtype} does not fit Cin={cin} k={kh}x{kw} "
-                         f"Cout={cout}")
-    _check_inv(x, inv)
-    for v in [mul] + ([] if add is None else [add]):
-        if v.dtype != torch.float32 or v.device != dev or not v.is_contiguous():
-            raise ValueError("int8_conv_cuda: mul and add must be contiguous f32 "
-                             "on the input's device")
-    if add is not None and add.shape != mul.shape:
-        raise ValueError(f"int8_conv_cuda: add {tuple(add.shape)} != mul "
-                         f"{tuple(mul.shape)}")
-    ho, wo = out_size(h, kh, stride, dilation), out_size(w, kw, stride, dilation)
-    if ho < 1 or wo < 1:
-        raise ValueError(f"int8_conv_cuda: empty output for {h}x{w} input")
-    if max(cin * h * w, cout * ho * wo) >= 2**31:
-        raise ValueError("int8_conv_cuda: one image must hold fewer than 2^31 "
-                         "elements in and out")
     y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev)
     if n == 0:
         return y
-    add_p = None if add is None else add.data_ptr()
-    geometry = (cout, kh, kw, stride, kh // 2, kw // 2, dilation, ho, wo, kpad)
-    if channels_last(cin):
-        xq = quantize_nhwc_cuda(x, inv)
-        fn = _kernel("tpupose_int8_conv_nhwc", _GEMM_ARGS)
-        with torch.cuda.device(dev):
-            rc = fn(xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(), add_p,
-                    y.data_ptr(), _CODES[out_dtype], n, cin, h, w, *geometry,
-                    torch.cuda.current_stream().cuda_stream)
-        _check_launch(rc, "int8_conv GEMM (K2b)")
-    else:
-        fn = _kernel("tpupose_int8_conv", _GATHER_ARGS)
-        with torch.cuda.device(dev):
-            rc = fn(x.data_ptr(), _CODES[x.dtype], weight_k.data_ptr(),
-                    None if x.dtype == torch.int8 else inv.data_ptr(),
-                    mul.data_ptr(), add_p, y.data_ptr(), _CODES[out_dtype],
-                    n, cin, h, w, *geometry, torch.cuda.current_stream().cuda_stream)
-        _check_launch(rc, "int8_conv gather")
+    fn = _kernel("tpupose_int8_conv", _GATHER_ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), _CODES[x.dtype], weight_k.data_ptr(),
+                None if x.dtype == torch.int8 else inv.data_ptr(), mul.data_ptr(),
+                None if add is None else add.data_ptr(), y.data_ptr(),
+                _CODES[out_dtype], n, cin, h, w, cout, kh, kw, stride, kh // 2,
+                kw // 2, dilation, ho, wo, kpad, torch.cuda.current_stream().cuda_stream)
+    _check_launch(rc, "int8_conv gather")
     launches += 1
     return y
 
