@@ -160,6 +160,15 @@ def check_equal_nan(got, ref, what, ulps=0):
     return float(err.max()) if err.numel() else 0.0
 
 
+def bound(moved, ops, ops_per_s):
+    """The least time the card could take: bytes moved over its memory rate
+    or operations over its peak rate for their type, whichever is longer."""
+    t_bytes, t_ops = moved / H100_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": moved, "ops": ops}
+
+
 def phase_kernel(th, torch, gen):
     n, j, h, w = 640, 17, 96, 72
     heat = planted_heatmaps(n, j, h, w, gen)
@@ -182,10 +191,8 @@ def phase_kernel(th, torch, gen):
         result["modes"][refine] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
     bytes_moved = heat.numel() * 4 + boxes.numel() * 4 + n * j * 3 * 4
     ops = heat.numel()  # one compare per element; refinement is per plane
-    bound_ms = max(bytes_moved / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S) * 1e3
-    result.update(shape=[n, j, h, w], max_abs_err=max_err, bound_ms=bound_ms,
-                  bound_by="bytes" if bytes_moved / H100_BYTES_PER_S >= ops / H100_F32_OPS_PER_S
-                  else "operations", bytes=bytes_moved)
+    result.update(shape=[n, j, h, w], max_abs_err=max_err,
+                  **bound(bytes_moved, ops, H100_F32_OPS_PER_S))
     return result
 
 
@@ -295,13 +302,6 @@ def phase_k2a(torch, gen, hr_shapes, yo_shapes):
             checked += 1
             del x, got, ref
     return {"checked": checked, "distinct_inputs": len(inputs), "max_abs_err": 0.0}
-
-
-def bound(moved, ops, ops_per_s):
-    t_bytes, t_ops = moved / H100_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": moved, "ops": ops}
 
 
 def time_k2(torch, gen, shape, batch, with_plain=True):

@@ -174,7 +174,7 @@ def quantize_nhwc_cuda(x, inv):
     _check_inv(x, inv)
     n, c, h, w = x.shape
     cp = _round_up(c, CHANNELS)
-    if max(c, cp) * h * w >= 2**31:
+    if cp * h * w >= 2**31:
         raise ValueError("quantize_nhwc_cuda: one image must hold fewer than "
                          "2^31 elements")
     y = torch.empty((n, h, w, cp), dtype=torch.int8, device=dev)
