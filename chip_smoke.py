@@ -46,8 +46,25 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      2e-2 / rtol 1e-3);
   9. the tracker on a synthetic scene with 5 views and 3 people: the same
      detections replayed through `person_track` on the card and on the CPU
-     must give the same track ids, and 3 confirmed tracks.
-It prints a JSON line per phase, then `{"kernels": [...]}`, the
+     must give the same track ids, and 3 confirmed tracks;
+ 10. the evaluation CLI's loop (`tpupose_torch.cli.common`): full-width
+     YOLOv3-416 and HRNet-W48 with random weights from a seed (BN not
+     folded) written to a temporary directory as a darknet 0.2 `.weights`
+     file and a `.pth` state_dict, a Config built by `config_from_raw`
+     from SHELF_CONFIG, the pipeline built by `build_pipeline_real` (its
+     folded weights `torch.equal` to the same models folded in memory),
+     then `run_eval_loop` with --clip 32 over 68 in-memory frames of 5
+     random 720x1280 views (2 clips through `process_clip`, 4 trailing
+     frames through `process_frame`), in bf16 and again after
+     `quantize_models` on all views of the first 8 frames
+     (on_drift="warn"), each run with K1, K2 and K2a counted from 0 (6, 0,
+     0 in bf16; 6, 6 x 364, 6 x 362 in int8); each run's first clip
+     against `process_clip` + `harvest` (poses within 1e-3), the pkl and
+     per-camera JSONs written and read back, PCP scored against the
+     scene's ground truth; times per clip and per trailing frame, the
+     StageTimer report, peak memory.
+It prints a JSON line per phase, then `{"kernels": [...]}` (with each
+kernel's launches in phase 10 as `cli_launches`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. It needs a CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result. The f32 comparisons run with TF32 off.
@@ -67,6 +84,55 @@ H100_F32_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
 H100_INT8_OPS_PER_S = 1.979e15  # H100 SXM int8 tensor cores, dense
 MAIN_CROPS, MAIN_IMAGES = 640, 160  # the main path's batches (HRNet, YOLO)
 SUB_CROPS, SUB_IMAGES = 8, 4     # images of a K2 output held against plain
+
+#: configs/Shelf/model_configs.yaml as yaml.safe_load reads it, but with
+#: the bench's MAX_CANDIDATES of 4 (bench.py:95-110), so that the CLI's
+#: stage A has phase 5's size. Phase 10 also points WEIGHT, CHECKPOINT_FILE,
+#: ROOT and OUTPUT at its temporary files (`shelf_config`). Written out here
+#: because the card's machine has no PyYAML.
+SHELF_CONFIG = {
+    "TEST_FUNCTION": "PersonTrack_Project3DPose",
+    "PIPELINE_COMBINATION": {
+        "DETECT_MODEL": "YOLOv3", "POSE_MODEL": "HRPose", "PERSON_MATCHER": "Iterative",
+        "BUILD_3D": "SVD", "CONF_THRESHOLD": 0.5},
+    "DATASET": {
+        "DATA_TYPE": "Images", "TEST_DATASET": "Shelf",
+        "FOLDERS_ORDER": ["Camera0", "Camera1", "Camera2", "Camera3", "Camera4"],
+        "ROOT": "../CatchImage/Shelf", "CALIBRATION_FILE": "camera_parameter.pickle",
+        "GT_FILE": "annotation_2d.json", "DATA_FORMAT": "*.jpg",
+        "TEST_RANGE": [297, 601], "EVAL_RANGE": [[300, 601]]},
+    "VISUALIZATION": True,
+    "SAVE_IMAGE": True,
+    "OUTPUT": "results/PersonPoseDetectResult",
+    "DETECT_MODELS": {
+        "YOLOV3": {"NAME": "YOLOv3", "CFG": "weights/yolo_v3.cfg",
+                   "WEIGHT": "weights/yolov3.weights", "CLASS_NAMES": "weights/coco.names",
+                   "SCORE_THRESH": 0.5, "NMS_THRESH": 0.4, "MAX_CANDIDATES": 4},
+        "NONE": {"NAME": ""}},
+    "POSE_MODELS": {
+        "HRPOSE": {"NAME": "HRPose", "C": 48, "NUM_JOINTS": 17,
+                   "CHECKPOINT_FILE": "weights/pose_hrnet_w48_384x288.pth",
+                   "MODEL_NAME": "HRNet", "RESOLUTION": [384, 288]}},
+    "PERSON_MATCHERS": {
+        "ITERATIVE": {"NAME": "Iterative", "EPI_THRESHOLD": 60, "INIT_THRESHOLD": 30,
+                      "JOINT_THRESHOLD": 60, "NUM_JOINTS": 17, "INIT_METHOD": "GD",
+                      "N_INIT": 3, "MAX_AGE": 10, "W2D": 0.4, "ALPHA2D": 70, "W3D": 0.6,
+                      "ALPHA3D": 0.15, "LAMBDA_A": 3, "LAMBDA_T": 5, "SIGMA": 0.3,
+                      "ARM_SIGMA": 0.8}},
+}
+
+
+def shelf_config(root, weights, checkpoint):
+    """SHELF_CONFIG with the dataset root and output under `root` and the
+    two checkpoint paths."""
+    import copy
+
+    raw = copy.deepcopy(SHELF_CONFIG)
+    raw["DATASET"]["ROOT"] = root
+    raw["OUTPUT"] = os.path.join(root, "results")
+    raw["DETECT_MODELS"]["YOLOV3"]["WEIGHT"] = weights
+    raw["POSE_MODELS"]["HRPOSE"]["CHECKPOINT_FILE"] = checkpoint
+    return raw
 
 
 def fail(msg, code=1):
@@ -737,6 +803,286 @@ def phase_tracker(torch, card):
             "pose3d_max_abs_diff_m": err}
 
 
+CLI_FRAMES, CLI_CLIP, CLI_CALIB = 68, 32, 8  # 2 clips + 4 trailing frames
+CLI_HEIGHT, CLI_WIDTH = 720, 1280
+#: K1, K2 and K2a launches per `process_clip` or `process_frame` call (one
+#: stage A batch each): one decode, and in int8 the 364 quantized convs of
+#: YOLOv3-416 and HRNet-W48, 362 of them through K2a (phase 6's counts).
+STEP_LAUNCHES = {
+    "bf16": {"heatmap.launches": 1, "int8_conv.launches": 0,
+             "int8_conv.quantize_launches": 0},
+    "int8": {"heatmap.launches": 1, "int8_conv.launches": 364,
+             "int8_conv.quantize_launches": 362},
+}
+
+
+def jitter_bn(torch, model, gen):
+    """Random BN statistics and affine terms (scale <= 1), so that folding
+    them is not the identity and a misordered darknet BN block shows."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.9, 1.0, generator=gen)
+                m.bias.normal_(0.0, 0.01, generator=gen)
+                m.running_mean.normal_(0.0, 0.01, generator=gen)
+                m.running_var.uniform_(1.0, 1.1, generator=gen)
+    return model
+
+
+def write_checkpoints(torch, root, det_cfg, pose_cfg):
+    """Full-width random YOLOv3 and HRNet from a seed, BN not folded,
+    written as a darknet 0.2 `.weights` file and a plain `.pth`
+    state_dict. Returns the two paths and the models."""
+    from tpupose_torch.models import convert
+    from tpupose_torch.models.hrnet import hrnet_init
+    from tpupose_torch.models.yolov3 import yolov3_init
+
+    gen = torch.Generator().manual_seed(10)
+    detector = jitter_bn(torch, yolov3_init(det_cfg, gen), gen)
+    pose = jitter_bn(torch, hrnet_init(pose_cfg, gen), gen)
+    weights = os.path.join(root, "yolov3.weights")
+    convert.write_darknet_file(
+        weights, {"major": 0, "minor": 2, "revision": 0, "seen": 32013312},
+        convert.state_dict_to_darknet_array(detector.state_dict(), det_cfg))
+    checkpoint = os.path.join(root, "pose_hrnet_w48_384x288.pth")
+    torch.save(pose.state_dict(), checkpoint)
+    return weights, checkpoint, detector, pose
+
+
+def check_state_dicts_equal(torch, loaded, ref, what):
+    got, want = loaded.state_dict(), ref.state_dict()
+    if set(got) != set(want):
+        fail(f"{what}: the loaded state_dict's keys differ from the in-memory model's")
+    for k, v in want.items():
+        if not torch.equal(got[k].cpu(), v.cpu()):
+            fail(f"{what}: {k} differs from the in-memory model folded the same way")
+    return len(want)
+
+
+def cli_loop(torch, cfg, pipe, frames, card, counters):
+    """`cli.common.run_eval_loop` over the in-memory frames in CLI_CLIP-frame
+    clips, with every counter of `counters` (module, attribute) set to 0
+    just before and read just after; each clip and each trailing frame
+    timed to a device sync."""
+    from tpupose_torch.cli import common as cli
+    from tpupose_torch.ops import lap
+    from tpupose_torch.utils.timing import StageTimer
+
+    calls = {"process_clip": [], "process_frame": []}
+
+    def timed(name):
+        fn = getattr(pipe, name)
+
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def source():
+        for t in range(frames.shape[0]):
+            yield t, t, frames[t], None, None
+
+    pipe.track_restart()
+    pipe.process_clip, pipe.process_frame = timed("process_clip"), timed("process_frame")
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for module, attr in counters:
+        setattr(module, attr, 0)
+    lap.host_syncs = 0
+    t0 = time.perf_counter()
+    try:
+        multi_poses3d, annotations = cli.run_eval_loop(cfg, pipe, source(), timer,
+                                                       clip=CLI_CLIP)
+        torch.cuda.synchronize()
+    finally:
+        del pipe.process_clip, pipe.process_frame
+    loop_s = time.perf_counter() - t0
+    syncs = lap.host_syncs
+    launches = {f"{module.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(module, attr)
+                for module, attr in counters}
+    n_clips, n_tail = divmod(frames.shape[0], CLI_CLIP)
+    if (len(calls["process_clip"]), len(calls["process_frame"])) != (n_clips, n_tail):
+        fail(f"the CLI loop made {len(calls['process_clip'])} process_clip and "
+             f"{len(calls['process_frame'])} process_frame calls, expected {n_clips} "
+             f"and {n_tail}")
+    if sorted(multi_poses3d) != list(range(frames.shape[0])):
+        fail("the CLI loop did not harvest every frame")
+    return {
+        "card": card, "loop_s": loop_s, "clip_ms": calls["process_clip"],
+        "ms_per_clip": statistics.median(calls["process_clip"]),
+        "frame_ms": calls["process_frame"],
+        "ms_per_trailing_frame": statistics.median(calls["process_frame"]),
+        "timer_report": timer.report(num_views=len(cfg.dataset.folders_order)).splitlines(),
+        "launches": launches, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "host_syncs_per_frame": syncs / frames.shape[0],
+        "confirmed_track_frames": sum(len(p) for p in multi_poses3d.values()),
+        "annotations": len(annotations),
+    }, (multi_poses3d, annotations)
+
+
+def clip_split(torch, pipe, frames, **capacities):
+    """ms of stage A (`process_clip_nn`) and of the whole `process_clip` on
+    the first clip from a fresh tracker, with the tracker capacities
+    replaced by `capacities` for the call."""
+    import dataclasses
+
+    tcfg = pipe.tracker_cfg
+    used = dataclasses.replace(tcfg, **capacities)
+    clip = torch.as_tensor(frames[:CLI_CLIP]).cuda()
+    try:
+        pipe.tracker_cfg = used
+        pipe.track_restart()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process_clip_nn(clip)
+        torch.cuda.synchronize()
+        stage_a = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        pipe.process_clip(list(range(CLI_CLIP)), clip)
+        torch.cuda.synchronize()
+        whole = (time.perf_counter() - t0) * 1e3
+    finally:
+        pipe.tracker_cfg = tcfg
+        pipe.track_restart()
+    return {"stage_a_ms": stage_a, "clip_ms": whole, "max_dets": used.max_dets,
+            "max_tracks": used.max_tracks, "max_hyp": used.max_hyp}
+
+
+def check_first_clip(torch, pipe, frames, multi_poses3d):
+    """The loop's harvested poses and track ids for the first clip against
+    `process_clip` + `harvest` on the same frames from a fresh tracker."""
+    pipe.track_restart()
+    outs, _, _ = pipe.process_clip(list(range(CLI_CLIP)), torch.as_tensor(frames[:CLI_CLIP]))
+    worst, ids = 0.0, 0
+    for t in range(CLI_CLIP):
+        pts3d, tids, _ = pipe.harvest(type(outs)(*(x[t] for x in outs)), t)
+        loop_pts = multi_poses3d[t]
+        if pts3d.shape != loop_pts.shape:
+            fail(f"CLI frame {t}: {loop_pts.shape} poses against process_clip's {pts3d.shape}")
+        if pts3d.size:
+            err = float(abs(pts3d - loop_pts).max())
+            if not err <= 1e-3:
+                fail(f"CLI frame {t}: poses differ from process_clip by {err}")
+            worst = max(worst, err)
+        ids += len(tids)
+    return {"frames": CLI_CLIP, "pose_max_abs_diff": worst, "track_frames": ids}
+
+
+def check_artifacts(cfg, multi_poses3d, annotations, scene):
+    """Write the pkl and the per-camera JSONs, load them back, and score
+    PCP against the scene's ground truth."""
+    import pickle
+
+    from tpupose_torch.cli.common import result_path
+    from tpupose_torch.eval import (
+        coco2shelf3d,
+        evaluate_pcp,
+        write_2d_result,
+        write_3d_result,
+    )
+
+    pkl = result_path(cfg)
+    write_3d_result(multi_poses3d, pkl)
+    track_dir = os.path.join(cfg.output, cfg.dataset.test_dataset, "TrackResult")
+    write_2d_result((CLI_HEIGHT, CLI_WIDTH), annotations, save_dir=track_dir)
+    with open(pkl, "rb") as f:
+        back = pickle.load(f)
+    if sorted(back) != sorted(multi_poses3d):
+        fail("the predictions pkl does not hold every frame")
+    cameras = sorted({ann["cid"] for ann in annotations})
+    for c in cameras:
+        with open(os.path.join(track_dir, f"Camera{c}.json")) as f:
+            entry = json.load(f)
+        if entry["image_wh"] != [CLI_WIDTH, CLI_HEIGHT]:
+            fail(f"Camera{c}.json: image_wh {entry['image_wh']}")
+    actors_gt = [[coco2shelf3d(scene.gt3d[t, a].T) for t in range(scene.num_frames)]
+                 for a in range(scene.num_actors)]
+    res = evaluate_pcp([[0, scene.num_frames]], multi_poses3d, actors_gt)
+    return {"pkl_frames": len(back), "camera_jsons": len(cameras),
+            "average_pcp": res["average"]}
+
+
+def phase_cli_path(torch, card):
+    """Phase 10: the evaluation CLI's loop at full width from checkpoint
+    files, in bf16 and then int8."""
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from tpupose_torch.cli import common as cli
+    from tpupose_torch.data.config import config_from_raw
+    from tpupose_torch.data.synthetic import make_scene
+    from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.ops import int8_conv as k2
+
+    counters = [(th, "launches"), (k2, "launches"), (k2, "quantize_launches")]
+    out = {"card": card, "config": "configs/Shelf/model_configs.yaml with MAX_CANDIDATES 4: "
+           "YOLOv3-416 + HRNet-W48 384x288 from .weights / .pth, BN folded, bf16; "
+           f"{CLI_FRAMES} frames x 5 views x {CLI_HEIGHT}x{CLI_WIDTH} uint8, --clip {CLI_CLIP}"}
+    with tempfile.TemporaryDirectory() as root:
+        probe = config_from_raw(shelf_config(root, "", ""))
+        det_cfg, pose_cfg = cli.yolo_config_from(probe), cli.hrnet_config_from(probe)
+        t0 = time.perf_counter()
+        weights, checkpoint, detector, pose = write_checkpoints(torch, root, det_cfg, pose_cfg)
+        out["write_s"] = time.perf_counter() - t0
+        out["file_mb"] = {"weights": os.path.getsize(weights) / 1e6,
+                          "pth": os.path.getsize(checkpoint) / 1e6}
+        cfg = config_from_raw(shelf_config(root, weights, checkpoint))
+        views = len(cfg.dataset.folders_order)
+        scene = make_scene(num_frames=CLI_FRAMES, num_cameras=views, num_actors=3, seed=0)
+        t0 = time.perf_counter()
+        pipe = cli.build_pipeline_real(cfg, {"P": scene.P, "K": scene.K, "RT": scene.RT},
+                                       CLI_WIDTH, CLI_HEIGHT)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["tensors_equal"] = (
+            check_state_dicts_equal(torch, pipe.detector,
+                                    fold_batchnorm(detector, dtype=torch.bfloat16), "YOLOv3")
+            + check_state_dicts_equal(torch, pipe.pose_model,
+                                      fold_batchnorm(pose, dtype=torch.bfloat16), "HRNet"))
+        del detector, pose
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        frames = torch.randint(0, 256, (CLI_FRAMES, views, CLI_HEIGHT, CLI_WIDTH, 3),
+                               generator=gen, device="cuda", dtype=torch.uint8).cpu().numpy()
+        n_clips, n_tail = divmod(CLI_FRAMES, CLI_CLIP)
+        for mode in ("bf16", "int8"):
+            if mode == "int8":
+                log = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with redirect_stdout(log):
+                    # as evalmodel --int8: all views of the first frames;
+                    # random weights drift by design, so report, do not gate
+                    pipe.quantize_models(np.concatenate(frames[:CLI_CALIB], axis=0),
+                                         on_drift="warn")
+                torch.cuda.synchronize()
+                out["quantize_s"] = time.perf_counter() - t0
+                out["self_check"] = {"printed": log.getvalue().strip().splitlines(),
+                                     **pipe.last_quant_report}
+            run, (multi_poses3d, annotations) = cli_loop(torch, cfg, pipe, frames, card,
+                                                         counters)
+            expect = {k: (n_clips + n_tail) * v for k, v in STEP_LAUNCHES[mode].items()}
+            if run["launches"] != expect:
+                fail(f"CLI loop ({mode}) launched {run['launches']}, expected {expect}")
+            run["first_clip_vs_process_clip"] = check_first_clip(torch, pipe, frames,
+                                                                 multi_poses3d)
+            # the config's tracker capacities against phase 5's
+            run["split"] = [clip_split(torch, pipe, frames),
+                            clip_split(torch, pipe, frames, max_dets=4, max_tracks=12,
+                                       max_hyp=24)]
+            run["artifacts"] = check_artifacts(cfg, multi_poses3d, annotations, scene)
+            out[mode] = run
+        del pipe, frames
+    return out
+
+
 def main():
     try:
         import torch
@@ -784,6 +1130,10 @@ def main():
     tracker = phase_tracker(torch, card)
     emit("tracker_scene", **tracker)
 
+    cli_path = phase_cli_path(torch, card)
+    emit("cli_path", **cli_path)
+    cli_launches = {mode: cli_path[mode]["launches"] for mode in ("bf16", "int8")}
+
     quarter = k1["modes"]["quarter"]
     conv = k2["timed"]["hrnet_branch0_3x3_48"]
     print(json.dumps({"kernels": [{
@@ -794,6 +1144,7 @@ def main():
         "max_abs_err": k1["max_abs_err"], "ms": quarter["ms"],
         "plain_ms": quarter["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
+        "cli_launches": {m: c["heatmap.launches"] for m, c in cli_launches.items()},
     }, {
         "name": "int8_conv", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -804,6 +1155,7 @@ def main():
         "bound_by": conv["bound_by"], "library_ms": None,
         "k2b_ms": conv["k2b"]["ms"], "design_bound_ms": conv["design_bound_ms"],
         "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
+        "cli_launches": {m: c["int8_conv.launches"] for m, c in cli_launches.items()},
     }, {
         "name": "quantize_nhwc", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -813,6 +1165,7 @@ def main():
         "plain_ms": conv["k2a"]["plain_ms"], "bound_ms": conv["k2a"]["bound_ms"],
         "bound_by": conv["k2a"]["bound_by"], "library_ms": None,
         "shape": conv["shape"][:4],
+        "cli_launches": {m: c["int8_conv.quantize_launches"] for m, c in cli_launches.items()},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

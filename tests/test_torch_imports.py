@@ -21,7 +21,10 @@ def _module_names():
 def test_import_loads_no_jax_and_no_tpupose():
     names = _module_names()
     for name in ("tpupose_torch.models.quantize", "tpupose_torch.ops.int8_conv",
-                 "tpupose_torch.pipeline.facade", "tpupose_torch.kernels"):
+                 "tpupose_torch.pipeline.facade", "tpupose_torch.kernels",
+                 "tpupose_torch.cli.evalmodel", "tpupose_torch.cli.testmodel",
+                 "tpupose_torch.cli.score", "tpupose_torch.eval.pcp",
+                 "tpupose_torch.data.config", "tpupose_torch.utils.timing"):
         assert name in names, name
     code = (
         "import importlib, sys\n"
@@ -30,6 +33,20 @@ def test_import_loads_no_jax_and_no_tpupose():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'tpupose' or m.startswith('tpupose.'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   capture_output=True, text=True, timeout=120)
+
+
+def test_import_loads_no_yaml_and_no_pil():
+    """PyYAML and Pillow are imported where a config file is parsed or an
+    image read, so the package (and chip_smoke.py) runs without them."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_module_names()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('yaml', 'PIL'))\n"
+        "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    capture_output=True, text=True, timeout=120)

@@ -1,8 +1,14 @@
-"""Neural backends: HRNet and YOLOv3 as nn.Modules, weight conversion,
-int8 post-training quantization."""
+"""Neural backends: HRNet and YOLOv3 as nn.Modules, weight conversion and
+checkpoint loading, int8 post-training quantization."""
 from tpupose_torch.models.convert import (
+    darknet_array_to_state_dict,
     hrnet_state_dict_from_jax,
+    load_darknet_weights,
+    load_hrnet_torch_checkpoint,
+    read_darknet_file,
     state_dict_from_jax,
+    state_dict_to_darknet_array,
+    write_darknet_file,
     yolo_state_dict_from_jax,
 )
 from tpupose_torch.models.hrnet import (
@@ -30,8 +36,14 @@ from tpupose_torch.models.yolov3 import (
 )
 
 __all__ = [
+    "darknet_array_to_state_dict",
     "hrnet_state_dict_from_jax",
+    "load_darknet_weights",
+    "load_hrnet_torch_checkpoint",
+    "read_darknet_file",
     "state_dict_from_jax",
+    "state_dict_to_darknet_array",
+    "write_darknet_file",
     "yolo_state_dict_from_jax",
     "HRNet",
     "HRNetConfig",

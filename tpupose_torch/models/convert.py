@@ -1,13 +1,19 @@
-"""Weights across from the JAX package's parameter trees.
+"""Weights in: the JAX package's parameter trees and the published
+checkpoint formats.
 
-The JAX trees are nested dicts whose key paths are torch state_dict names
-with HWIO conv kernels; `np.asarray` of every leaf gives the input here.
-The result loads with `load_state_dict(strict=True)` into the matching
-module: `HRNet` / `YOLOv3` for a plain tree, the same module after
-`fold_batchnorm` for a folded tree (whose BN dicts are empty), and for a
-quantized tree the module that `quantize.quantize_convs` returns for the
-same skip set (int8 `weight_q` HWIO -> OIHW; `w_scale`, `x_scale` and
-`bias` as they are).
+JAX trees are nested dicts whose key paths are torch state_dict names with
+HWIO conv kernels; `np.asarray` of every leaf gives the input of
+`state_dict_from_jax`. The result loads with `load_state_dict(strict=True)`
+into the matching module: `HRNet` / `YOLOv3` for a plain tree, the same
+module after `fold_batchnorm` for a folded tree (whose BN dicts are empty),
+and for a quantized tree the module that `quantize.quantize_convs` returns
+for the same skip set (int8 `weight_q` HWIO -> OIHW; `w_scale`, `x_scale`
+and `bias` as they are).
+
+The published checkpoints (`src/configs/*/model_configs.yaml:38-57`) load
+with no JAX: a darknet `.weights` file (`read_darknet_file`,
+`load_darknet_weights`) and a `pose_hrnet` `.pth` state_dict
+(`load_hrnet_torch_checkpoint`), whose keys are the port's HRNet names.
 """
 from __future__ import annotations
 
@@ -46,3 +52,125 @@ def hrnet_state_dict_from_jax(tree) -> dict:
 def yolo_state_dict_from_jax(tree) -> dict:
     """The JAX YOLOv3 tree (numpy leaves) as the port's YOLOv3 state_dict."""
     return state_dict_from_jax(tree)
+
+
+# -- pose_hrnet .pth -------------------------------------------------------------
+
+def load_hrnet_torch_checkpoint(path, cfg):
+    """A `pose_hrnet` `.pth` checkpoint as the port's `HRNet` for `cfg`.
+
+    Unwraps a `{"state_dict": ...}` container and strips a `module.`
+    prefix (a DataParallel save), then loads with `strict=True`: the
+    official keys are the port's module names. Returns the HRNet on the
+    CPU, BN not folded."""
+    from tpupose_torch.models.hrnet import HRNet
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in sd.items()}
+    model = HRNet(cfg)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+# -- darknet .weights --------------------------------------------------------------
+
+def _seen_dtype(major, minor):
+    # `seen` is int64 from format version 0.2 on (yolov3.weights ships as
+    # 0.2) and int32 before; reading the wrong width misaligns every weight
+    # by 4 bytes.
+    return np.int64 if major * 10 + minor >= 2 else np.int32
+
+
+def read_darknet_file(path):
+    """Read a darknet `.weights` binary: the header is 3x int32 (major,
+    minor, revision) then the image counter `seen` (int32 or int64 by
+    version), then float32 weights to the end of the file.
+
+    Returns:
+      (header dict with major/minor/revision/seen, float32 weight array)
+    """
+    with open(path, "rb") as f:
+        version = np.fromfile(f, dtype=np.int32, count=3)
+        if version.size != 3:
+            raise ValueError(f"not a darknet weights file: {path}")
+        major, minor, revision = (int(v) for v in version)
+        seen = np.fromfile(f, dtype=_seen_dtype(major, minor), count=1)
+        data = np.fromfile(f, dtype=np.float32)
+    header = {
+        "major": major,
+        "minor": minor,
+        "revision": revision,
+        "seen": int(seen[0]) if seen.size else 0,
+    }
+    return header, data
+
+
+def write_darknet_file(path, header, data):
+    """Inverse of `read_darknet_file`."""
+    major, minor = header["major"], header["minor"]
+    with open(path, "wb") as f:
+        np.asarray([major, minor, header.get("revision", 0)], np.int32).tofile(f)
+        np.asarray([header.get("seen", 0)], _seen_dtype(major, minor)).tofile(f)
+        np.asarray(data, np.float32).tofile(f)
+
+
+def darknet_array_to_state_dict(data, cfg) -> dict:
+    """A darknet float payload -> the port's `YOLOv3` state_dict for `cfg`.
+
+    Per conv, in `YoloConfig.conv_specs` order: with BN, bn bias, bn scale,
+    bn mean, bn var, then the OIHW weights; without BN (the three detection
+    heads), the conv bias, then the OIHW weights. Raises ValueError when the
+    payload is shorter or longer than the network."""
+    from tpupose_torch.models.yolov3 import conv_in_channels
+
+    data = np.asarray(data, np.float32)
+    sd = {}
+    ptr = 0
+
+    def take(n, shape=None):
+        nonlocal ptr
+        if ptr + n > data.size:
+            raise ValueError(f"darknet weights exhausted at {ptr} of {data.size} "
+                             f"floats, need {n} more")
+        out = torch.from_numpy(data[ptr:ptr + n].reshape(shape or (n,)))
+        ptr += n
+        return out
+
+    for i, ((cout, k, _, bn), cin) in enumerate(zip(cfg.conv_specs,
+                                                    conv_in_channels(cfg))):
+        p = f"conv{i}."
+        if bn:
+            sd[p + "bn.bias"] = take(cout)
+            sd[p + "bn.weight"] = take(cout)
+            sd[p + "bn.running_mean"] = take(cout)
+            sd[p + "bn.running_var"] = take(cout)
+            sd[p + "bn.num_batches_tracked"] = torch.tensor(0)
+        else:
+            sd[p + "conv.bias"] = take(cout)
+        sd[p + "conv.weight"] = take(cout * cin * k * k, (cout, cin, k, k))
+    if ptr != data.size:
+        raise ValueError(f"darknet weights: {data.size - ptr} trailing floats "
+                         f"after the {ptr} the network holds")
+    return sd
+
+
+def state_dict_to_darknet_array(sd, cfg) -> np.ndarray:
+    """Inverse of `darknet_array_to_state_dict`: a `YOLOv3` state_dict (BN
+    not folded) in darknet file order, float32."""
+    chunks = []
+    for i, (_, _, _, bn) in enumerate(cfg.conv_specs):
+        p = f"conv{i}."
+        names = (["bn.bias", "bn.weight", "bn.running_mean", "bn.running_var"]
+                 if bn else ["conv.bias"]) + ["conv.weight"]
+        chunks += [sd[p + n].detach().float().cpu().numpy().ravel() for n in names]
+    return np.concatenate(chunks).astype(np.float32)
+
+
+def load_darknet_weights(path, cfg) -> dict:
+    """A darknet `.weights` file as the port's `YOLOv3` state_dict for
+    `cfg` (BN not folded)."""
+    _, data = read_darknet_file(path)
+    return darknet_array_to_state_dict(data, cfg)
