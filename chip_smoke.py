@@ -62,12 +62,29 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      against `process_clip` + `harvest` (poses within 1e-3), the pkl and
      per-camera JSONs written and read back, PCP scored against the
      scene's ground truth; times per clip and per trailing frame, the
-     StageTimer report, peak memory.
+     StageTimer report, peak memory;
+ 11. int8 with distill-QAT (`int8_qat`): phase 5's float models and phase
+     6's 8 calibration frames. First `quantize_models` with the default
+     on_drift="escalate" and QAT_ESCALATE_STEPS: random weights fail the
+     self-check, escalate to distill-QAT, fail again and must raise
+     QuantizationDriftError "after distill-QAT"; then `quantize_models`
+     with qat_steps=QAT_STEPS and on_drift="warn": ms per QAT step per
+     model, peak memory, first and last logged loss, the post-QAT
+     self-check; then one int8 `process_clip` (1 K1, 364 K2, 362 K2a
+     launches). Last, `distill_qat` for 3 steps on the tiny configs in f32
+     on the card and on the CPU from the same weights and batches, held
+     within Adam's bound (each step moves an entry by at most about lr);
+ 12. the CLI loop with tracks (`cli_tracks`): `run_eval_loop` fed the
+     synthetic scene's detections (`synthetic_frame_source`, the
+     `person_track` path) with Shelf's config's tracker capacities (16 /
+     16 / 40), on the card and on the CPU: equal track ids and
+     byte-equal per-camera JSONs, and confirmed tracks.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. It needs a CUDA
 card and the repository around it; without either it exits non-zero and
-prints no result. The f32 comparisons run with TF32 off.
+prints no result. The f32 comparisons run with TF32 off (so do phase 11's
+f32 fake-quant convolutions).
 """
 from __future__ import annotations
 
@@ -1083,6 +1100,247 @@ def phase_cli_path(torch, card):
     return out
 
 
+QAT_ESCALATE_STEPS, QAT_STEPS = 10, 20  # distill-QAT steps per model in phase 11
+TINY_QAT_LR = 1e-5  # the JAX default learning rate
+
+
+class QatLog:
+    """`qat_log` for `quantize_models`: (step, loss, seconds after a device
+    sync) per call; a step that does not grow starts the next model's run
+    (the detector trains first, then the pose model)."""
+
+    def __init__(self, torch):
+        self.torch, self.runs = torch, []
+
+    def __call__(self, step, loss):
+        self.torch.cuda.synchronize()
+        if not self.runs or step <= self.runs[-1][-1][0]:
+            self.runs.append([])
+        self.runs[-1].append((step, loss, time.perf_counter()))
+
+    def summary(self):
+        out = []
+        for model, run in zip(("yolov3_416", "hrnet_w48"), self.runs):
+            (s0, l0, t0), (s1, l1, t1) = run[0], run[-1]
+            out.append({"model": model, "steps_logged": [s for s, _, _ in run],
+                        "first_loss": l0, "last_loss": l1,
+                        "ms_per_step": (t1 - t0) * 1e3 / (s1 - s0) if s1 > s0 else None})
+        return out
+
+
+def phase_int8_qat(torch, card, models, clip, frame_ids):
+    """Phase 11: escalation to distill-QAT that must still refuse, then
+    qat_steps with on_drift="warn", then one int8 clip; last the tiny-config
+    card-vs-CPU check."""
+    import io
+    from contextlib import redirect_stdout
+
+    from tpupose_torch.models.layers import QuantConv2d
+    from tpupose_torch.models.quantize import QuantizationDriftError
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.ops import int8_conv as k2
+    from tpupose_torch.pipeline import Pipeline
+
+    cams, tcfg, det_cfg, detector, pose_cfg, pose = models
+    pipe = Pipeline(cams, tcfg, det_cfg, detector, pose_cfg, pose)
+    calib = clip[:8, 0].contiguous()  # phase 6's calibration frames
+    out = {"card": card, "precision": "bf16 networks, f32 fake-quant convs with TF32 off",
+           "calibration_images": int(calib.shape[0])}
+
+    log, qat_log = io.StringIO(), QatLog(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with redirect_stdout(log):
+            pipe.quantize_models(calib, escalate_steps=QAT_ESCALATE_STEPS, qat_log=qat_log)
+    except QuantizationDriftError as e:
+        refused = str(e)
+    else:
+        fail("escalation to distill-QAT served random weights; expected a refusal")
+    torch.cuda.synchronize()
+    printed = log.getvalue().strip().splitlines()
+    print("\n".join(printed + [refused]), flush=True)
+    if "after distill-QAT" not in refused or not any(
+            "escalating to label-free distill-QAT" in ln for ln in printed):
+        fail(f"escalation: unexpected messages {printed} / {refused}")
+    if isinstance(pipe.pose_model.layer1[0].conv1, QuantConv2d):
+        fail("escalation: a refused int8 model was served")
+    out["escalate"] = {"steps": QAT_ESCALATE_STEPS, "seconds": time.perf_counter() - t0,
+                       "printed": printed, "refused": refused,
+                       "after_qat": dict(pipe.last_quant_report), "qat": qat_log.summary()}
+
+    log, qat_log = io.StringIO(), QatLog(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with redirect_stdout(log):
+        pipe.quantize_models(calib, qat_steps=QAT_STEPS, on_drift="warn", qat_log=qat_log)
+    torch.cuda.synchronize()
+    printed = log.getvalue().strip().splitlines()
+    print("\n".join(printed), flush=True)
+    out["qat"] = {"steps": QAT_STEPS, "seconds": time.perf_counter() - t0, "printed": printed,
+                  "self_check": dict(pipe.last_quant_report),
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "models": qat_log.summary(),
+                  "extrapolated_900_steps_s": sum(
+                      900 * m["ms_per_step"] / 1e3 for m in qat_log.summary())}
+
+    pipe.track_restart()
+    pipe.process_clip(frame_ids, clip)  # warm-up
+    torch.cuda.synchronize()
+    th.launches = k2.launches = k2.quantize_launches = 0
+    t0 = time.perf_counter()
+    outs, dets, mask = pipe.process_clip(frame_ids, clip)
+    torch.cuda.synchronize()
+    clip_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches}
+    if launches != {"k1": 1, "k2": 364, "k2a": 362}:
+        fail(f"the int8 clip after distill-QAT launched {launches}, expected 1 / 364 / 362")
+    check_clip_outputs(torch, outs, dets, mask, clip.shape[0], clip.shape[1], tcfg)
+    out["clip"] = {"ms": clip_ms, "launches": launches, "detections_valid": int(mask.sum())}
+    out["tiny_card_vs_cpu"] = tiny_qat_card_vs_cpu(torch)
+    return out
+
+
+def tiny_qat_card_vs_cpu(torch):
+    """`distill_qat`, 3 steps at TINY_QAT_LR in f32, on the card and on the
+    CPU from the same tiny HRNet / YOLO weights (BN statistics
+    re-estimated, then folded) and batches.
+
+    Bounds: from one start, each Adam step moves an entry by at most about
+    lr (the bias-corrected m / sqrt(v) is at most 1.0014 in the first three
+    steps), so trained float entries stay within 6.1 lr of each other;
+    activation scales within that plus rtol 1e-4 for their calibration;
+    int8 weights at most 1 apart, in at most 1% of entries. An int8 code
+    flip in one conv input (f32 summation order) spreads through a random
+    net, so gradients may differ in sign; the measured maxima are
+    reported beside the bounds."""
+    import copy
+
+    from tpupose_torch.models import quantize as tq
+    from tpupose_torch.models.hrnet import hrnet_init, tiny_test_config
+    from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.models.yolov3 import tiny_yolo_test_config, yolov3_init
+
+    gen = torch.Generator().manual_seed(11)
+    lr, out = TINY_QAT_LR, {"lr": TINY_QAT_LR, "steps": 3}
+    hr_cfg, yo_cfg = tiny_test_config(), tiny_yolo_test_config()
+    cases = (
+        ("hrnet", hrnet_init(hr_cfg, gen), torch.rand((4, 3, *hr_cfg.input_size), generator=gen),
+         tq.hrnet_skip_ids),
+        ("yolo", yolov3_init(yo_cfg, gen),
+         torch.rand((4, 3, yo_cfg.input_size, yo_cfg.input_size), generator=gen),
+         lambda m: tq.yolo_skip_ids(m, yo_cfg)))
+    for name, raw, x, skip_fn in cases:
+        tq.calibrate_bn_stats(lambda b: raw(b, torch.float32), x)
+        folded = fold_batchnorm(raw)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = copy.deepcopy(folded).to(device)
+            losses = []
+            q = tq.distill_qat(lambda m, b: m(b, torch.float32), model, None, [x.to(device)],
+                               steps=3, lr=lr, skip_ids=skip_fn(model),
+                               log=lambda i, v: losses.append(v))
+            runs[device] = ({k: v.cpu() for k, v in q.state_dict().items()}, losses)
+        (card, card_losses), (cpu, cpu_losses) = runs["cuda"], runs["cpu"]
+        worst_w = worst_s = 0.0
+        flips = total = 0
+        for k, ref in cpu.items():
+            got = card[k]
+            if k.endswith("weight_q"):
+                diff = (got.int() - ref.int()).abs()
+                if int(diff.max()) > 1:
+                    fail(f"tiny {name} QAT: {k} differs card vs CPU by {int(diff.max())} codes")
+                flips += int((diff != 0).sum())
+                total += diff.numel()
+            elif k.endswith("x_scale"):
+                err = abs(float(got) - float(ref))
+                if err > 6.1 * lr + 1e-4 * abs(float(ref)):
+                    fail(f"tiny {name} QAT: {k} differs card vs CPU by {err}")
+                worst_s = max(worst_s, err / abs(float(ref)))
+            elif not k.endswith("w_scale"):
+                err = float((got - ref).abs().max())
+                if err > 6.1 * lr:
+                    fail(f"tiny {name} QAT: {k} differs card vs CPU by {err} > 6.1 lr")
+                worst_w = max(worst_w, err)
+        if flips > 0.01 * total:
+            fail(f"tiny {name} QAT: {flips} of {total} int8 weights differ card vs CPU")
+        out[name] = {"losses_card": card_losses, "losses_cpu": cpu_losses,
+                     "float_max_abs_diff_over_lr": worst_w / lr,
+                     "x_scale_max_rel_diff": worst_s,
+                     "weight_q_differ": flips, "weight_q_total": total}
+    return out
+
+
+CLI_TRACK_FRAMES = 30
+
+
+def phase_cli_tracks(torch, card):
+    """Phase 12: `run_eval_loop` over the synthetic scene's detections (the
+    replay / `person_track` path) at Shelf's tracker capacities, on the card
+    and on the CPU: the same track ids and byte-equal per-camera JSONs."""
+    import tempfile
+
+    from tpupose_torch.cli import common as cli
+    from tpupose_torch.data.config import config_from_raw, tracker_config_from
+    from tpupose_torch.eval import write_2d_result
+    from tpupose_torch.geometry import make_camera_set
+    from tpupose_torch.ops import lap
+    from tpupose_torch.pipeline import Pipeline
+    from tpupose_torch.utils.timing import StageTimer
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = config_from_raw(shelf_config(root, "", ""))
+        views = len(cfg.dataset.folders_order)
+        tcfg = tracker_config_from(cfg, num_cameras=views)
+        scene, source = cli.synthetic_frame_source(num_frames=CLI_TRACK_FRAMES, num_cameras=views,
+                                                   max_dets=tcfg.max_dets)
+        items = list(source)
+        cams = make_camera_set(scene.P, scene.K, scene.RT, scene.width, scene.height)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            pipe = Pipeline(cams, tcfg, device=device)
+            lap.host_syncs = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            multi_poses3d, annotations = cli.run_eval_loop(cfg, pipe, iter(items), StageTimer(),
+                                                           clip=CLI_CLIP)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            save_dir = os.path.join(root, device)
+            write_2d_result((scene.height, scene.width), annotations, save_dir=save_dir)
+            jsons = {}
+            for fname in sorted(os.listdir(save_dir)):
+                with open(os.path.join(save_dir, fname), "rb") as f:
+                    jsons[fname] = f.read()
+            ids = [(a["timestamp"], a["cid"], a["pid"]) for a in annotations]
+            runs[device] = (multi_poses3d, ids, jsons, seconds, lap.host_syncs)
+    (p_card, ids_card, js_card, s_card, syncs), (p_cpu, ids_cpu, js_cpu, s_cpu, _) = (
+        runs["cuda"], runs["cpu"])
+    if ids_card != ids_cpu:
+        fail("CLI tracks: the card's track ids differ from the CPU's")
+    if js_card != js_cpu or not js_card:
+        fail(f"CLI tracks: per-camera JSONs differ card vs CPU or are missing "
+             f"({sorted(js_card)} / {sorted(js_cpu)})")
+    worst = 0.0
+    for t, pts in p_cpu.items():
+        if pts.shape != p_card[t].shape:
+            fail(f"CLI tracks frame {t}: {p_card[t].shape} poses on the card, {pts.shape} on the CPU")
+        if pts.size:
+            worst = max(worst, float(abs(pts - p_card[t]).max()))
+    confirmed = sum(len(p) for p in p_card.values())
+    if confirmed < 1:
+        fail("CLI tracks: no confirmed track on a 3-person scene")
+    return {"card": card, "frames": CLI_TRACK_FRAMES,
+            "capacities": [tcfg.max_dets, tcfg.max_tracks, tcfg.max_hyp],
+            "track_ids": len({pid for _, _, pid in ids_card}),
+            "confirmed_track_frames": confirmed, "annotations": len(ids_card),
+            "camera_jsons": len(js_card), "json_bytes": sum(map(len, js_card.values())),
+            "pose3d_max_abs_diff_m": worst, "card_ms_per_frame": s_card * 1e3 / CLI_TRACK_FRAMES,
+            "cpu_ms_per_frame": s_cpu * 1e3 / CLI_TRACK_FRAMES,
+            "card_host_syncs_per_frame": syncs / CLI_TRACK_FRAMES}
+
+
 def main():
     try:
         import torch
@@ -1118,14 +1376,17 @@ def main():
 
     main_path, state = phase_main_path(torch, gen, card)
     emit("main_path", **main_path)
+    pipe, clip, frame_ids = state[:3]
+    # the float models, for phase 11 (phase 6 serves int8 copies of them)
+    float_models = (pipe.cams, pipe.tracker_cfg, pipe.det_cfg, pipe.detector,
+                    pipe.pose_cfg, pipe.pose_model)
 
     int8 = phase_int8_path(torch, card, state)
     emit("int8_main_path", **int8)
-    pipe, clip, frame_ids = state[:3]
 
     emit("int8_resident", **phase_resident(torch, card, pipe, clip))
     emit("staged_api", **phase_staged(torch, card, pipe, clip, frame_ids))
-    del pipe, clip, state
+    del pipe, state
 
     tracker = phase_tracker(torch, card)
     emit("tracker_scene", **tracker)
@@ -1133,6 +1394,10 @@ def main():
     cli_path = phase_cli_path(torch, card)
     emit("cli_path", **cli_path)
     cli_launches = {mode: cli_path[mode]["launches"] for mode in ("bf16", "int8")}
+
+    emit("int8_qat", **phase_int8_qat(torch, card, float_models, clip, frame_ids))
+    del float_models, clip
+    emit("cli_tracks", **phase_cli_tracks(torch, card))
 
     quarter = k1["modes"]["quarter"]
     conv = k2["timed"]["hrnet_branch0_3x3_48"]

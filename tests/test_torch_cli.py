@@ -24,6 +24,7 @@ Tolerances and why:
 Every CLI call passes `--device cpu`: the port's entry points run on CUDA
 unless told otherwise.
 """
+import functools
 import glob
 import json
 import os
@@ -43,11 +44,14 @@ from tpupose.cli import evalmodel as j_evalmodel
 from tpupose.cli import score as j_score
 from tpupose.data.config import load_config as j_load_config
 from tpupose.data.fabricate import fabricate_mini_dataset
+from tpupose.models.quantize import QuantizationDriftError as JDriftError
+from tpupose.pipeline.facade import Pipeline as JPipeline
 import tpupose_torch.cli.common as tcommon
 import tpupose_torch.models.convert as tconv
 from tpupose_torch.cli import evalmodel, score, testmodel
 from tpupose_torch.data.config import load_config
 from tpupose_torch.models.convert import state_dict_from_jax
+from tpupose_torch.models.quantize import QuantizationDriftError
 from tpupose_torch.pipeline.facade import Pipeline
 
 torch.set_num_threads(1)
@@ -218,17 +222,30 @@ def test_dataset_frame_source_matches_jax(mini):
         np.testing.assert_array_equal(im1.numpy(), im2)
 
 
-def test_bundle_and_qat_raise_not_implemented(mini):
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_bundle_and_qat_raise_not_implemented(mini, monkeypatch, capsys):
+    """`--bundle` still raises: serving bundles are not ported. `--qat-steps`
+    and the default `--int8-on-drift escalate` do what the JAX CLI does on
+    the same fixture, whose random weights fail the self-check: QAT from
+    the start refuses to serve at once, and escalation runs distill-QAT,
+    checks again and refuses with the post-QAT numbers. Both packages'
+    `escalate_steps` are cut from 900 to 2 for the CPU."""
+    with pytest.raises(NotImplementedError, match="item 5"):
         evalmodel.main(_args(mini, *CPU, "--bundle", "x"))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         testmodel.main(_args(mini, *CPU, "--bundle", "x"))
-    with pytest.raises(NotImplementedError, match="distill-QAT"):
-        evalmodel.main(_args(mini, *CPU, "--int8", "--int8-calib", "1", "--qat-steps", "1"))
-    # the default --int8-on-drift escalate on a failing check (random
-    # weights drift by design)
-    with pytest.raises(NotImplementedError, match="FAILED.*distill-QAT"):
-        evalmodel.main(_args(mini, *CPU, "--int8", "--int8-calib", "1"))
+    for cls in (JPipeline, Pipeline):
+        monkeypatch.setattr(cls, "quantize_models",
+                            functools.partialmethod(cls.quantize_models, escalate_steps=2))
+    for extra in (["--qat-steps", "1"], []):
+        for main, device, error in ((j_evalmodel.main, [], JDriftError),
+                                    (evalmodel.main, CPU, QuantizationDriftError)):
+            with pytest.raises(error) as e:
+                main(_args(mini, *device, "--int8", "--int8-calib", "1", *extra))
+            out = capsys.readouterr().out
+            assert "int8 self-check" in str(e.value) and "refusing to serve" in str(e.value)
+            escalated = not extra
+            assert ("escalating to label-free distill-QAT (2 steps" in out) == escalated, out
+            assert ("after distill-QAT" in str(e.value)) == escalated, str(e.value)
 
 
 def test_cli_errors(mini, monkeypatch, capsys):

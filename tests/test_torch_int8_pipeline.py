@@ -221,18 +221,36 @@ def test_self_check_raise_mode_fails_loudly():
 
 
 def test_escalation_and_qat_are_not_ported_yet(capsys):
+    """Once a refusal, now the JAX package's behaviour
+    (tests/test_int8_selfcheck.py): a failing check escalates to distill-QAT
+    and raises with the post-QAT numbers; `qat_steps > 0` serves the
+    requantized models; a passing check serves."""
     pipe = _self_check_pipe()
-    with pytest.raises(NotImplementedError, match="distill-QAT") as e:
-        pipe.quantize_models(_images(), check_px=-1.0)  # on_drift="escalate"
-    assert "on_drift='raise'" in str(e.value) and "FAILED" in str(e.value)
-    with pytest.raises(NotImplementedError, match="distill-QAT"):
-        pipe.quantize_models(_images(), qat_steps=2)
-    # the QAT options that would have no effect are not taken at all
-    with pytest.raises(TypeError, match="escalate_steps"):
-        pipe.quantize_models(_images(), escalate_steps=5000)
-    assert isinstance(pipe.pose_model.layer1[0].conv1, tl.Conv2d)
-    capsys.readouterr()
+    steps = []
+    with pytest.raises(tq.QuantizationDriftError) as e:
+        pipe.quantize_models(_images(), check_px=-1.0, on_drift="escalate",
+                             escalate_steps=2, qat_batch=2,
+                             qat_log=lambda i, v: steps.append(i))
+    assert "after distill-QAT" in str(e.value) and "px" in str(e.value)
+    out = capsys.readouterr().out
+    assert "escalating to label-free distill-QAT (2 steps" in out and "FAILED" in out
+    assert steps == [1, 2, 1, 2]  # the detector, then the pose model
+    assert pipe.last_quant_report["kps_n"] > 0
+    assert isinstance(pipe.pose_model.layer1[0].conv1, tl.Conv2d)  # not served
+    # qat_steps > 0: QAT from the start, no escalation, the int8 models served
+    pipe.quantize_models(_images(), qat_steps=2, qat_batch=2, check_px=-1.0,
+                         on_drift="warn")
+    out = capsys.readouterr().out
+    assert "escalating" not in out and "FAILED (continuing: on_drift='warn')" in out
+    for conv in (pipe.pose_model.layer1[0].conv1, pipe.detector.conv0.conv):
+        assert isinstance(conv, tl.QuantConv2d)
+    assert not any(isinstance(m, tl.FakeQuantConv2d) for m in pipe.pose_model.modules())
+    with pytest.raises(tq.QuantizationDriftError) as e:  # nothing to escalate to
+        _self_check_pipe().quantize_models(_images(), qat_steps=1, check_px=-1.0)
+    assert "after distill-QAT" not in str(e.value)
+    assert "escalating" not in capsys.readouterr().out
     # a passing check serves as in the JAX package
+    pipe = _self_check_pipe()
     pipe.quantize_models(_images(8), check_px=1e9, box_lost_gate=1.0)
     out = capsys.readouterr().out
     assert "-> ok" in out and "WARNING: int8 calibration" not in out

@@ -295,8 +295,17 @@ def test_quantize_leaves_float_model_and_loads_jax_tree():
     with torch.no_grad():
         got = _nhwc(shell(_nchw(x), torch.float32))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
-    with pytest.raises(NotImplementedError, match="equalize_convs"):
-        tq.quantize_hrnet(model, th.tiny_test_config(), _nchw(x), equalize=True)
+    # equalize=True (cross-layer equalization first) stays in the PTQ error
+    # band of the JAX package's test, and leaves the float model as it was
+    qe = tq.quantize_hrnet(model, th.tiny_test_config(), _nchw(x), equalize=True,
+                           compute_dtype=torch.float32)
+    with torch.no_grad():
+        hf = model(_nchw(x), torch.float32).numpy()
+        he = qe(_nchw(x), torch.float32).numpy()
+    assert np.median(np.abs(hf - he)) / (hf.max() - hf.min()) < 0.02
+    assert not torch.equal(qe.layer1[0].conv2.weight_q, qt.layer1[0].conv2.weight_q)
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, before[k], rtol=0, atol=0)
 
 
 def test_resident_dispatch_in_hrnet(monkeypatch):

@@ -41,7 +41,7 @@ def build_pipeline_real(cfg: Config, camera_parameter, width, height,
     if bundle:
         raise NotImplementedError(
             "--bundle: serving bundles (tpupose/cli/convert.py) are not ported "
-            "to tpupose_torch yet (ROADMAP Queue 1, item 6); pass no --bundle to "
+            "to tpupose_torch yet (ROADMAP Queue 1, item 5); pass no --bundle to "
             "load the .weights / .pth checkpoints named in the config")
     cams = Pipeline.camera_set_from_parameter_dict(
         camera_parameter, width, height, num_cameras=len(cfg.dataset.folders_order)

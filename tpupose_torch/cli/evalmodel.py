@@ -62,22 +62,26 @@ def main(argv=None):
                              "the post-quantize drift self-check (default 8; "
                              "<8 prints a warning)")
     parser.add_argument("--qat-steps", type=int, default=0,
-                        help="with --int8: label-free distill-QAT steps; "
-                             "not ported yet, > 0 raises "
-                             "NotImplementedError (ROADMAP Queue 1, item 3.1)")
+                        help="with --int8: label-free QAT — fine-tune each "
+                             "backbone for N straight-through steps to match "
+                             "its own float outputs on the calibration "
+                             "frames before requantizing (distill_qat); "
+                             "0 = PTQ first, auto-escalating to QAT only if "
+                             "the built-in int8-vs-bf16 self-check fails "
+                             "(see --int8-on-drift)")
     parser.add_argument("--int8-on-drift", type=str, default="escalate",
                         choices=["escalate", "raise", "warn"],
                         help="when the post-quantize self-check (decoded "
                              "keypoints int8 vs bf16 on the calibration "
                              "frames) exceeds the drift gate: escalate = "
-                             "distill-QAT (not ported yet: raises "
-                             "NotImplementedError); raise = refuse to serve; "
-                             "warn = print and continue with the drifted "
-                             "models")
+                             "auto-upgrade to distill-QAT (900 steps) and "
+                             "re-check, raising if it still fails; raise = "
+                             "refuse to serve; warn = print and continue "
+                             "with the drifted models")
     parser.add_argument("--bundle", type=str, default=None,
                         help="pre-converted serving bundle dir; not ported "
                              "yet, raises NotImplementedError (ROADMAP "
-                             "Queue 1, item 6)")
+                             "Queue 1, item 5)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda, which "
                              "must be present; cpu for a host without a card)")

@@ -47,8 +47,8 @@ def main(argv=None):
     parser.add_argument("--int8-on-drift", type=str, default="escalate",
                         choices=["escalate", "raise", "warn"],
                         help="what to do when the int8 self-check fails "
-                             "(escalate = distill-QAT, not ported yet: "
-                             "raises NotImplementedError)")
+                             "(escalate = distill-QAT, then re-check; see "
+                             "evalmodel --int8-on-drift)")
     parser.add_argument("--bundle", type=str, default=None,
                         help="pre-converted serving bundle dir; not ported "
                              "yet, raises NotImplementedError")

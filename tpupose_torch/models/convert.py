@@ -6,9 +6,10 @@ HWIO conv kernels; `np.asarray` of every leaf gives the input of
 `state_dict_from_jax`. The result loads with `load_state_dict(strict=True)`
 into the matching module: `HRNet` / `YOLOv3` for a plain tree, the same
 module after `fold_batchnorm` for a folded tree (whose BN dicts are empty),
-and for a quantized tree the module that `quantize.quantize_convs` returns
+for a quantized tree the module that `quantize.quantize_convs` returns
 for the same skip set (int8 `weight_q` HWIO -> OIHW; `w_scale`, `x_scale`
-and `bias` as they are).
+and `bias` as they are), and for a fake-quant (QAT) tree the module that
+`quantize.fake_quant_convs` returns (its 0-d `fq_x_scale` as it is).
 
 The published checkpoints (`src/configs/*/model_configs.yaml:38-57`) load
 with no JAX: a darknet `.weights` file (`read_darknet_file`,

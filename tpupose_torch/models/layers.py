@@ -14,7 +14,11 @@ names follow torch state_dict conventions (`weight`, `bias`,
 * `QuantConv2d` is the int8 serving conv (the JAX package's quantized conv
   dict, with the same keys); `Conv2d.forward` reports its input to an
   active `ActRecorder` for calibration (`tpupose_torch.models.quantize`).
-The fake-quant (QAT) conv path of the JAX package is not ported.
+* `FakeQuantConv2d` is the QAT conv (the JAX package's fake-quant conv
+  dict: `weight`, `bias`, `fq_x_scale`), whose forward is
+  `quantize.fake_quant_conv_apply`.
+* While a `BNStatRecorder` is active, `bn_apply` normalizes by the batch
+  statistics of its input and records them (`quantize.calibrate_bn_stats`).
 """
 from __future__ import annotations
 
@@ -34,10 +38,39 @@ def conv_apply(weight, bias, x, stride=1, dilation=1):
     )
 
 
+class BNStatRecorder:
+    """Collects per-BN input batch statistics during one forward.
+
+    While a recorder is `active`, `bn_apply` normalizes by the statistics of
+    the current batch (train-mode BN) instead of the running ones and
+    reports them here, so one pass gives self-consistent statistics: every
+    BN's input is already normalized by everything upstream, as it will be
+    once they are written back. Taps are (bn module, mean, population
+    variance), in f32 over (N, H, W).
+    """
+
+    active = None
+
+    def __init__(self):
+        self.taps = []  # (bn module, mean, var)
+
+    def observe(self, bn, x):
+        xf = x.to(torch.float32)
+        m = xf.mean(dim=(0, 2, 3))
+        v = torch.square(xf - m[:, None, None]).mean(dim=(0, 2, 3))  # as jnp.var
+        self.taps.append((bn, m, v))
+        return m, v
+
+
 def bn_apply(bn, x, eps=1e-5):
-    """Inference-mode batch norm with frozen statistics (NCHW)."""
-    inv = torch.rsqrt(bn.running_var.float() + eps) * bn.weight.float()
-    shift = bn.bias.float() - bn.running_mean.float() * inv
+    """Batch norm (NCHW) with frozen statistics, or with the batch's own
+    while a `BNStatRecorder` is active."""
+    if BNStatRecorder.active is not None:
+        m, v = BNStatRecorder.active.observe(bn, x)
+    else:
+        m, v = bn.running_mean.float(), bn.running_var.float()
+    inv = torch.rsqrt(v + eps) * bn.weight.float()
+    shift = bn.bias.float() - m * inv
     return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
@@ -141,6 +174,37 @@ class QuantConv2d(nn.Module):
     def forward(self, x):
         return int8_conv(x, self.weight_q, self.weight_k, self.inv_scale(),
                          *self.dequant_vectors(), x.dtype, self.stride, self.dilation)
+
+
+class FakeQuantConv2d(Conv2d):
+    """QAT conv: a `Conv2d` with a trainable 0-d f32 `fq_x_scale` parameter
+    (the JAX package's fake-quant conv dict, same keys). Its forward
+    simulates the int8 serving conv in f32 with straight-through gradients
+    (`quantize.fake_quant_conv_apply`) and reports to no recorder. It is not
+    a `QuantConv2d`, so an int8-resident block never fuses it."""
+
+    def __init__(self, cin, cout, k, stride=1, bias=False, fq_x_scale=1.0):
+        super().__init__(cin, cout, k, stride=stride, bias=bias)
+        self.fq_x_scale = nn.Parameter(
+            torch.tensor(fq_x_scale, dtype=torch.float32, device=self.weight.device))
+
+    @classmethod
+    def from_conv(cls, conv: Conv2d, fq_x_scale: float) -> "FakeQuantConv2d":
+        """A fake-quant conv that takes over `conv`'s weight and bias
+        parameters, with `fq_x_scale` rounded to f32 once."""
+        with torch.device("meta"):
+            fq = cls(conv.in_channels, conv.out_channels, conv.kernel_size[0],
+                     conv.stride[0], conv.bias is not None)
+        fq.dilation = conv.dilation
+        fq.weight, fq.bias = conv.weight, conv.bias
+        fq.fq_x_scale = nn.Parameter(
+            torch.tensor(fq_x_scale, dtype=torch.float32, device=conv.weight.device))
+        return fq
+
+    def forward(self, x):
+        from tpupose_torch.models.quantize import fake_quant_conv_apply
+
+        return fake_quant_conv_apply(self, x)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

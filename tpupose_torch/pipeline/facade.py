@@ -157,8 +157,10 @@ class Pipeline:
 
     # -- int8 serving ------------------------------------------------------------
 
-    def quantize_models(self, sample_images, qat_steps=0, check_px=2.5,
-                        on_drift="escalate", box_lost_gate=0.25):
+    def quantize_models(self, sample_images, qat_steps=0, qat_lr=1e-5,
+                        qat_batch=8, qat_log=None, check_px=2.5,
+                        on_drift="escalate", escalate_steps=900,
+                        box_lost_gate=0.25):
         """Switch both backbones to int8 serving, after a drift self-check.
 
         Calibrates the activation scales by running the real preprocess ->
@@ -168,6 +170,14 @@ class Pipeline:
         copies (`tpupose_torch.models.quantize`); every later call runs
         them.
 
+        `qat_steps > 0` replaces plain PTQ with label-free distill-QAT
+        (`quantize.distill_qat`): each backbone's fake-quant copy trains for
+        that many straight-through steps (Adam at `qat_lr`) to match its own
+        float outputs on the calibration inputs, split into batches of
+        `qat_batch`, then is requantized. `qat_log(step, loss)` reports
+        progress. Serving speed is the same: the served modules have the
+        same int8 structure.
+
         Self-check (on unless `check_px=None`): the decoded keypoints of the
         int8 pose model are compared with the float model's on the
         calibration crops, and the int8 detector's boxes with the float
@@ -175,32 +185,32 @@ class Pipeline:
         more than `box_lost_gate` of the float boxes have no IoU >= 0.5
         int8 counterpart, `on_drift` decides:
 
+          * ``"escalate"`` (default): print the measured drift, re-run as
+            distill-QAT with `escalate_steps` steps, and check again; raise
+            `QuantizationDriftError` if it still fails (with `qat_steps > 0`
+            there is nothing to escalate to, and it raises at once);
           * ``"raise"``: raise `QuantizationDriftError`;
-          * ``"warn"``: print the measured drift and keep the int8 models;
-          * ``"escalate"`` (default): the JAX package re-runs as label-free
-            distill-QAT; that training is not ported yet, so a failing
-            check raises NotImplementedError here (a passing one serves).
+          * ``"warn"``: print the measured drift and keep the int8 models.
 
-        `qat_steps > 0` (distill-QAT) raises NotImplementedError for the
-        same reason; the JAX package's other QAT options (`qat_lr`,
-        `qat_batch`, `qat_log`, `escalate_steps`) come with that port.
-        `last_quant_report` holds the check's numbers.
+        `last_quant_report` holds the numbers of the last check, also when
+        it raised.
         """
         from tpupose_torch.models.quantize import (
             QuantizationDriftError,
+            distill_qat,
+            hrnet_skip_ids,
             quantize_hrnet,
             quantize_yolo,
+            yolo_skip_ids,
         )
 
         if on_drift not in ("escalate", "raise", "warn"):
             raise ValueError(f"on_drift must be escalate/raise/warn, "
                              f"got {on_drift!r}")
-        not_ported = ("distill-QAT (label-free quantization-aware "
-                      "fine-tuning) is not ported to tpupose_torch yet; "
-                      "on_drift='raise' or on_drift='warn' with qat_steps=0 "
-                      "work today")
-        if qat_steps > 0:
-            raise NotImplementedError(f"qat_steps={qat_steps}: {not_ported}")
+
+        def batched(arr):
+            m = max(1, min(qat_batch, arr.shape[0]))
+            return [arr[i:i + m] for i in range(0, arr.shape[0], m)]
 
         det_f, pose_f = self.detector, self.pose_model
         x = self._as_input(sample_images)
@@ -222,9 +232,26 @@ class Pipeline:
             ximg = prepare_yolo_images(self.det_cfg, xf)
             boxes, _, valid = detect_people(det_f, self.det_cfg, ximg, (h, w), dt)
             eboxes, crops = _pose_crops(self.pose_cfg, xf, boxes)
-        det_q = quantize_yolo(det_f, self.det_cfg,
-                              ximg.permute(0, 3, 1, 2).contiguous(), dt)
-        pose_q = quantize_hrnet(pose_f, self.pose_cfg, crops, compute_dtype=dt)
+            det_in = ximg.permute(0, 3, 1, 2).contiguous()
+
+        def apply(model, batch):
+            return model(batch, dt)
+
+        def quantize_both(steps):
+            if steps > 0:
+                det_q = distill_qat(apply, det_f, self.det_cfg, batched(det_in),
+                                    steps=steps, lr=qat_lr,
+                                    skip_ids=yolo_skip_ids(det_f, self.det_cfg),
+                                    log=qat_log)
+                pose_q = distill_qat(apply, pose_f, self.pose_cfg, batched(crops),
+                                     steps=steps, lr=qat_lr,
+                                     skip_ids=hrnet_skip_ids(pose_f), log=qat_log)
+            else:
+                det_q = quantize_yolo(det_f, self.det_cfg, det_in, dt)
+                pose_q = quantize_hrnet(pose_f, self.pose_cfg, crops, compute_dtype=dt)
+            return det_q, pose_q
+
+        det_q, pose_q = quantize_both(qat_steps)
 
         if check_px is not None:
             report = self._quant_self_check(det_f, pose_f, det_q, pose_q,
@@ -238,11 +265,22 @@ class Pipeline:
                    f"{report['box_lost_frac'] * 100:.1f}% (gate "
                    f"{box_lost_gate * 100:.0f}%) "
                    f"[checked on {n} frames / {crops.shape[0]} crops]")
-            if failed and on_drift == "escalate":
-                raise NotImplementedError(
-                    f"{msg} -> FAILED; the JAX package escalates to "
-                    f"label-free distill-QAT here, but {not_ported}")
-            if failed and on_drift == "raise":
+            if failed and on_drift == "escalate" and qat_steps == 0:
+                print(f"{msg} -> FAILED; escalating to label-free "
+                      f"distill-QAT ({escalate_steps} steps, the remedy "
+                      "measured at W48 scale — docs/PERF.md)")
+                det_q, pose_q = quantize_both(escalate_steps)
+                report = self._quant_self_check(det_f, pose_f, det_q, pose_q,
+                                                ximg, (h, w), crops, eboxes, valid)
+                failed = (report["kps_median_px"] > check_px
+                          or report["box_lost_frac"] > box_lost_gate)
+                msg = ("int8 self-check after distill-QAT: keypoint "
+                       "shift median "
+                       f"{report['kps_median_px']:.2f} px / p95 "
+                       f"{report['kps_p95_px']:.2f} px; boxes lost "
+                       f"{report['box_lost_frac'] * 100:.1f}%")
+            self.last_quant_report = report
+            if failed and on_drift in ("raise", "escalate"):
                 raise QuantizationDriftError(
                     f"{msg} — refusing to serve a provably-drifted int8 "
                     "model. Remedies: more/representative --int8-calib "
@@ -251,7 +289,6 @@ class Pipeline:
                 )
             print(msg + (" -> FAILED (continuing: on_drift='warn')"
                          if failed else " -> ok"))
-            self.last_quant_report = report
 
         self.detector = det_q
         self.pose_model = pose_q
