@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order; the first that fails ends the run with a non-zero exit:
+Phases, in order (but 11 runs after 8, so that phase 10's peak memory holds
+none of phase 5's models); the first that fails ends the run with a
+non-zero exit:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of `tpupose_torch/csrc` with nvcc for sm_90a, one
      process per source, all at once;
@@ -71,9 +73,12 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      with qat_steps=QAT_STEPS and on_drift="warn": ms per QAT step per
      model, peak memory, first and last logged loss, the post-QAT
      self-check; then one int8 `process_clip` (1 K1, 364 K2, 362 K2a
-     launches). Last, `distill_qat` for 3 steps on the tiny configs in f32
-     on the card and on the CPU from the same weights and batches, held
-     within Adam's bound (each step moves an entry by at most about lr);
+     launches). Last, on the tiny configs in f32: the first QAT step's
+     gradients of every fake-quant conv, card against CPU at the same
+     input and output gradient, by relative norm (QAT_GRAD_LIMITS); then
+     `distill_qat` for 3 steps on the card and on the CPU from the same
+     weights and batches, held within Adam's bound (each step moves an
+     entry by at most about lr), a sanity check;
  12. the CLI loop with tracks (`cli_tracks`): `run_eval_loop` fed the
      synthetic scene's detections (`synthetic_frame_source`, the
      `person_track` path) with Shelf's config's tracker capacities (16 /
@@ -1202,19 +1207,116 @@ def phase_int8_qat(torch, card, models, clip, frame_ids):
     return out
 
 
-def tiny_qat_card_vs_cpu(torch):
-    """`distill_qat`, 3 steps at TINY_QAT_LR in f32, on the card and on the
-    CPU from the same tiny HRNet / YOLO weights (BN statistics
-    re-estimated, then folded) and batches.
+#: worst-leaf relative norm of a fake-quant conv's first-step gradients,
+#: card against CPU at the same input and output gradient (TF32 off): the
+#: weight, bias and input gradients, and `fq_x_scale`'s LSQ gradient, which
+#: sums terms of both signs over the whole input and so amplifies the f32
+#: summation noise where they cancel. Set from readings on the H100 (PERF.md
+#: section 6); tests/test_torch_qat.py holds the port against `jax.vjp` so.
+QAT_GRAD_LIMITS = {"weight": 1e-5, "bias": 1e-5, "input": 1e-5, "fq_x_scale": 2e-2}
 
-    Bounds: from one start, each Adam step moves an entry by at most about
-    lr (the bias-corrected m / sqrt(v) is at most 1.0014 in the first three
-    steps), so trained float entries stay within 6.1 lr of each other;
-    activation scales within that plus rtol 1e-4 for their calibration;
-    int8 weights at most 1 apart, in at most 1% of entries. An int8 code
-    flip in one conv input (f32 summation order) spreads through a random
-    net, so gradients may differ in sign; the measured maxima are
-    reported beside the bounds."""
+
+def first_step_taps(tq, fq, apply, x, target):
+    """One backward of `distill_loss` through the fake-quant model `fq`:
+    {conv: (its input, its output's gradient)} for every fake-quant conv;
+    the parameters' `.grad` then hold the first QAT step's gradients."""
+    from tpupose_torch.models.layers import FakeQuantConv2d
+
+    taps = {}
+
+    def hook(conv, inp, out):
+        xin = inp[0].detach().clone()
+        out.register_hook(lambda g: taps.__setitem__(conv, (xin, g.detach().clone())))
+
+    handles = [m.register_forward_hook(hook) for m in fq.modules()
+               if isinstance(m, FakeQuantConv2d)]
+    try:
+        tq.distill_loss(apply, fq, x, target).backward()
+    finally:
+        for h in handles:
+            h.remove()
+    return taps
+
+
+def qat_first_gradients(torch, tq, name, folded, x, skip_fn):
+    """The first QAT step's gradients, card against CPU, from one fake-quant
+    start (calibrated on the CPU, copied to the card). Each fake-quant conv
+    of the card's backward is recomputed on the CPU at the card's input and
+    output gradient: weight, bias and `fq_x_scale` gradients (what Adam
+    takes) and the input gradient (what flows on), each leaf by its
+    relative norm, held to QAT_GRAD_LIMITS. The whole network's gradients
+    (the CPU's own backward) are reported beside: an int8 code flip in one
+    conv input (f32 summation order) spreads through a random-weight net."""
+    import copy
+
+    apply = lambda m, b: m(b, torch.float32)  # noqa: E731
+    scales = tq.calibrate(lambda b: apply(folded, b), x)
+    fq_cpu = tq.fake_quant_convs(folded, scales, skip_fn(folded))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        fq = copy.deepcopy(fq_cpu).to(device)
+        xd = x.to(device)
+        with torch.no_grad():
+            target = [t.to(torch.float32)
+                      for t in tq._as_list(apply(copy.deepcopy(folded).to(device), xd))]
+        runs[device] = (fq, first_step_taps(tq, fq, apply, xd, target))
+    (fq_card, taps), (fq_ref, _) = runs["cuda"], runs["cpu"]
+
+    def rel(got, ref):
+        got = got.detach().cpu()
+        return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+
+    worst = {leaf: 0.0 for leaf in QAT_GRAD_LIMITS}
+    where = {}
+    for conv_name, conv in fq_card.named_modules():
+        if conv not in taps:
+            continue
+        xin, g = taps[conv]
+        ref_conv = copy.deepcopy(fq_cpu.get_submodule(conv_name))
+        xc = xin.cpu().requires_grad_(True)
+        leaves = [("input", xc), ("weight", ref_conv.weight), ("fq_x_scale", ref_conv.fq_x_scale)]
+        if ref_conv.bias is not None:
+            leaves.append(("bias", ref_conv.bias))
+        refs = torch.autograd.grad(tq.fake_quant_conv_apply(ref_conv, xc), [t for _, t in leaves],
+                                   g.cpu())
+        xg = xin.requires_grad_(True)
+        (gx_card,) = torch.autograd.grad(tq.fake_quant_conv_apply(conv, xg), xg, g)
+        got = {"input": gx_card, "weight": conv.weight.grad, "fq_x_scale": conv.fq_x_scale.grad,
+               "bias": conv.bias.grad if conv.bias is not None else None}
+        for (leaf, _), ref in zip(leaves, refs):
+            err = rel(got[leaf], ref)
+            if err >= worst[leaf]:
+                worst[leaf], where[leaf] = err, conv_name
+    if len(taps) < 30:
+        fail(f"tiny {name} QAT: {len(taps)} fake-quant convs in the backward")
+    whole = {}
+    for pname, p in fq_card.named_parameters():
+        whole[pname] = rel(p.grad, fq_ref.get_parameter(pname).grad)
+    out = {"convs": len(taps), "worst_rel": worst, "worst_at": where,
+           "limits": QAT_GRAD_LIMITS,
+           "whole_net_median_rel": statistics.median(whole.values()),
+           "whole_net_max_rel": max(whole.values())}
+    for leaf, limit in QAT_GRAD_LIMITS.items():
+        if not worst[leaf] <= limit:
+            fail(f"tiny {name} QAT: first-step {leaf} gradient of {where[leaf]} differs card vs "
+                 f"CPU by a relative norm of {worst[leaf]} > {limit} ({out})")
+    return out
+
+
+def tiny_qat_card_vs_cpu(torch):
+    """The tiny HRNet / YOLO (BN statistics re-estimated, then folded) in
+    f32: first the first QAT step's gradients card against CPU
+    (`qat_first_gradients`), then `distill_qat`, 3 steps at TINY_QAT_LR, on
+    the card and on the CPU from the same weights and batches.
+
+    Bounds of the 3-step run, a sanity check: from one start, each Adam
+    step moves an entry by at most about lr (the bias-corrected m / sqrt(v)
+    is at most 1.0014 in the first three steps), so trained float entries
+    stay within 6.1 lr of each other; activation scales within that plus
+    rtol 1e-4 for their calibration; int8 weights at most 1 apart, in at
+    most 1% of entries. An int8 code flip in one conv input (f32 summation
+    order) spreads through a random net, so the trajectories part; the
+    measured maxima are reported beside the bounds."""
     import copy
 
     from tpupose_torch.models import quantize as tq
@@ -1234,11 +1336,12 @@ def tiny_qat_card_vs_cpu(torch):
     for name, raw, x, skip_fn in cases:
         tq.calibrate_bn_stats(lambda b: raw(b, torch.float32), x)
         folded = fold_batchnorm(raw)
+        grads = qat_first_gradients(torch, tq, name, folded, x, skip_fn)
         runs = {}
         for device in ("cuda", "cpu"):
             model = copy.deepcopy(folded).to(device)
             losses = []
-            q = tq.distill_qat(lambda m, b: m(b, torch.float32), model, None, [x.to(device)],
+            q = tq.distill_qat(lambda m, b: m(b, torch.float32), model, [x.to(device)],
                                steps=3, lr=lr, skip_ids=skip_fn(model),
                                log=lambda i, v: losses.append(v))
             runs[device] = ({k: v.cpu() for k, v in q.state_dict().items()}, losses)
@@ -1265,7 +1368,8 @@ def tiny_qat_card_vs_cpu(torch):
                 worst_w = max(worst_w, err)
         if flips > 0.01 * total:
             fail(f"tiny {name} QAT: {flips} of {total} int8 weights differ card vs CPU")
-        out[name] = {"losses_card": card_losses, "losses_cpu": cpu_losses,
+        out[name] = {"first_step_gradients": grads,
+                     "losses_card": card_losses, "losses_cpu": cpu_losses,
                      "float_max_abs_diff_over_lr": worst_w / lr,
                      "x_scale_max_rel_diff": worst_s,
                      "weight_q_differ": flips, "weight_q_total": total}
@@ -1387,6 +1491,10 @@ def main():
     emit("int8_resident", **phase_resident(torch, card, pipe, clip))
     emit("staged_api", **phase_staged(torch, card, pipe, clip, frame_ids))
     del pipe, state
+    # phase 11 before 9 and 10, so that phase 10's peak memory holds none
+    # of phase 5's models or its clip
+    emit("int8_qat", **phase_int8_qat(torch, card, float_models, clip, frame_ids))
+    del float_models, clip
 
     tracker = phase_tracker(torch, card)
     emit("tracker_scene", **tracker)
@@ -1395,8 +1503,6 @@ def main():
     emit("cli_path", **cli_path)
     cli_launches = {mode: cli_path[mode]["launches"] for mode in ("bf16", "int8")}
 
-    emit("int8_qat", **phase_int8_qat(torch, card, float_models, clip, frame_ids))
-    del float_models, clip
     emit("cli_tracks", **phase_cli_tracks(torch, card))
 
     quarter = k1["modes"]["quarter"]

@@ -224,11 +224,13 @@ def test_dataset_frame_source_matches_jax(mini):
 
 def test_bundle_and_qat_raise_not_implemented(mini, monkeypatch, capsys):
     """`--bundle` still raises: serving bundles are not ported. `--qat-steps`
-    and the default `--int8-on-drift escalate` do what the JAX CLI does on
-    the same fixture, whose random weights fail the self-check: QAT from
+    and the default `--int8-on-drift escalate` do what the JAX package does
+    on the same fixture, whose random weights fail the self-check: QAT from
     the start refuses to serve at once, and escalation runs distill-QAT,
     checks again and refuses with the post-QAT numbers. Both packages'
-    `escalate_steps` are cut from 900 to 2 for the CPU."""
+    `escalate_steps` are cut from 900 to 2 for the CPU. The JAX CLI runs
+    the default only (its `qat_steps` refusal is tests/test_int8_selfcheck.py's);
+    each JAX run is a minute of compiling on the CPU."""
     with pytest.raises(NotImplementedError, match="item 5"):
         evalmodel.main(_args(mini, *CPU, "--bundle", "x"))
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -236,16 +238,17 @@ def test_bundle_and_qat_raise_not_implemented(mini, monkeypatch, capsys):
     for cls in (JPipeline, Pipeline):
         monkeypatch.setattr(cls, "quantize_models",
                             functools.partialmethod(cls.quantize_models, escalate_steps=2))
-    for extra in (["--qat-steps", "1"], []):
-        for main, device, error in ((j_evalmodel.main, [], JDriftError),
-                                    (evalmodel.main, CPU, QuantizationDriftError)):
-            with pytest.raises(error) as e:
-                main(_args(mini, *device, "--int8", "--int8-calib", "1", *extra))
-            out = capsys.readouterr().out
-            assert "int8 self-check" in str(e.value) and "refusing to serve" in str(e.value)
-            escalated = not extra
-            assert ("escalating to label-free distill-QAT (2 steps" in out) == escalated, out
-            assert ("after distill-QAT" in str(e.value)) == escalated, str(e.value)
+    runs = ((j_evalmodel.main, [], JDriftError, []),
+            (evalmodel.main, CPU, QuantizationDriftError, []),
+            (evalmodel.main, CPU, QuantizationDriftError, ["--qat-steps", "1"]))
+    for main, device, error, extra in runs:
+        with pytest.raises(error) as e:
+            main(_args(mini, *device, "--int8", "--int8-calib", "1", *extra))
+        out = capsys.readouterr().out
+        assert "int8 self-check" in str(e.value) and "refusing to serve" in str(e.value)
+        escalated = not extra
+        assert ("escalating to label-free distill-QAT (2 steps" in out) == escalated, out
+        assert ("after distill-QAT" in str(e.value)) == escalated, str(e.value)
 
 
 def test_cli_errors(mini, monkeypatch, capsys):

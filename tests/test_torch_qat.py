@@ -18,7 +18,12 @@ Tolerances and why:
   0.1% of `weight_q` different. The calibrated ranges agree within rtol
   1e-5 (tests/test_torch_quantize.py), and the forward and backward sums
   differ in order. On the whole tiny networks an int8 code flip spreads
-  (see that test), so there the bound is Adam's own: 6.1 lr after 3 steps.
+  (see that test), so there the 3-step bound is Adam's own, 6.1 lr, a
+  sanity check; the gradients are held per fake-quant conv instead.
+* The first QAT step's gradients on the tiny networks, each fake-quant
+  conv at its own input and output gradient against `jax.vjp`: relative
+  norm within 1e-5 for weight, bias and input gradients and 2e-2 for
+  `fq_x_scale` (`GRAD_LIMITS`, from measured readings).
 * `equalize_convs` from the same per-channel ranges: the same pairs, and
   weights within rtol 1e-6 (`pow` may differ in the last bit).
 * `calibrate_mse`: the grid index per conv is exactly equal; it is an argmin
@@ -31,6 +36,7 @@ Tolerances and why:
   sit up to 75 layers deep, each adding its own f32 summation noise).
 """
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -53,6 +59,10 @@ torch.set_num_threads(1)
 
 def _nchw(x):
     return torch.as_tensor(np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
+
+
+def _nhwc(t):
+    return t.detach().permute(0, 2, 3, 1).numpy()
 
 
 def _conv_paths(tree, prefix=""):
@@ -272,8 +282,8 @@ def test_distill_qat_matches_jax_on_a_small_model():
     lr, steps, logs_j, logs_t = 1e-4, 6, [], []
     q_j = jq.distill_qat(_toy_apply_j, params, None, [jnp.asarray(x) for x in xs], steps=steps,
                          lr=lr, skip_ids={id(params["h1"])}, log=lambda i, v: logs_j.append(v))
-    q_t = tq.distill_qat(lambda m, b: m(b), model, None, [_nchw(x) for x in xs], steps=steps,
-                         lr=lr, skip_ids={model.h1}, log=lambda i, v: logs_t.append(v))
+    q_t = tq.distill_qat(lambda m, b: m(b), model, [_nchw(x) for x in xs], steps=steps, lr=lr,
+                         skip_ids={model.h1}, log=lambda i, v: logs_t.append(v))
     assert len(logs_t) == len(logs_j) == steps
     np.testing.assert_allclose(logs_t, logs_j, rtol=1e-3)
     ref, got = _sd(q_j), q_t.state_dict()
@@ -295,20 +305,107 @@ def test_distill_qat_matches_jax_on_a_small_model():
             calibrated[getattr(model, name)] / 127.0, 1e-12)), name
 
 
+def _first_step_taps(fq, apply_t, x, target):
+    """One backward of `distill_loss` through the fake-quant model `fq`:
+    {conv: (its input, its output's gradient)} for every fake-quant conv;
+    the parameters' `.grad` hold the first step's gradients."""
+    taps = {}
+
+    def hook(conv, inp, out):
+        xin = inp[0].detach().clone()
+        out.register_hook(lambda g: taps.__setitem__(conv, (xin, g.detach().clone())))
+
+    handles = [m.register_forward_hook(hook) for m in fq.modules()
+               if isinstance(m, tl.FakeQuantConv2d)]
+    try:
+        tq.distill_loss(apply_t, fq, x, target).backward()
+    finally:
+        for h in handles:
+            h.remove()
+    return taps
+
+
+def _rel(got, ref):
+    ref = torch.as_tensor(np.asarray(ref, np.float32))
+    return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+
+
+@functools.partial(jax.jit, static_argnums=(3, 4))
+def _fq_conv_vjp(p, x, g, stride, dilation):
+    """The JAX fake-quant conv's (parameter, input) gradients at output
+    gradient `g`."""
+    _, vjp = jax.vjp(lambda pp, xx: jq.fake_quant_conv_apply(
+        pp, xx, stride=stride, dilation=dilation), p, x)
+    return vjp(g)
+
+
+#: worst-leaf relative norm of a fake-quant conv's gradients against the
+#: reference at the same input and output gradient. Measured on the tiny
+#: HRNet / YOLO in f32, port against JAX: weight, bias and input at most
+#: 1.4e-6; `fq_x_scale` at most 4.7e-3, median 2.7e-5. Its LSQ gradient
+#: sums terms of both signs over the whole input, so where they cancel
+#: the f32 summation noise of the input's gradient is amplified.
+GRAD_LIMITS = {"weight": 1e-5, "bias": 1e-5, "input": 1e-5, "fq_x_scale": 2e-2}
+
+
+@pytest.mark.parametrize("net", ["hrnet", "yolo"])
+def test_distill_qat_first_gradients_match_jax(net):
+    """The first QAT step's gradients, leaf by leaf, from one fake-quant
+    start (the JAX tree loaded into the port). Each fake-quant conv is held
+    at its own input and output gradient from the port's backward, against
+    `jax.vjp` of the JAX conv: its weight, bias and `fq_x_scale` gradients
+    (what Adam takes) and its input gradient (what flows on), by the
+    worst leaf's relative norm (`GRAD_LIMITS`). The whole-network
+    gradients are not held to that: an int8 code flip in one conv input
+    (f32 summation order) spreads through a random-weight net."""
+    cfg, params, model, x, apply_j, apply_t, skip_j, skip_t = _net(net)
+    scales = jq.calibrate(lambda b: apply_j(params, b), jnp.asarray(x))
+    fq_j = jq.fake_quant_convs(params, scales, skip_j)
+    fq_t = tq.fake_quant_convs(model, tq.uncalibrated_scales(model, skip_t), skip_t)
+    fq_t.load_state_dict(_sd(fq_j), strict=True)
+    with torch.no_grad():
+        target = [t.to(torch.float32) for t in tq._as_list(apply_t(model, _nchw(x)))]
+    taps = _first_step_taps(fq_t, apply_t, _nchw(x), target)
+    paths = {m: n for n, m in fq_t.named_modules()}
+    assert len(taps) == sum(isinstance(m, tl.FakeQuantConv2d) for m in fq_t.modules()) > 30
+    worst = {}
+    for conv, (xin, g) in taps.items():
+        p = {k: jnp.asarray(v.detach().numpy()) for k, v in
+             (("weight", conv.weight.permute(2, 3, 1, 0)), ("bias", conv.bias),
+              ("fq_x_scale", conv.fq_x_scale)) if v is not None}
+        gp, gx = _fq_conv_vjp(p, jnp.asarray(_nhwc(xin)), jnp.asarray(_nhwc(g)),
+                              conv.stride, conv.dilation)
+        xx = xin.requires_grad_(True)
+        (gx_t,) = torch.autograd.grad(tq.fake_quant_conv_apply(conv, xx), xx, g)
+        leaves = {"input": (gx_t, _nchw(gx)), "weight": (conv.weight.grad,
+                  np.asarray(gp["weight"]).transpose(3, 2, 0, 1)),
+                  "fq_x_scale": (conv.fq_x_scale.grad, gp["fq_x_scale"])}
+        if conv.bias is not None:
+            leaves["bias"] = (conv.bias.grad, gp["bias"])
+        for leaf, (got, ref) in leaves.items():
+            worst[f"{paths[conv]}.{leaf}"] = _rel(got, ref)
+    for leaf, limit in GRAD_LIMITS.items():
+        errs = {k: v for k, v in worst.items() if k.endswith("." + leaf)}
+        assert len(errs) == len(taps) or leaf == "bias"
+        assert max(errs.values()) <= limit, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+
+
 @pytest.mark.parametrize("net", ["hrnet", "yolo"])
 def test_distill_qat_three_steps_matches_jax(net):
-    """The whole tiny networks. A random-weight net amplifies one int8 code
-    flip in one conv input (f32 summation order: 1 flip at HRNet stage 2
-    became 60 by stage 3, measured) into losses that move by 2-18% and
-    gradients whose signs differ on some entries; so the trajectory is held
-    by Adam's own bound: from one start, each step moves an entry by at
-    most about lr on either side, so 3 steps stay within 6.1 lr."""
+    """The whole tiny networks, a sanity bound on the trajectory. A
+    random-weight net amplifies one int8 code flip in one conv input (f32
+    summation order: 1 flip at HRNet stage 2 became 60 by stage 3,
+    measured) into losses that move by 2-18% and gradients whose signs
+    differ on some entries; so the trajectory is held by Adam's own bound:
+    from one start, each step moves an entry by at most about lr on either
+    side, so 3 steps stay within 6.1 lr. The gradients themselves are held
+    tightly by `test_distill_qat_first_gradients_match_jax`."""
     cfg, params, model, x, apply_j, apply_t, skip_j, skip_t = _net(net)
     lr, logs_j, logs_t = 1e-5, [], []
     q_j = jq.distill_qat(apply_j, params, cfg, [jnp.asarray(x)], steps=3, lr=lr,
                          skip_ids=skip_j, log=lambda i, v: logs_j.append((i, v)))
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    q_t = tq.distill_qat(apply_t, model, cfg, [_nchw(x)], steps=3, lr=lr, skip_ids=skip_t,
+    q_t = tq.distill_qat(apply_t, model, [_nchw(x)], steps=3, lr=lr, skip_ids=skip_t,
                          log=lambda i, v: logs_t.append((i, v)))
     assert [i for i, _ in logs_t] == [i for i, _ in logs_j] == [1, 2, 3]
     (_, first_t), (_, first_j) = logs_t[0], logs_j[0]

@@ -181,12 +181,8 @@ class FakeQuantConv2d(Conv2d):
     (the JAX package's fake-quant conv dict, same keys). Its forward
     simulates the int8 serving conv in f32 with straight-through gradients
     (`quantize.fake_quant_conv_apply`) and reports to no recorder. It is not
-    a `QuantConv2d`, so an int8-resident block never fuses it."""
-
-    def __init__(self, cin, cout, k, stride=1, bias=False, fq_x_scale=1.0):
-        super().__init__(cin, cout, k, stride=stride, bias=bias)
-        self.fq_x_scale = nn.Parameter(
-            torch.tensor(fq_x_scale, dtype=torch.float32, device=self.weight.device))
+    a `QuantConv2d`, so an int8-resident block never fuses it. Built only
+    by `from_conv`."""
 
     @classmethod
     def from_conv(cls, conv: Conv2d, fq_x_scale: float) -> "FakeQuantConv2d":

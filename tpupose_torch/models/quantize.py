@@ -338,8 +338,16 @@ def _as_list(out):
     return list(out) if isinstance(out, (list, tuple)) else [out]
 
 
-def distill_qat(apply_fn, folded, cfg, batches, steps=200, lr=1e-5, skip_ids=None,
-                log=None):
+def distill_loss(apply_fn, student, x, target):
+    """The distillation loss: the mean over outputs of each output's mean
+    squared error in f32 against `target`, the teacher's outputs on `x` as
+    a list of f32 tensors."""
+    errs = [torch.mean(torch.square(a.to(torch.float32) - t))
+            for a, t in zip(_as_list(apply_fn(student, x)), target)]
+    return sum(errs) / len(errs)
+
+
+def distill_qat(apply_fn, folded, batches, steps=200, lr=1e-5, skip_ids=None, log=None):
     """Label-free quantization-aware fine-tuning by self-distillation.
 
     Fine-tunes a fake-quant copy of `folded` to match the float model's own
@@ -352,18 +360,15 @@ def distill_qat(apply_fn, folded, cfg, batches, steps=200, lr=1e-5, skip_ids=Non
         three head maps); e.g. `lambda m, x: m(x, torch.bfloat16)`.
       folded: BN-folded float model: the teacher and the student's start.
         It is left as it was.
-      cfg: model config (unused; kept so the model wrappers share a
-        signature).
       batches: list of calibration input batches on the model's device.
       steps: optimizer steps, cycling over the batches.
       lr: Adam learning rate (no weight decay; see `fake_quant_convs`).
       skip_ids: convs to keep float (default: none beyond uncalibrated).
       log: optional callable(step, loss), called every steps // 10 steps.
 
-    Returns the requantized int8 serving module. The loss is the mean over
-    outputs of each output's mean squared error in f32. Every parameter of
-    the fake-quant copy trains: weights, biases, the float convs and each
-    `fq_x_scale`.
+    Returns the requantized int8 serving module. The loss is
+    `distill_loss`. Every parameter of the fake-quant copy trains: weights,
+    biases, the float convs and each `fq_x_scale`.
     """
     with torch.no_grad():
         # clones are normal tensors even where the batches were made under
@@ -375,16 +380,11 @@ def distill_qat(apply_fn, folded, cfg, batches, steps=200, lr=1e-5, skip_ids=Non
         targets = [[t.to(torch.float32) for t in _as_list(apply_fn(folded, b))]
                    for b in batches]
 
-    def loss_fn(x, target):
-        errs = [torch.mean(torch.square(a.to(torch.float32) - t))
-                for a, t in zip(_as_list(apply_fn(fq, x)), target)]
-        return sum(errs) / len(errs)
-
     optimizer = torch.optim.Adam(fq.parameters(), lr=lr)
     with torch.enable_grad():
         for i in range(steps):
             b = i % len(batches)
-            loss = loss_fn(batches[b], targets[b])
+            loss = distill_loss(apply_fn, fq, batches[b], targets[b])
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             optimizer.step()
@@ -565,32 +565,30 @@ def bias_correct_convs(model: nn.Module, qmodel: nn.Module, means) -> nn.Module:
     return new
 
 
-def calibrate_bn_stats(apply_fn, batch, iters=1):
+def calibrate_bn_stats(apply_fn, batch):
     """Re-estimate every BN's running mean and variance from data, in place
     (AdaBN-style): one forward in train-mode BN (`BNStatRecorder` active:
     each BN normalizes by its own input's batch statistics), then those
     statistics written into the running buffers. One pass is
-    self-consistent; a passive tap written back in parallel would be a
-    Jacobi iteration, which diverges on deep nets.
+    self-consistent (train-mode statistics depend on the batch alone); a
+    passive tap written back in parallel would be a Jacobi iteration, which
+    diverges on deep nets.
 
     Args:
       apply_fn: runs the unfolded model whose BN buffers are rewritten.
       batch: representative input batch.
-      iters: passes (train-mode statistics are batch-only, so more than one
-        changes nothing; kept for the JAX signature).
     """
-    for _ in range(iters):
-        rec = BNStatRecorder()
-        BNStatRecorder.active = rec
-        try:
-            with torch.no_grad():
-                apply_fn(batch)
-        finally:
-            BNStatRecorder.active = None
+    rec = BNStatRecorder()
+    BNStatRecorder.active = rec
+    try:
         with torch.no_grad():
-            for bn, m, v in rec.taps:
-                bn.running_mean.copy_(m)
-                bn.running_var.copy_(v)
+            apply_fn(batch)
+    finally:
+        BNStatRecorder.active = None
+    with torch.no_grad():
+        for bn, m, v in rec.taps:
+            bn.running_mean.copy_(m)
+            bn.running_var.copy_(v)
 
 
 # -- model-level convenience --------------------------------------------------

@@ -239,12 +239,10 @@ class Pipeline:
 
         def quantize_both(steps):
             if steps > 0:
-                det_q = distill_qat(apply, det_f, self.det_cfg, batched(det_in),
-                                    steps=steps, lr=qat_lr,
+                det_q = distill_qat(apply, det_f, batched(det_in), steps=steps, lr=qat_lr,
                                     skip_ids=yolo_skip_ids(det_f, self.det_cfg),
                                     log=qat_log)
-                pose_q = distill_qat(apply, pose_f, self.pose_cfg, batched(crops),
-                                     steps=steps, lr=qat_lr,
+                pose_q = distill_qat(apply, pose_f, batched(crops), steps=steps, lr=qat_lr,
                                      skip_ids=hrnet_skip_ids(pose_f), log=qat_log)
             else:
                 det_q = quantize_yolo(det_f, self.det_cfg, det_in, dt)
