@@ -2,6 +2,7 @@
 """Drive the PyTorch / CUDA port (`tpupose_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --learned-seeds 0 1 2   # phase 13 (e) per seed, no gates
 
 Phases, in order (but 11 runs after 8, so that phase 10's peak memory holds
 none of phase 5's models); the first that fails ends the run with a
@@ -84,15 +85,50 @@ non-zero exit:
      `person_track` path) with Shelf's config's tracker capacities (16 /
      16 / 40), on the card and on the CPU: equal track ids and
      byte-equal per-camera JSONs, and confirmed tracks.
+ 13. training (`train`) at full width: HRNet-W48 384x288 from a seed on blob
+     batches of 8 (`models.train`): (a) `make_train_step` with
+     `make_optimizer()` in bf16, inference-mode BN, 20 steps on one batch
+     (ms per step, the median of steps 5-20, peak memory; the last loss
+     must be below the first); (d) at step 10 the model and the optimizer
+     are saved (`models.checkpoint`) and restored into fresh objects,
+     every tensor torch.equal, and one more step from each (cuDNN
+     deterministic) compared by gradient; (b) the JAX package's learning
+     recipe, Adam 1e-3 in f32 with train-mode BN and a fresh batch per
+     step, 20 steps (ms per step, peak memory, 4,000 steps extrapolated),
+     then 6 steps with TF32 on; (c) on the tiny config, the first step's
+     gradients of every trained tensor, BN statistics included, card
+     against CPU in both BN modes (TRAIN_GRAD_LIMITS); (e) the tiny HRNet
+     (weights from LEARN_SEED) trained on the card for 2,000 steps to
+     localize blobs with cuDNN deterministic, folded and decoded with K1
+     (< 25 px and < half its untrained error), then quantized within 2 px
+     of it, every K2 call of that decode held torch.equal to the plain
+     version on its own input;
+ 14. the end-to-end PCP chain (`e2e`, `eval.e2e`): phase 13 (b)'s W48 with
+     its BN statistics re-estimated on its batch and folded to bf16, the
+     crops of a 20-frame, 5-view, 2-actor scene (200 at 384x288),
+     `decode_tree` with K1 counted from 0 (13 launches, each batch held
+     against the plain decode of its heatmaps), `pcp_through_tracker` with
+     perfect detections on the card and the CPU (the same table, PCP >=
+     99), then the W48's and the learned tiny model's (bf16 and int8)
+     decoded keypoints through the same chain, reported, with every K2
+     call of the int8 decode held torch.equal to the plain version;
+     stage B seconds.
+With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
+for each seed given, reporting the errors without gating on them (the
+K2-against-plain check still fails the run).
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
-kernel's launches in phase 10 as `cli_launches`), the
+kernel's launches in phase 10 as `cli_launches`, K1's in phase 14 as
+`e2e_launches`, K2's and K2a's in phase 13 (e) as
+`learned_int8_launches`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. It needs a CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result. The f32 comparisons run with TF32 off (so do phase 11's
-f32 fake-quant convolutions).
+f32 fake-quant convolutions and phase 13's f32 training, but for the
+6 steps that say so).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1445,7 +1481,451 @@ def phase_cli_tracks(torch, card):
             "card_host_syncs_per_frame": syncs / CLI_TRACK_FRAMES}
 
 
+TRAIN_BATCH, TRAIN_STEPS, RESUME_AT = 8, 20, 10  # phase 13 (a), (b), (d)
+TRAIN_TIMED_FROM = 5     # ms per step: median of steps 5..20 (1-based)
+TF32_STEPS = 6           # (b) again with TF32 on, for the record
+LEARN_STEPS = 2000       # phase 13 (e), tests/test_int8_learned_accuracy.py's
+#: the tiny model's weights (torch.Generator seed): of seeds 0-7 on the card
+#: (`--learned-seeds`), the one that learned with the most margin
+LEARN_SEED = 4
+#: phase 13 (e)'s gates: the learned model decodes to < LEARNED_PX and to
+#: less than LEARN_GAIN of its untrained error; int8 within INT8_PX of it
+LEARNED_PX, LEARN_GAIN, INT8_PX = 25.0, 0.5, 2.0
+#: worst-leaf relative norm of the first training step's gradients on the
+#: tiny config, card against CPU (TF32 off), by train_bn; set from readings
+#: on the H100 (PERF.md section 6). The resumed step of phase 13 (d) is held
+#: to the train_bn=False limit.
+TRAIN_GRAD_LIMITS = {False: 1e-5, True: 1e-4}
+E2E_FRAMES, E2E_ACTORS, E2E_BATCH = 20, 2, 16  # phase 14: 200 crops, 13 K1 launches
+
+
+def named_trained(tt, model):
+    """[(name, tensor)] of what `trained_tensors` gives: the parameters and
+    the BN running statistics."""
+    ids = {id(t) for t in tt.trained_tensors(model)}
+    return [(n, t) for n, t in list(model.named_parameters()) + list(model.named_buffers())
+            if id(t) in ids]
+
+
+def trained_grads(tt, model):
+    return {n: t.grad.detach().cpu() for n, t in named_trained(tt, model)}
+
+
+def first_step_gradients(torch, tt, model, batch, train_bn):
+    """{name: gradient} of one `make_train_step` step (AdamW, f32) of
+    `model` on `batch`, for every tensor `trained_tensors` gives."""
+    opt = tt.make_optimizer([t for _, t in named_trained(tt, model)])
+    tt.make_train_step(model, opt, torch.float32, train_bn)(*batch)
+    return trained_grads(tt, model)
+
+
+def worst_rel(torch, got, ref):
+    """(largest relative norm over the leaves, its leaf name); a leaf whose
+    reference is all zero counts its own norm."""
+    worst = (0.0, "")
+    for name, r in ref.items():
+        g = got[name].double()
+        den = float(torch.linalg.vector_norm(r.double()))
+        err = float(torch.linalg.vector_norm(g - r.double()))
+        worst = max(worst, (err / den if den else err, name))
+    return worst
+
+
+def train_steps(torch, step, batches, steps):
+    """Run `steps` steps, each on next(batches) (made before its clock
+    starts), each timed to a device sync. Returns (losses, ms)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms
+
+
+def timed_median(ms):
+    return statistics.median(ms[TRAIN_TIMED_FROM - 1:])
+
+
+def blob_batches(tt, rng, cfg, n, fixed=False, scale=1.0):
+    """An endless iterator of (images, targets, weights) blob batches on the
+    card: the same one again if `fixed`, else a fresh one each time."""
+    batch = None
+    while True:
+        if batch is None or not fixed:
+            imgs, kps = tt.blob_localization_batch(rng, cfg, n)
+            targets, weights = tt.gaussian_target_heatmaps(cfg, kps)
+            batch = (imgs, targets * scale, weights)
+        yield batch
+
+
+def check_resume(torch, tt, model, opt, step, batch, root):
+    """Phase 13 (d): save the model and the optimizer, restore them into
+    fresh objects, hold every tensor torch.equal, then take one more step
+    from each on `batch` (cuDNN deterministic) and compare the gradients."""
+    import copy
+
+    from tpupose_torch.models.checkpoint import restore_params, save_params
+
+    paths = (os.path.join(root, "model.pt"), os.path.join(root, "optimizer.pt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_params(paths[0], model.state_dict())
+    save_params(paths[1], opt.state_dict())
+    save_s = time.perf_counter() - t0
+    fresh = copy.deepcopy(model)
+    with torch.no_grad():
+        for t in fresh.state_dict().values():
+            t.zero_()
+    t0 = time.perf_counter()
+    restore_params(paths[0], like=fresh)
+    fresh_opt = tt.make_optimizer(tt.trained_tensors(fresh))
+    restore_params(paths[1], like=fresh_opt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    tensors = 0
+    for (k, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        if not torch.equal(a, b):
+            fail(f"resume: {k} differs after restore_params")
+        tensors += 1
+    for p, q in zip(opt.param_groups[0]["params"], fresh_opt.param_groups[0]["params"]):
+        sa, sb = opt.state[p], fresh_opt.state[q]
+        if set(sa) != set(sb) or not all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa):
+            fail("resume: an optimizer state tensor differs after restore_params")
+        tensors += len(sa)
+    fresh_step = tt.make_train_step(fresh, fresh_opt, torch.bfloat16)
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_a, loss_b = step(*batch), fresh_step(*batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst, where = worst_rel(torch, trained_grads(tt, fresh), trained_grads(tt, model))
+    if not worst <= TRAIN_GRAD_LIMITS[False]:
+        fail(f"resume: the next step's gradient of {where} differs by {worst}")
+    sizes = {"model_mb": os.path.getsize(paths[0]) / 1e6,
+             "optimizer_mb": os.path.getsize(paths[1]) / 1e6}
+    del fresh, fresh_opt, fresh_step
+    return {"tensors_equal": tensors, **sizes, "save_s": save_s, "restore_s": restore_s,
+            "next_step_losses": [float(loss_a), float(loss_b)],
+            "next_step_losses_equal": bool(torch.equal(loss_a, loss_b)),
+            "next_step_grad_worst_rel": worst, "next_step_grad_worst_at": where,
+            "cudnn_deterministic": True}
+
+
+def train_grads_card_vs_cpu(torch, tt):
+    """Phase 13 (c): the tiny config's first-step gradients (AdamW, f32, TF32
+    off) on a blob batch of TRAIN_BATCH, card against CPU, in both train_bn
+    modes: worst leaf by relative norm, running statistics included."""
+    import copy
+
+    import numpy as np
+
+    from tpupose_torch.models.hrnet import hrnet_init, tiny_test_config
+
+    cfg = tiny_test_config()
+    imgs, kps = tt.blob_localization_batch(np.random.default_rng(1), cfg, TRAIN_BATCH,
+                                           device="cpu")
+    targets, weights = tt.gaussian_target_heatmaps(cfg, kps)
+    out = {}
+    for train_bn in (False, True):
+        model = hrnet_init(cfg, torch.Generator().manual_seed(22))
+        grads = {dev: first_step_gradients(
+                     torch, tt, copy.deepcopy(model).to(dev),
+                     [t.to(dev) for t in (imgs, targets, weights)], train_bn)
+                 for dev in ("cuda", "cpu")}
+        worst, where = worst_rel(torch, grads["cuda"], grads["cpu"])
+        stats = [n for n in grads["cpu"] if n.endswith(("running_mean", "running_var"))]
+        if not stats or (train_bn and any(grads["cuda"][n].any() for n in stats)):
+            fail(f"tiny train card vs CPU (train_bn={train_bn}): running statistics "
+                 "missing or not zero-gradient")
+        out[f"train_bn_{train_bn}"] = {"tensors": len(grads["cpu"]), "worst_rel": worst,
+                                       "worst_at": where, "limit": TRAIN_GRAD_LIMITS[train_bn]}
+        if not worst <= TRAIN_GRAD_LIMITS[train_bn]:
+            fail(f"tiny train card vs CPU (train_bn={train_bn}): first-step gradient of "
+                 f"{where} differs by a relative norm of {worst}")
+    return out
+
+
+def decode_error_px(torch, model, cfg, imgs, kps):
+    """Mean decoded keypoint error (crop px) of `model` in f32 on `imgs`,
+    decoded with K1 over whole-crop boxes."""
+    from tpupose_torch.ops.heatmap import decode_heatmaps_auto
+
+    h, w = cfg.input_size
+    boxes = torch.tensor([[0.0, 0.0, w, h]], device="cuda").repeat(imgs.shape[0], 1)
+    with torch.inference_mode():
+        dec = decode_heatmaps_auto(model(imgs, torch.float32), boxes)
+    return float(torch.linalg.norm(dec[..., :2] - kps[..., :2], dim=-1).mean())
+
+
+@contextlib.contextmanager
+def k2_held_to_plain(torch, what):
+    """While open, each int8 conv that a quantized model runs
+    (`layers.int8_conv`, K2 on the card) is held torch.equal to
+    `int8_conv_plain` on the same input, as phase 4 holds K2 (the plain
+    calls launch nothing). Yields a report: the convs held, how many took
+    the gather route, and the number of distinct (input shape, Cout, k,
+    stride, dtype)."""
+    from tpupose_torch.models import layers
+    from tpupose_torch.ops import int8_conv as k2
+
+    inner = layers.int8_conv
+    report = {"convs": 0, "gather_convs": 0, "distinct_shapes": set()}
+
+    def held(x, weight_q, weight_k, inv, mul, add, out_dtype, stride=1, dilation=1):
+        y = inner(x, weight_q, weight_k, inv, mul, add, out_dtype, stride, dilation)
+        ref = k2.int8_conv_plain(x.contiguous(), weight_q, inv, mul, add, out_dtype, stride,
+                                 dilation)
+        if not torch.equal(y, ref):
+            fail(f"{what}: K2 at {tuple(x.shape)} -> {tuple(y.shape)} {x.dtype} -> {out_dtype} "
+                 f"differs from the plain version by up to "
+                 f"{float((y.float() - ref.float()).abs().max())}")
+        report["convs"] += 1
+        report["gather_convs"] += not k2.channels_last(x.shape[1])
+        report["distinct_shapes"].add((*x.shape, weight_q.shape[0], weight_q.shape[2], stride,
+                                       str(x.dtype)))
+        return y
+
+    layers.int8_conv = held
+    try:
+        yield report
+    finally:
+        layers.int8_conv = inner
+        report["distinct_shapes"] = len(report["distinct_shapes"])
+
+
+def learned_tiny(torch, tt, seed=LEARN_SEED, gate=True):
+    """Phase 13 (e): the tiny HRNet (weights from `seed`) trained on the card
+    to localize blobs (Adam 1e-3, f32, LEARN_STEPS steps on one batch of
+    TRAIN_BATCH, targets x 10, cuDNN deterministic so that a seed's reading
+    repeats), folded, decoded (< LEARNED_PX and < LEARN_GAIN of the
+    untrained error), then quantized and decoded again (within INT8_PX of
+    the float model) with every K2 call held equal to the plain version.
+    `gate=False` reports without failing on the errors."""
+    import numpy as np
+
+    from tpupose_torch.models import quantize as tq
+    from tpupose_torch.models.hrnet import hrnet_init, tiny_test_config
+    from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.ops import int8_conv as k2
+
+    cfg = tiny_test_config()
+    imgs, kps = tt.blob_localization_batch(np.random.default_rng(0), cfg, TRAIN_BATCH)
+    targets, weights = tt.gaussian_target_heatmaps(cfg, kps)
+    targets = targets * 10.0
+    model = hrnet_init(cfg, torch.Generator().manual_seed(seed)).cuda()
+    untrained = decode_error_px(torch, model, cfg, imgs, kps)
+    opt = torch.optim.Adam(tt.trained_tensors(model), lr=1e-3)
+    step = tt.make_train_step(model, opt, torch.float32)
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LEARN_STEPS):
+            loss = step(imgs, targets, weights)
+        last = float(loss)
+        train_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    folded = fold_batchnorm(model)
+    float_px = decode_error_px(torch, folded, cfg, imgs, kps)
+    if gate and not (float_px < LEARNED_PX and float_px < LEARN_GAIN * untrained):
+        fail(f"learned tiny HRNet (seed {seed}): decoded error {float_px} px, expected < "
+             f"{LEARNED_PX} and < {LEARN_GAIN} x the untrained {untrained} px")
+    qmodel = tq.quantize_hrnet(folded, cfg, imgs)
+    th.launches = k2.launches = k2.quantize_launches = 0
+    with k2_held_to_plain(torch, "learned tiny HRNet int8") as held:
+        int8_px = decode_error_px(torch, qmodel, cfg, imgs, kps)
+    launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches}
+    if launches["k1"] != 1 or launches["k2"] < 1 or launches["k2"] != held["convs"]:
+        fail(f"learned tiny HRNet int8 decode launched {launches}, {held['convs']} convs held")
+    if gate and not abs(int8_px - float_px) < INT8_PX:
+        fail(f"learned tiny HRNet: int8 decodes to {int8_px} px, the float model to "
+             f"{float_px} px (more than {INT8_PX} apart)")
+    return {"seed": seed, "steps": LEARN_STEPS, "seconds": train_s,
+            "ms_per_step": train_s * 1e3 / LEARN_STEPS, "cudnn_deterministic": True,
+            "last_loss": last, "untrained_px": untrained, "float_px": float_px,
+            "int8_px": int8_px, "int8_launches": launches, "k2_held_to_plain": held,
+            "limits": {"float_px": LEARNED_PX, "gain": LEARN_GAIN, "int8_px": INT8_PX}}, \
+        (cfg, folded, qmodel)
+
+
+def phase_train(torch, card):
+    """Phase 13: HRNet-W48 384x288 training at full width on blob batches:
+    (a) the JAX default recipe with save / resume (d) at RESUME_AT, (b) the
+    JAX package's learning recipe, (c) the tiny config card vs CPU, (e) a
+    learned tiny model. Returns the report and (b)'s model and last batch
+    for phase 14."""
+    import tempfile
+
+    import numpy as np
+
+    from tpupose_torch.models import train as tt
+    from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
+
+    cfg = hrnet_w48_config()
+    out = {"card": card, "config": f"HRNet-W48 384x288, blob batches of {TRAIN_BATCH}",
+           "tf32": bool(torch.backends.cudnn.allow_tf32)}
+
+    # (a) make_optimizer(), bf16, train_bn=False, one batch; (d) at RESUME_AT
+    model = hrnet_init(cfg, torch.Generator().manual_seed(20)).cuda()
+    opt = tt.make_optimizer(tt.trained_tensors(model))
+    step = tt.make_train_step(model, opt, torch.bfloat16)
+    batches = blob_batches(tt, np.random.default_rng(0), cfg, TRAIN_BATCH, fixed=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = train_steps(torch, step, batches, RESUME_AT)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with tempfile.TemporaryDirectory() as root:
+        resume = check_resume(torch, tt, model, opt, step, next(batches), root)
+    more_losses, more_ms = train_steps(torch, step, batches, TRAIN_STEPS - RESUME_AT - 1)
+    losses += [resume["next_step_losses"][0]] + more_losses
+    ms += [None] + more_ms  # the resumed step ran with cuDNN deterministic
+    if not losses[-1] < losses[0]:
+        fail(f"W48 training (a): the loss went from {losses[0]} to {losses[-1]}")
+    timed = [t for t in ms[TRAIN_TIMED_FROM - 1:] if t is not None]
+    out["a"] = {"recipe": "make_optimizer() (AdamW 1e-3, wd 1e-4), bf16, train_bn=False, "
+                          "one batch", "steps": TRAIN_STEPS, "losses": losses, "step_ms": ms,
+                "ms_per_step": statistics.median(timed), "peak_mem_gib": peak}
+    out["d"] = resume
+    del model, opt, step
+
+    # (b) the JAX package's learning recipe: Adam 1e-3, f32, train_bn, fresh batches
+    model = hrnet_init(cfg, torch.Generator().manual_seed(23)).cuda()
+    opt = torch.optim.Adam(tt.trained_tensors(model), lr=1e-3)
+    step = tt.make_train_step(model, opt, torch.float32, train_bn=True)
+    batches = blob_batches(tt, np.random.default_rng(1), cfg, TRAIN_BATCH, scale=10.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = train_steps(torch, step, batches, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_losses, tf32_ms = train_steps(torch, step, batches, TF32_STEPS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    ms_b = timed_median(ms)
+    out["b"] = {"recipe": "Adam 1e-3, f32, train_bn=True, a fresh batch per step, targets x 10 "
+                          "(scripts/int8_w48_agreement.py:395-414)",
+                "steps": TRAIN_STEPS, "losses": losses, "step_ms": ms, "ms_per_step": ms_b,
+                "peak_mem_gib": peak, "extrapolated_4000_steps_s": 4000 * ms_b / 1e3,
+                "tf32_steps": TF32_STEPS, "tf32_losses": tf32_losses, "tf32_step_ms": tf32_ms,
+                "tf32_ms_per_step": statistics.median(tf32_ms[1:])}
+    last_batch = next(batches)
+    del opt, step
+
+    out["c"] = train_grads_card_vs_cpu(torch, tt)
+    out["e"], tiny = learned_tiny(torch, tt)
+    return out, (cfg, model, last_batch[0]), tiny
+
+
+def pcp_summary(res, seconds):
+    return {"average_pcp": res["average"] * 100, "stage_b_s": seconds,
+            "table": res["table"].splitlines()}
+
+
+def timed_pcp(torch, e2e, scene, kps, device):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = e2e.pcp_through_tracker(scene, kps, device=device)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_e2e(torch, card, w48, tiny):
+    """Phase 14: phase 13's W48 (BN statistics re-estimated on its batch,
+    folded to bf16) through the PCP chain: scene crops, `decode_tree` (K1
+    counted, each batch held against the plain decode of its heatmaps),
+    `pcp_through_tracker` with perfect detections on the card and the CPU,
+    then the W48's and the learned tiny model's (bf16, int8) keypoints."""
+    import numpy as np
+
+    from tpupose_torch.eval import e2e
+    from tpupose_torch.models import quantize as tq
+    from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.ops import int8_conv as k2
+
+    cfg, model, images = w48
+    tq.calibrate_bn_stats(lambda b: model(b, torch.float32), images)
+    folded = fold_batchnorm(model, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    scene, crops, eboxes = e2e.build_scene_crops(cfg, num_frames=E2E_FRAMES,
+                                                 num_actors=E2E_ACTORS)
+    out = {"card": card, "crops": int(crops.shape[0]), "crop_shape": list(crops.shape[1:]),
+           "build_s": time.perf_counter() - t0}
+
+    recorded, inner = [], th.decode_heatmaps_auto
+
+    def record(heat, boxes, refine=True):
+        kps = inner(heat, boxes, refine)
+        recorded.append((heat, boxes, kps))
+        return kps
+
+    torch.cuda.synchronize()
+    th.decode_heatmaps_auto = record
+    th.launches = 0
+    t0 = time.perf_counter()
+    try:
+        kps = e2e.decode_tree(folded, cfg, crops, eboxes, "quarter", batch=E2E_BATCH)
+    finally:
+        th.decode_heatmaps_auto = inner
+    launches = th.launches
+    out["decode_s"] = time.perf_counter() - t0
+    expect = -(-crops.shape[0] // E2E_BATCH)
+    if launches != expect or len(recorded) != expect:
+        fail(f"decode_tree launched K1 {launches} times, expected {expect}")
+    err = 0.0
+    for heat, boxes, got in recorded:
+        ref = th.decode_heatmaps(heat, boxes, "quarter")
+        check_equal_nan(got[..., 2], ref[..., 2], "decode_tree K1 scores")
+        err = max(err, check_equal_nan(got[..., :2], ref[..., :2], "decode_tree K1 coordinates",
+                                       ulps=1))
+    if kps.shape != (crops.shape[0], 17, 3) or not np.isfinite(kps).all():
+        fail(f"decode_tree gave {kps.shape} keypoints, or non-finite ones")
+    out.update(k1_launches=launches, k1_vs_plain_max_abs_err=err)
+
+    T, C, A = scene.num_frames, scene.num_cameras, scene.num_actors
+    perfect = np.concatenate([scene.gt2d, np.full((T, C, A, 17, 1), 10.0)], axis=-1)
+    perfect = perfect.astype(np.float32).reshape(T * C * A, 17, 3)
+    card_res, card_s = timed_pcp(torch, e2e, scene, perfect, "cuda")
+    cpu_res, cpu_s = timed_pcp(torch, e2e, scene, perfect, "cpu")
+    if not (np.array_equal(card_res["check_result"], cpu_res["check_result"])
+            and card_res["table"] == cpu_res["table"]):
+        fail("PCP with perfect detections: the card's table differs from the CPU's")
+    if not card_res["average"] * 100 >= 99.0:
+        fail(f"PCP with perfect detections: {card_res['average'] * 100} < 99")
+    out["perfect"] = {**pcp_summary(card_res, card_s), "cpu_stage_b_s": cpu_s,
+                      "tables_equal_cpu": True}
+    out["w48"] = pcp_summary(*timed_pcp(torch, e2e, scene, kps, "cuda"))
+
+    tiny_cfg, tiny_float, tiny_int8 = tiny
+    _, tiny_crops, tiny_boxes = e2e.build_scene_crops(tiny_cfg, scene=scene)
+    for name, m in (("tiny_bf16", tiny_float), ("tiny_int8", tiny_int8)):
+        th.launches = k2.launches = 0
+        with k2_held_to_plain(torch, f"phase 14 {name} decode_tree") as held:
+            tiny_kps = e2e.decode_tree(m, tiny_cfg, tiny_crops, tiny_boxes, "quarter",
+                                       batch=E2E_BATCH)
+        used = {"k1": th.launches, "k2": k2.launches}
+        if used["k1"] != expect or used["k2"] != held["convs"] or (
+                (name == "tiny_int8") != (held["convs"] > 0)):
+            fail(f"phase 14 {name}: launches {used}, {held['convs']} K2 calls held to plain")
+        out[name] = {**pcp_summary(*timed_pcp(torch, e2e, scene, tiny_kps, "cuda")),
+                     "launches": used, "k2_held_to_plain": held}
+    return out
+
+
 def main():
+    args = sys.argv[1:]
+    seeds = None
+    if args:
+        if args[0] != "--learned-seeds" or len(args) < 2 or not all(a.isdigit() for a in args[1:]):
+            fail("usage: chip_smoke.py [--learned-seeds SEED ...]", 2)
+        seeds = [int(a) for a in args[1:]]
     try:
         import torch
     except ImportError:
@@ -1470,6 +1950,13 @@ def main():
     compiled = kernels.build_all(verbose=True)
     emit("build", seconds=time.perf_counter() - t0, compiled=compiled,
          kernels=sorted(kernels.sources()))
+
+    if seeds is not None:
+        from tpupose_torch.models import train as tt
+
+        for seed in seeds:
+            emit("learned_tiny", card=card, **learned_tiny(torch, tt, seed, gate=False)[0])
+        return
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = phase_kernel(th, torch, gen)
@@ -1505,6 +1992,12 @@ def main():
 
     emit("cli_tracks", **phase_cli_tracks(torch, card))
 
+    train, w48, tiny = phase_train(torch, card)
+    emit("train", **train)
+    e2e = phase_e2e(torch, card, w48, tiny)
+    emit("e2e", **e2e)
+    del w48, tiny
+
     quarter = k1["modes"]["quarter"]
     conv = k2["timed"]["hrnet_branch0_3x3_48"]
     print(json.dumps({"kernels": [{
@@ -1516,6 +2009,7 @@ def main():
         "plain_ms": quarter["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
         "cli_launches": {m: c["heatmap.launches"] for m, c in cli_launches.items()},
+        "e2e_launches": e2e["k1_launches"],
     }, {
         "name": "int8_conv", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -1527,6 +2021,7 @@ def main():
         "k2b_ms": conv["k2b"]["ms"], "design_bound_ms": conv["design_bound_ms"],
         "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
         "cli_launches": {m: c["int8_conv.launches"] for m, c in cli_launches.items()},
+        "learned_int8_launches": train["e"]["int8_launches"]["k2"],
     }, {
         "name": "quantize_nhwc", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -1537,6 +2032,7 @@ def main():
         "bound_by": conv["k2a"]["bound_by"], "library_ms": None,
         "shape": conv["shape"][:4],
         "cli_launches": {m: c["int8_conv.quantize_launches"] for m, c in cli_launches.items()},
+        "learned_int8_launches": train["e"]["int8_launches"]["k2a"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

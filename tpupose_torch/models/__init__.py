@@ -1,5 +1,6 @@
 """Neural backends: HRNet and YOLOv3 as nn.Modules, weight conversion and
-checkpoint loading, int8 post-training quantization."""
+checkpoint loading, int8 post-training quantization; training (`train`)
+and save / resume (`checkpoint`) in their own modules."""
 from tpupose_torch.models.convert import (
     darknet_array_to_state_dict,
     hrnet_state_dict_from_jax,

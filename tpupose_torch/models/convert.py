@@ -10,6 +10,8 @@ for a quantized tree the module that `quantize.quantize_convs` returns
 for the same skip set (int8 `weight_q` HWIO -> OIHW; `w_scale`, `x_scale`
 and `bias` as they are), and for a fake-quant (QAT) tree the module that
 `quantize.fake_quant_convs` returns (its 0-d `fq_x_scale` as it is).
+`adam_state_from_jax` carries an optax Adam / AdamW state over the same
+way, into a torch optimizer's `state_dict`.
 
 The published checkpoints (`src/configs/*/model_configs.yaml:38-57`) load
 with no JAX: a darknet `.weights` file (`read_darknet_file`,
@@ -53,6 +55,54 @@ def hrnet_state_dict_from_jax(tree) -> dict:
 def yolo_state_dict_from_jax(tree) -> dict:
     """The JAX YOLOv3 tree (numpy leaves) as the port's YOLOv3 state_dict."""
     return state_dict_from_jax(tree)
+
+
+def _adam_state(opt_state):
+    """The `ScaleByAdamState` (fields count, mu, nu) inside an optax state,
+    a nest of tuples."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state, model, optimizer) -> dict:
+    """The state of `optax.adam` / `optax.adamw` as a `state_dict` for the
+    torch Adam / AdamW `optimizer` over tensors of `model`.
+
+    `mu` and `nu` are trees in the parameter tree's layout (numpy or JAX
+    leaves; conv kernels HWIO, turned OIHW); each optimizer tensor takes
+    the leaf of its name in `model` (a parameter, or a buffer such as a BN
+    running statistic), and `count` becomes every tensor's `step`. Load
+    the result with `optimizer.load_state_dict`; a JAX run then resumes
+    in the port. Raises ValueError for an optimizer tensor not in `model`
+    or not in the trees."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("adam_state_from_jax: no Adam state (count, mu, nu) in opt_state")
+    mu, nu = state_dict_from_jax(adam.mu), state_dict_from_jax(adam.nu)
+    names = {id(t): n for n, t in model.named_parameters()}
+    names.update((id(t), n) for n, t in model.named_buffers())
+    step = float(np.asarray(adam.count))
+    sd = optimizer.state_dict()
+    state, index = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names.get(id(p))
+            if name is None or name not in mu:
+                raise ValueError(f"adam_state_from_jax: optimizer tensor {index} "
+                                 f"({name or 'not in the model'}) has no JAX state")
+            state[index] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": mu[name].to(dtype=p.dtype, device=p.device),
+                "exp_avg_sq": nu[name].to(dtype=p.dtype, device=p.device),
+            }
+            index += 1
+    return {"state": state, "param_groups": sd["param_groups"]}
 
 
 # -- pose_hrnet .pth -------------------------------------------------------------
