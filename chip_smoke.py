@@ -4,9 +4,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --learned-seeds 0 1 2   # phase 13 (e) per seed, no gates
 
-Phases, in order (but 11 runs after 8, so that phase 10's peak memory holds
-none of phase 5's models); the first that fails ends the run with a
-non-zero exit:
+Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
+memory holds none of phase 5's models); the first that fails ends the run
+with a non-zero exit. "Host syncs" are the host's waits on the card inside
+the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
+(`counted_syncs`); K3 launches are counted where the tracker runs:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of `tpupose_torch/csrc` with nvcc for sm_90a, one
      process per source, all at once;
@@ -33,8 +35,9 @@ non-zero exit:
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
-     720x1280 uint8 frames; the decode launch count, the stage A / stage B
-     split, peak memory;
+     720x1280 uint8 frames; the decode launch count, K3's (one association
+     and one init LAP a camera, a frame), the stage A / stage B split, peak
+     memory, host syncs;
   6. the int8 main path: `Pipeline.quantize_models` on 8 frames of one view
      (on_drift="warn": random weights drift by design, so the self-check
      report is printed and not gated on), then `process_clip` twice on the
@@ -49,7 +52,8 @@ non-zero exit:
      2e-2 / rtol 1e-3);
   9. the tracker on a synthetic scene with 5 views and 3 people: the same
      detections replayed through `person_track` on the card and on the CPU
-     must give the same track ids, and 3 confirmed tracks;
+     must give the same track ids, and 3 confirmed tracks; ms per frame, K3
+     launches and host syncs (the host detections' copies) per frame;
  10. the evaluation CLI's loop (`tpupose_torch.cli.common`): full-width
      YOLOv3-416 and HRNet-W48 with random weights from a seed (BN not
      folded) written to a temporary directory as a darknet 0.2 `.weights`
@@ -61,7 +65,8 @@ non-zero exit:
      frames through `process_frame`), in bf16 and again after
      `quantize_models` on all views of the first 8 frames
      (on_drift="warn"), each run with K1, K2 and K2a counted from 0 (6, 0,
-     0 in bf16; 6, 6 x 364, 6 x 362 in int8); each run's first clip
+     0 in bf16; 6, 6 x 364, 6 x 362 in int8) and K3 (68 x 6); each run's
+     first clip
      against `process_clip` + `harvest` (poses within 1e-3), the pkl and
      per-camera JSONs written and read back, PCP scored against the
      scene's ground truth; times per clip and per trailing frame, the
@@ -84,7 +89,8 @@ non-zero exit:
      synthetic scene's detections (`synthetic_frame_source`, the
      `person_track` path) with Shelf's config's tracker capacities (16 /
      16 / 40), on the card and on the CPU: equal track ids and
-     byte-equal per-camera JSONs, and confirmed tracks.
+     byte-equal per-camera JSONs, and confirmed tracks; ms per frame, host
+     syncs and K3 launches per frame on the card.
  13. training (`train`) at full width: HRNet-W48 384x288 from a seed on blob
      batches of 8 (`models.train`): (a) `make_train_step` with
      `make_optimizer()` in bf16, inference-mode BN, 20 steps on one batch
@@ -112,14 +118,43 @@ non-zero exit:
      99), then the W48's and the learned tiny model's (bf16 and int8)
      decoded keypoints through the same chain, reported, with every K2
      call of the int8 decode held torch.equal to the plain version;
-     stage B seconds.
+     stage B seconds;
+ 15. the multi-stream path (`multistream`, `tpupose_torch.parallel`), with
+     the tracker at 4 / 12 / 24 and at 16 / 16 / 40: (a) K3, the batched
+     masked LAP, torch.equal to its plain version on a CPU copy of the same
+     inputs at the tracker's shapes (association: 5 x S problems of
+     (max_tracks, max_dets), maximizing; init: S of (max_hyp, max_dets),
+     solved transposed) for S in 1, 2, 8, 32, on uniform and on integer
+     costs in [0, 3] (ties), with random masks, an empty problem and one
+     with no valid column; K3's time per launch at each shape (median of
+     20 CUDA-event timings), the plain version's on the card (S <= 2), an
+     empty kernel's and the bound; (c) S = 1, 8, 32 streams of different
+     continuous adversarial scenes (seeds 1..S, 64 frames) through
+     `multistream_step` under set_sync_debug_mode("error"), every stream's
+     track ids, validity and views equal to its own single-stream
+     `track_clip` on the card; ms per step and per stream-frame; (b)
+     `track_clip` of the 256-frame stream of bench.py's stage B on the card
+     with its inputs already there, under set_sync_debug_mode("error"),
+     against the CPU's run (made meanwhile in a worker process): equal track
+     ids, validity and views, pose3d within 2e-2 m; stage B ms and K3
+     launches per frame; (d) `make_multistream_clip_fn` at full width,
+     bench.py's multistream leg: 2 streams of 128 frames of 5 random
+     720x1280 views, YOLOv3-416 and HRNet-W48 folded to bf16, then int8
+     through `quantize_convs` + `uncalibrated_scales`; fps, the stage A /
+     stage B split (each alone to a sync), K1 / K2 / K2a / K3 launches
+     counted from 0 (8, 0, 0, 768 in bf16; 8, 8 x 364, 8 x 362, 768 in
+     int8), peak memory, host syncs; each stream's stage B equal to
+     `track_clip` on its own stage-A detections, and (bf16, information)
+     the share of its masks equal to `process_clip_nn`'s on the same frames.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run).
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
-kernel's launches in phase 10 as `cli_launches`, K1's in phase 14 as
-`e2e_launches`, K2's and K2a's in phase 13 (e) as
-`learned_int8_launches`), the
+kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
+`multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
+K2a's in phase 13 (e) as `learned_int8_launches`; K3's `launches` are
+phase 15 (d)'s int8 run's, and its times those of (a) at (d)'s
+association shape), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. It needs a CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result. The f32 comparisons run with TF32 off (so do phase 11's
@@ -227,6 +262,27 @@ def cuda_time_ms(fn, warmup=3, reps=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Counts the host waits on the card inside the block: with
+    torch.cuda.set_sync_debug_mode("warn") every synchronizing call (a
+    device -> host read, a blocking copy, a synchronize) warns once. Yields
+    a dict whose "syncs" is set when the block ends."""
+    import warnings
+
+    import torch
+
+    counter = {"syncs": 0}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield counter
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counter["syncs"] = sum("synchroniz" in str(w.message) for w in caught)
 
 
 def planted_heatmaps(n, j, h, w, gen):
@@ -569,17 +625,22 @@ def phase_main_path(torch, gen, card):
     # the main path: counts from 0, two clips, counts read right after
     torch.cuda.reset_peak_memory_stats()
     th.launches = 0
-    lap.host_syncs = 0
-    clip_ms = []
+    lap.launches = 0
+    clip_ms, syncs = [], 0
     for _ in range(2):
         t0 = time.perf_counter()
-        outs, dets, mask = pipe.process_clip(frame_ids, clip)
+        with counted_syncs() as counted:
+            outs, dets, mask = pipe.process_clip(frame_ids, clip)
         torch.cuda.synchronize()
         clip_ms.append((time.perf_counter() - t0) * 1e3)
-    launches, syncs = th.launches, lap.host_syncs
+        syncs += counted["syncs"]
+    launches, k3_launches = th.launches, lap.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches < 1:
         fail("the main path never launched the heatmap decode kernel")
+    if k3_launches != 2 * frames * (1 + views):
+        fail(f"two clips launched K3 {k3_launches} times, expected "
+             f"{2 * frames * (1 + views)} (one association and {views} init LAPs a frame)")
 
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
     ms = statistics.median(clip_ms)
@@ -590,7 +651,7 @@ def phase_main_path(torch, gen, card):
         "ms_per_clip": ms, "fps": frames * 1e3 / ms,
         "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
         "stage_b_ms_per_frame": stage_b_ms / frames,
-        "decode_launches": launches, "clips": 2,
+        "decode_launches": launches, "k3_launches": k3_launches, "clips": 2,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "peak_mem_gib": peak_gib,
     }, (pipe, clip, frame_ids, dets, mask)
@@ -656,14 +717,16 @@ def phase_int8_path(torch, card, main):
     th.launches = 0
     k2.launches = 0
     k2.quantize_launches = 0
-    lap.host_syncs = 0
-    clip_ms = []
+    lap.launches = 0
+    clip_ms, syncs = [], 0
     for _ in range(2):
         t0 = time.perf_counter()
-        outs, dets, mask = pipe.process_clip(frame_ids, clip)
+        with counted_syncs() as counted:
+            outs, dets, mask = pipe.process_clip(frame_ids, clip)
         torch.cuda.synchronize()
         clip_ms.append((time.perf_counter() - t0) * 1e3)
-    k1_launches, k2_launches, syncs = th.launches, k2.launches, lap.host_syncs
+        syncs += counted["syncs"]
+    k1_launches, k2_launches, k3_launches = th.launches, k2.launches, lap.launches
     k2a_launches = k2.quantize_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if k1_launches < 1 or (k2_launches, k2a_launches) != (2 * 364, 2 * 362):
@@ -682,7 +745,7 @@ def phase_int8_path(torch, card, main):
         "fps": frames * 1e3 / ms, "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
         "k2_launches": k2_launches, "k2_launches_per_clip": k2_launches / 2,
         "quantize_launches": k2a_launches, "quantize_launches_per_clip": k2a_launches / 2,
-        "k1_launches": k1_launches, "clips": 2,
+        "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
         "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "masks_equal_bf16": bool(torch.equal(mask, mask_bf16)),
@@ -817,35 +880,21 @@ def phase_tracker(torch, card):
     gpu = Pipeline(cams, cfg, device="cuda")
     cpu = Pipeline(cams, cfg, device="cpu")
 
-    # time the LAP inside the card's tracker steps (synchronizing wrapper)
-    lap_s = [0.0]
-    plain_lap = tt.masked_lap
-
-    def timed_lap(*args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = plain_lap(*args, **kw)
-        torch.cuda.synchronize()
-        lap_s[0] += time.perf_counter() - t0
-        return out
-
     step_s, syncs, err = 0.0, 0, 0.0
+    lap.launches = 0
     for t in range(frames):
         dets = torch.zeros((views, D, 17, 3))
         mask = torch.zeros((views, D), dtype=torch.bool)
         dets[:, :3] = torch.as_tensor(scene.detections[t])
         mask[:, :3] = torch.as_tensor(scene.visible[t])
-        tt.masked_lap = timed_lap
-        lap.host_syncs = 0
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # person_track takes host detections: their copy to the card waits
+        with counted_syncs() as counted:
             out_g = gpu.person_track(t, dets, mask)
-            torch.cuda.synchronize()
-            step_s += time.perf_counter() - t0
-        finally:
-            tt.masked_lap = plain_lap
-        syncs += lap.host_syncs
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        syncs += counted["syncs"]
         out_c = cpu.person_track(t, dets, mask)
         for field in ("track_id", "valid"):
             if not torch.equal(getattr(out_g, field).cpu(), getattr(out_c, field)):
@@ -857,8 +906,8 @@ def phase_tracker(torch, card):
         fail(f"the tracker confirmed {confirmed} tracks on a 3-person scene")
     return {"card": card, "frames": frames, "confirmed": confirmed,
             "ms_per_frame": step_s * 1e3 / frames,
-            "lap_share": lap_s[0] / step_s, "host_syncs_per_frame": syncs / frames,
-            "pose3d_max_abs_diff_m": err}
+            "k3_launches_per_frame": lap.launches / frames,
+            "host_syncs_per_frame": syncs / frames, "pose3d_max_abs_diff_m": err}
 
 
 CLI_FRAMES, CLI_CLIP, CLI_CALIB = 68, 32, 8  # 2 clips + 4 trailing frames
@@ -927,15 +976,20 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
     from tpupose_torch.utils.timing import StageTimer
 
     calls = {"process_clip": [], "process_frame": []}
+    returned = {"process_clip": [], "process_frame": []}  # host clock at return
+    syncs = [0]
 
     def timed(name):
         fn = getattr(pipe, name)
 
         def run(*args, **kw):
             t0 = time.perf_counter()
-            out = fn(*args, **kw)
+            with counted_syncs() as counted:
+                out = fn(*args, **kw)
+            returned[name].append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
             calls[name].append((time.perf_counter() - t0) * 1e3)
+            syncs[0] += counted["syncs"]
             return out
         return run
 
@@ -950,7 +1004,7 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
     torch.cuda.reset_peak_memory_stats()
     for module, attr in counters:
         setattr(module, attr, 0)
-    lap.host_syncs = 0
+    lap.launches = 0
     t0 = time.perf_counter()
     try:
         multi_poses3d, annotations = cli.run_eval_loop(cfg, pipe, source(), timer,
@@ -959,7 +1013,6 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
     finally:
         del pipe.process_clip, pipe.process_frame
     loop_s = time.perf_counter() - t0
-    syncs = lap.host_syncs
     launches = {f"{module.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(module, attr)
                 for module, attr in counters}
     n_clips, n_tail = divmod(frames.shape[0], CLI_CLIP)
@@ -969,14 +1022,20 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
              f"and {n_tail}")
     if sorted(multi_poses3d) != list(range(frames.shape[0])):
         fail("the CLI loop did not harvest every frame")
+    views = len(cfg.dataset.folders_order)
+    if lap.launches != frames.shape[0] * (1 + views):
+        fail(f"the CLI loop launched K3 {lap.launches} times, expected "
+             f"{frames.shape[0] * (1 + views)}")
     return {
         "card": card, "loop_s": loop_s, "clip_ms": calls["process_clip"],
         "ms_per_clip": statistics.median(calls["process_clip"]),
+        "clip_returned_ms": returned["process_clip"],
         "frame_ms": calls["process_frame"],
         "ms_per_trailing_frame": statistics.median(calls["process_frame"]),
         "timer_report": timer.report(num_views=len(cfg.dataset.folders_order)).splitlines(),
-        "launches": launches, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "host_syncs_per_frame": syncs / frames.shape[0],
+        "launches": launches, "k3_launches": lap.launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "host_syncs_per_frame": syncs[0] / frames.shape[0],
         "confirmed_track_frames": sum(len(p) for p in multi_poses3d.values()),
         "annotations": len(annotations),
     }, (multi_poses3d, annotations)
@@ -1440,11 +1499,12 @@ def phase_cli_tracks(torch, card):
         runs = {}
         for device in ("cuda", "cpu"):
             pipe = Pipeline(cams, tcfg, device=device)
-            lap.host_syncs = 0
+            lap.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            multi_poses3d, annotations = cli.run_eval_loop(cfg, pipe, iter(items), StageTimer(),
-                                                           clip=CLI_CLIP)
+            with (counted_syncs() if device == "cuda" else contextlib.nullcontext({})) as counted:
+                multi_poses3d, annotations = cli.run_eval_loop(cfg, pipe, iter(items),
+                                                               StageTimer(), clip=CLI_CLIP)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             save_dir = os.path.join(root, device)
@@ -1454,8 +1514,9 @@ def phase_cli_tracks(torch, card):
                 with open(os.path.join(save_dir, fname), "rb") as f:
                     jsons[fname] = f.read()
             ids = [(a["timestamp"], a["cid"], a["pid"]) for a in annotations]
-            runs[device] = (multi_poses3d, ids, jsons, seconds, lap.host_syncs)
-    (p_card, ids_card, js_card, s_card, syncs), (p_cpu, ids_cpu, js_cpu, s_cpu, _) = (
+            runs[device] = (multi_poses3d, ids, jsons, seconds,
+                            (counted.get("syncs"), lap.launches))
+    (p_card, ids_card, js_card, s_card, counts), (p_cpu, ids_cpu, js_cpu, s_cpu, _) = (
         runs["cuda"], runs["cpu"])
     if ids_card != ids_cpu:
         fail("CLI tracks: the card's track ids differ from the CPU's")
@@ -1478,7 +1539,8 @@ def phase_cli_tracks(torch, card):
             "camera_jsons": len(js_card), "json_bytes": sum(map(len, js_card.values())),
             "pose3d_max_abs_diff_m": worst, "card_ms_per_frame": s_card * 1e3 / CLI_TRACK_FRAMES,
             "cpu_ms_per_frame": s_cpu * 1e3 / CLI_TRACK_FRAMES,
-            "card_host_syncs_per_frame": syncs / CLI_TRACK_FRAMES}
+            "card_host_syncs_per_frame": counts[0] / CLI_TRACK_FRAMES,
+            "card_k3_launches_per_frame": counts[1] / CLI_TRACK_FRAMES}
 
 
 TRAIN_BATCH, TRAIN_STEPS, RESUME_AT = 8, 20, 10  # phase 13 (a), (b), (d)
@@ -1919,6 +1981,365 @@ def phase_e2e(torch, card, w48, tiny):
     return out
 
 
+#: Phase 15, the multi-stream path: tracker capacities (max_dets,
+#: max_tracks, max_hyp) of the clip path and of the CLI's configs.
+MS_CAPS = {"4/12/24": (4, 12, 24), "16/16/40": (16, 16, 40)}
+LAP_STREAMS = (1, 2, 8, 32)   # (a): 2 is (d)'s
+MS_STREAMS = (1, 8, 32)       # (c)
+SYNC_FREE_FRAMES, MS_FRAMES = 256, 64     # (b), (c)
+CLIP_STREAMS, CLIP_FRAMES = 2, 128        # (d), bench.py's multistream leg
+CLIP_HW = (720, 1280)
+MS_POSE_TOL = 2e-2  # tests/test_torch_tracker.py's adversarial band, metres
+
+
+def stream_scene(num_frames, seed):
+    """bench.py's stage-B stream: the continuous adversarial scene."""
+    from tpupose_torch.data.synthetic import make_continuous_adversarial_scene
+
+    return make_continuous_adversarial_scene(num_frames=num_frames, num_cameras=5,
+                                             num_actors=3, noise_px=1.5, seed=seed)
+
+
+def stream_inputs(torch, scene, caps, device):
+    """A scene's detections padded to the tracker's max_dets, its rig and the
+    TrackerConfig of capacities `caps`, on `device`."""
+    from tpupose_torch.geometry import make_camera_set
+    from tpupose_torch.tracking.tracker import TrackerConfig
+
+    d, t, h = caps
+    frames, views, actors = scene.detections.shape[:3]
+    dets = torch.zeros((frames, views, d, 17, 3))
+    mask = torch.zeros((frames, views, d), dtype=torch.bool)
+    dets[:, :, :actors] = torch.as_tensor(scene.detections)
+    mask[:, :, :actors] = torch.as_tensor(scene.visible)
+    cams = make_camera_set(scene.P, scene.K, scene.RT, scene.width, scene.height)
+    cfg = TrackerConfig(num_cameras=views, max_dets=d, max_tracks=t, max_hyp=h)
+    fids = torch.arange(frames, dtype=torch.int32)
+    return (dets.to(device), mask.to(device), fids.to(device), cams.to(device), cfg)
+
+
+def track_reference_cpu(caps, num_frames):
+    """(b)'s CPU reference, run in a worker process while the card works:
+    `track_clip` of the stream scene on the CPU."""
+    import torch
+
+    from tpupose_torch.tracking.tracker import init_state, track_clip
+
+    torch.set_num_threads(2)
+    dets, mask, fids, cams, cfg = stream_inputs(torch, stream_scene(num_frames, 1), caps, "cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, outs = track_clip(cfg, cams, init_state(cfg, "cpu"), dets, mask, fids)
+    return {"seconds": time.perf_counter() - t0,
+            **{f: getattr(outs, f).numpy() for f in ("track_id", "valid", "n_views", "pose3d")}}
+
+
+@contextlib.contextmanager
+def no_syncs(torch):
+    """Any host wait on the card inside the block raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def lap_problems(torch, gen, batch, shape, ties):
+    """(B, R, C) costs on the card, uniform (tie-free) or integers in [0, 3]
+    (many ties), and random masks; problem 0 has no valid row, problem 1 no
+    valid column, problem 2 is full."""
+    r, c = shape
+    if ties:
+        cost = torch.randint(0, 4, (batch, r, c), generator=gen, device="cuda").float()
+    else:
+        cost = torch.rand((batch, r, c), generator=gen, device="cuda")
+    rv = (torch.rand((batch, r), generator=gen, device="cuda")
+          >= 0.6 * torch.rand((batch, 1), generator=gen, device="cuda"))
+    cv = (torch.rand((batch, c), generator=gen, device="cuda")
+          >= 0.6 * torch.rand((batch, 1), generator=gen, device="cuda"))
+    rv[0] = False
+    if batch > 1:
+        cv[1] = False
+    if batch > 2:
+        rv[2], cv[2] = True, True
+    return cost, rv, cv
+
+
+def k3_against_plain(torch, gen):
+    """(a): K3 torch.equal to the plain version on a CPU copy of the same
+    inputs at the tracker's shapes, ties and empty problems included;
+    times of K3, of the plain version (on the card, S <= 2) and of an
+    empty kernel, and K3's bound."""
+    from tpupose_torch.ops import lap
+
+    shapes = []
+    for s in LAP_STREAMS:
+        for d, t, h in MS_CAPS.values():
+            shapes += [("association", 5 * s, (t, d), True), ("init", s, (h, d), False)]
+    rows, checked = [], 0
+    for site, batch, shape, maximize in shapes:
+        for ties in (True, False):  # timed on the tie-free costs, below
+            cost, rv, cv = lap_problems(torch, gen, batch, shape, ties)
+            got = lap.masked_lap_cuda(cost, rv, cv, maximize)
+            ref = lap.masked_lap_plain(cost.cpu(), rv.cpu(), cv.cpu(), maximize)
+            if not torch.equal(got.cpu(), ref):
+                fail(f"K3 {site} {batch} x {shape} (ties {ties}): "
+                     f"{int((got.cpu() != ref).sum())} rows differ from the plain version")
+            checked += batch
+        us = cuda_time_ms(lambda: lap.masked_lap_cuda(cost, rv, cv, maximize)) * 1e3
+        # the plain version on the card reads the device per JV step: slow
+        plain_ms = (cuda_time_ms(lambda: lap.masked_lap_plain(cost, rv, cv, maximize),
+                                 warmup=1, reps=3) if batch <= 10 else None)
+        rs, cs = min(shape), max(shape)
+        moved = batch * (shape[0] * shape[1] * 4 + shape[0] + shape[1]) + batch * shape[0] * 8
+        # at least one Dijkstra step a row, 7 f32 operations a column each
+        rows.append({"site": site, "batch": batch, "shape": list(shape), "maximize": maximize,
+                     "us": us, "plain_ms": plain_ms,
+                     **bound(moved, batch * rs * cs * 7, H100_F32_OPS_PER_S)})
+    empty_us = cuda_time_ms(lap.empty_launch) * 1e3
+    return {"problems_checked": checked, "shapes": rows, "empty_kernel_us": empty_us,
+            "max_abs_err": 0.0,
+            "note": "K3 is bound by latency (dependent Dijkstra steps), not by bytes"}
+
+
+def sync_free_tracker(torch, cpu_refs):
+    """(b): `track_clip` on the card, inputs already there, under sync-debug
+    "error", against the CPU's run of the same stream."""
+    from tpupose_torch.ops import lap
+    from tpupose_torch.tracking.tracker import init_state, track_clip
+
+    scene = stream_scene(SYNC_FREE_FRAMES, 1)
+    out = {}
+    for name, caps in MS_CAPS.items():
+        dets, mask, fids, cams, cfg = stream_inputs(torch, scene, caps, "cuda")
+        runs = []
+        for _ in range(2):  # the first run also warms the step up
+            lap.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode(), no_syncs(torch):
+                _, outs = track_clip(cfg, cams, init_state(cfg, "cuda"), dets, mask, fids)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3 / SYNC_FREE_FRAMES)
+        ref = cpu_refs[name]
+        for field in ("track_id", "valid", "n_views"):
+            if not (getattr(outs, field).cpu().numpy() == ref[field]).all():
+                fail(f"sync-free tracker at {name}: {field} differs between the card and the CPU")
+        valid = ref["valid"]
+        err = float(abs(outs.pose3d.cpu().numpy() - ref["pose3d"])[valid].max()) if valid.any() else 0.0
+        if not err <= MS_POSE_TOL:
+            fail(f"sync-free tracker at {name}: pose3d {err} m from the CPU's")
+        out[name] = {"stage_b_ms_per_frame": runs[1], "first_run_ms_per_frame": runs[0],
+                     "cpu_ms_per_frame": ref["seconds"] * 1e3 / SYNC_FREE_FRAMES,
+                     "k3_launches_per_frame": lap.launches / SYNC_FREE_FRAMES,
+                     "confirmed_track_frames": int(valid.sum()), "pose3d_max_abs_diff_m": err}
+    return out
+
+
+def multistream_tracker(torch):
+    """(c): S streams of different scenes through `multistream_step`, every
+    stream held to its own single-stream `track_clip` on the card."""
+    from tpupose_torch.ops import lap
+    from tpupose_torch.parallel import broadcast_cameras, init_multistream_state, multistream_step
+    from tpupose_torch.tracking.tracker import init_state, track_clip
+
+    scenes = [stream_scene(MS_FRAMES, seed) for seed in range(1, max(MS_STREAMS) + 1)]
+    out = {}
+    for name, caps in MS_CAPS.items():
+        inputs = [stream_inputs(torch, sc, caps, "cuda") for sc in scenes]
+        cams, cfg = inputs[0][3], inputs[0][4]
+        dets = torch.stack([x[0] for x in inputs])
+        mask = torch.stack([x[1] for x in inputs])
+        fids = inputs[0][2]
+        t0 = time.perf_counter()
+        singles = []
+        with torch.inference_mode():
+            for d, m, f, c, _ in inputs:
+                singles.append(track_clip(cfg, c, init_state(cfg, "cuda"), d, m, f)[1])
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3 / (len(inputs) * MS_FRAMES)
+        runs = {}
+        for s in MS_STREAMS:
+            cams_s = broadcast_cameras(cams, s)
+            with torch.inference_mode():  # warm-up, outside the timing
+                multistream_step(cfg, cams_s, init_multistream_state(cfg, s), dets[:s, 0],
+                                 mask[:s, 0], fids[0].expand(s))
+            state = init_multistream_state(cfg, s)
+            lap.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = []
+            with torch.inference_mode(), no_syncs(torch):
+                for t in range(MS_FRAMES):
+                    state, o = multistream_step(cfg, cams_s, state, dets[:s, t], mask[:s, t],
+                                                fids[t].expand(s))
+                    outs.append(o)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / MS_FRAMES
+            for field in ("track_id", "valid", "n_views"):
+                got = torch.stack([getattr(o, field) for o in outs], dim=1)  # (S, F, ...)
+                ref = torch.stack([getattr(x, field) for x in singles[:s]])
+                if not torch.equal(got, ref):
+                    fail(f"multistream at {name}, S={s}: {field} differs from the streams' "
+                         f"single-stream runs")
+            runs[s] = {"ms_per_step": ms, "ms_per_stream_frame": ms / s,
+                       "k3_launches_per_step": lap.launches / MS_FRAMES}
+        out[name] = {"single_stream_ms_per_frame": single_ms, "streams": runs}
+    return out
+
+
+def multistream_clip(torch, float_models):
+    """(d): bench.py's multistream leg at full width, bf16 then int8."""
+    import dataclasses
+
+    from tpupose_torch.data.synthetic import make_scene
+    from tpupose_torch.geometry import make_camera_set
+    from tpupose_torch.models.quantize import (
+        hrnet_skip_ids,
+        quantize_convs,
+        uncalibrated_scales,
+        yolo_skip_ids,
+    )
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.ops import int8_conv as k2
+    from tpupose_torch.ops import lap
+    from tpupose_torch.parallel import (
+        broadcast_cameras,
+        init_multistream_state,
+        make_multistream_clip_fn,
+        multistream_step,
+    )
+    from tpupose_torch.parallel import throughput
+    from tpupose_torch.pipeline import Pipeline
+    from tpupose_torch.tracking.tracker import init_state, track_clip
+
+    _, tcfg, det_cfg, detector, pose_cfg, pose = float_models
+    tcfg = dataclasses.replace(tcfg, max_dets=4, max_tracks=12, max_hyp=24)
+    s, f, views, (height, width) = CLIP_STREAMS, CLIP_FRAMES, 5, CLIP_HW
+    scene = make_scene(num_frames=1, num_cameras=views, num_actors=3, seed=0)
+    cams = make_camera_set(scene.P, scene.K, scene.RT, width, height, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    clip = torch.randint(0, 256, (s, f, views, height, width, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    fids = torch.arange(s * f, dtype=torch.int32, device="cuda").reshape(s, f)
+    fn = make_multistream_clip_fn(det_cfg, pose_cfg, tcfg)
+    models = {"bf16": (detector, pose)}
+    models["int8"] = (
+        quantize_convs(detector, uncalibrated_scales(detector, yolo_skip_ids(detector, det_cfg))),
+        quantize_convs(pose, uncalibrated_scales(pose, hrnet_skip_ids(pose))))
+    chunk = throughput._auto_chunk(s, f, views)
+    n_chunks = f // chunk
+    # K1, K2, K2a: one stage-A batch a chunk; K3: one association and one
+    # init LAP a camera, a step
+    expect = {mode: {"k1": n_chunks * c["heatmap.launches"],
+                     "k2": n_chunks * c["int8_conv.launches"],
+                     "k2a": n_chunks * c["int8_conv.quantize_launches"],
+                     "k3": f * (1 + views)} for mode, c in STEP_LAUNCHES.items()}
+    inner = throughput._clip_detections
+    out = {"config": "S=2 streams x 128 frames x 5 views of 720x1280 uint8; YOLOv3-416 "
+                     "(max_candidates=4) + HRNet-W48 384x288 folded to bf16; tracker at "
+                     "4 / 12 / 24; int8 by quantize_convs + uncalibrated_scales",
+           "chunk_frames": chunk}
+    for mode, (det_m, pose_m) in models.items():
+        stage_a = []
+
+        def recording(*args):
+            dm = inner(*args)
+            stage_a.append(dm)
+            return dm
+
+        throughput._clip_detections = recording
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            th.launches = k2.launches = k2.quantize_launches = lap.launches = 0
+            t0 = time.perf_counter()
+            with counted_syncs() as counted:
+                states, outs = fn(det_m, pose_m, broadcast_cameras(cams, s),
+                                  init_multistream_state(tcfg, s), clip, fids)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            throughput._clip_detections = inner
+        launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
+                    "k3": lap.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != expect[mode]:
+            fail(f"multistream clip ({mode}) launched {launches}, expected {expect[mode]}")
+        dets = torch.cat([d.reshape(s, -1, views, 4, 17, 3) for d, _ in stage_a], dim=1)
+        mask = torch.cat([m.reshape(s, -1, views, 4) for _, m in stage_a], dim=1)
+        if tuple(outs.pose3d.shape) != (s, f, 12, 17, 3) or not (
+                torch.isfinite(dets).all() and torch.isfinite(outs.pose3d).all()):
+            fail(f"multistream clip ({mode}): shapes {tuple(outs.pose3d.shape)} or non-finite")
+        # the split, each stage alone to a sync
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for k in range(0, f, chunk):
+                inner(det_cfg, pose_cfg, tcfg, det_m, pose_m,
+                      clip[:, k:k + chunk].reshape(-1, height, width, 3))
+        torch.cuda.synchronize()
+        stage_a_s = time.perf_counter() - t0
+        state = init_multistream_state(tcfg, s)
+        cams_s = broadcast_cameras(cams, s)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for t in range(f):
+                state, _ = multistream_step(tcfg, cams_s, state, dets[:, t], mask[:, t], fids[:, t])
+        torch.cuda.synchronize()
+        stage_b_s = time.perf_counter() - t0
+        # each stream's stage B against track_clip fed its own detections
+        with torch.inference_mode():
+            for i in range(s):
+                _, ref = track_clip(tcfg, cams, init_state(tcfg, "cuda"), dets[i], mask[i], fids[i])
+                for field in ("track_id", "valid", "n_views", "pose2d_now"):
+                    if not torch.equal(getattr(outs, field)[i], getattr(ref, field)):
+                        fail(f"multistream clip ({mode}) stream {i}: {field} differs from "
+                             f"track_clip on its stage-A detections")
+        run = {"seconds": seconds, "fps": s * f / seconds, "stage_a_s": stage_a_s,
+               "stage_b_s": stage_b_s, "stage_b_ms_per_step": stage_b_s * 1e3 / f,
+               "launches": launches, "peak_mem_gib": peak,
+               "host_syncs": counted["syncs"], "detections_valid": int(mask.sum())}
+        if mode == "bf16":  # information: process_clip's stage A on the same frames
+            pipe = Pipeline(cams, tcfg, det_cfg, det_m, pose_cfg, pose_m)
+            equal = total = 0
+            for i in range(s):
+                for k in range(0, f, 32):
+                    _, m = pipe.process_clip_nn(clip[i, k:k + 32])
+                    equal += int((m == mask[i, k:k + 32]).sum())
+                    total += m.numel()
+            run["masks_equal_share_vs_process_clip"] = equal / total
+            del pipe
+        out[mode] = run
+        del stage_a, dets, mask, states, outs
+    del clip, models
+    return out
+
+
+def phase_multistream(torch, card, gen, float_models):
+    """Phase 15: the multi-stream path (see the module docstring)."""
+    import multiprocessing
+
+    t_phase = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(len(MS_CAPS))
+    try:
+        pending = {name: pool.apply_async(track_reference_cpu, (caps, SYNC_FREE_FRAMES))
+                   for name, caps in MS_CAPS.items()}
+        k3 = k3_against_plain(torch, gen)
+        emit("multistream_k3", card=card, **k3)
+        tracker = multistream_tracker(torch)
+        emit("multistream_tracker", card=card, **tracker)
+        cpu_refs = {name: job.get(timeout=900) for name, job in pending.items()}
+    finally:
+        pool.terminate()
+        pool.join()
+    sync_free = sync_free_tracker(torch, cpu_refs)
+    emit("sync_free_tracker", card=card, **sync_free)
+    clip = multistream_clip(torch, float_models)
+    return {"card": card, "k3": k3, "sync_free": sync_free, "tracker": tracker,
+            "clip": clip, "seconds": time.perf_counter() - t_phase}
+
+
 def main():
     args = sys.argv[1:]
     seeds = None
@@ -1978,9 +2399,11 @@ def main():
     emit("int8_resident", **phase_resident(torch, card, pipe, clip))
     emit("staged_api", **phase_staged(torch, card, pipe, clip, frame_ids))
     del pipe, state
-    # phase 11 before 9 and 10, so that phase 10's peak memory holds none
-    # of phase 5's models or its clip
+    # phases 11 and 15 before 9 and 10, so that phase 10's peak memory
+    # holds none of phase 5's models or its clip
     emit("int8_qat", **phase_int8_qat(torch, card, float_models, clip, frame_ids))
+    multistream = phase_multistream(torch, card, gen, float_models)
+    emit("multistream", **multistream)
     del float_models, clip
 
     tracker = phase_tracker(torch, card)
@@ -2000,6 +2423,10 @@ def main():
 
     quarter = k1["modes"]["quarter"]
     conv = k2["timed"]["hrnet_branch0_3x3_48"]
+    ms_launches = {mode: multistream["clip"][mode]["launches"] for mode in ("bf16", "int8")}
+    # K3 at the multi-stream clip's association: S=2 streams x 5 views of (12, 4)
+    k3 = next(r for r in multistream["k3"]["shapes"]
+              if r["site"] == "association" and r["batch"] == 10 and r["shape"] == [12, 4])
     print(json.dumps({"kernels": [{
         "name": "heatmap_decode", "route": "cuda",
         "source": "tpupose_torch/csrc/heatmap_decode.cu",
@@ -2010,6 +2437,7 @@ def main():
         "bound_by": k1["bound_by"], "library_ms": None,
         "cli_launches": {m: c["heatmap.launches"] for m, c in cli_launches.items()},
         "e2e_launches": e2e["k1_launches"],
+        "multistream_launches": {m: c["k1"] for m, c in ms_launches.items()},
     }, {
         "name": "int8_conv", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -2022,6 +2450,7 @@ def main():
         "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
         "cli_launches": {m: c["int8_conv.launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2"],
+        "multistream_launches": {m: c["k2"] for m, c in ms_launches.items()},
     }, {
         "name": "quantize_nhwc", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -2033,6 +2462,19 @@ def main():
         "shape": conv["shape"][:4],
         "cli_launches": {m: c["int8_conv.quantize_launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2a"],
+        "multistream_launches": {m: c["k2a"] for m, c in ms_launches.items()},
+    }, {
+        "name": "masked_lap", "route": "cuda",
+        "source": "tpupose_torch/csrc/lap.cu",
+        "replaces": "tpupose/ops/lap.py:114",
+        "launches": ms_launches["int8"]["k3"],
+        "max_abs_err": multistream["k3"]["max_abs_err"], "ms": k3["us"] / 1e3,
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": None,
+        "shape": [k3["batch"]] + k3["shape"], "empty_kernel_ms": multistream["k3"]["empty_kernel_us"] / 1e3,
+        "clip_launches": int8["k3_launches"], "cli_launches": {
+            m: cli_path[m]["k3_launches"] for m in ("bf16", "int8")},
+        "multistream_launches": {m: c["k3"] for m, c in ms_launches.items()},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -146,9 +146,12 @@ def run_eval_loop(cfg: Config, pipe: Pipeline, frame_source, timer: StageTimer,
     in the loop needs them on the host.
 
     Clip mode times `process_clip` as the JAX package's loop does, on the
-    host clock with no device sync of its own; here the tracker reads
-    device values on the host every frame, so the "track" seconds include
-    the stage A work queued before it, which JAX's timing does not.
+    host clock with no device sync of its own. Here stage A waits on the
+    card a few times a batch (its detection post-processing) and the
+    tracker, which reads nothing on the host, is bound by the host's own
+    launches, so the card is done moments after `process_clip` returns: the
+    "track" seconds are the clip's whole time, stage A included, where the
+    JAX package's are mostly dispatch.
     """
     # prefetch at least a clip ahead so the NN stage never starves
     frame_source = device_prefetch(frame_source, pipe.device, depth=max(2, clip))

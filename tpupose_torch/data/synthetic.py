@@ -1,10 +1,12 @@
 """Synthetic multi-camera scene generator (numpy only).
 
-The port's own copy of `make_scene` and its helpers from
-`tpupose/data/synthetic.py`: a calibrated camera ring and actors walking
-smooth paths with a swaying COCO-17 skeleton, giving ground-truth 3D poses,
-per-view projections and noisy detections. The same seed gives the same
-scene as the JAX package's generator.
+The port's own copy of `tpupose/data/synthetic.py`: a calibrated camera
+ring and actors walking smooth paths with a swaying COCO-17 skeleton,
+giving ground-truth 3D poses, per-view projections and noisy detections
+(`make_scene`), and the adversarial variants (`make_adversarial_scene`,
+`make_continuous_adversarial_scene`: crossings, view-dependent occlusion,
+false positives, dropouts below two views, shuffled detection order). The
+same seed gives the same scene as the JAX package's generators.
 """
 from __future__ import annotations
 
@@ -189,3 +191,219 @@ def make_scene(
         detections=detections, visible=visible,
     )
 
+
+def make_adversarial_scene(
+    num_frames=40,
+    num_cameras=5,
+    num_actors=3,
+    noise_px=1.0,
+    seed=0,
+    crossing=True,
+    occlusion_px=60.0,
+    fp_per_view=0,
+    fp_score=0.75,
+    drop_prob=0.0,
+    enforce_two_views=False,
+    shuffle=True,
+) -> SyntheticScene:
+    """Adversarial variant of `make_scene`: the failure modes real
+    Campus/Shelf footage has and smooth synthetic walks don't.
+
+      * crossing: actors walk straight lines THROUGH the scene center, all
+        passing near it mid-clip — identities overlap in image space in
+        every view at once;
+      * occlusion: per view, when two actors' projected hips come within
+        `occlusion_px`, the actor farther from that camera is dropped
+        (persistent, view-dependent occlusion — not i.i.d. dropout);
+      * fp_per_view: false-positive detections per (frame, camera) —
+        plausible skeletons displaced to empty space with confidence
+        `fp_score` (above typical conf thresholds, so they reach hypothesis
+        building);
+      * drop_prob + enforce_two_views=False: i.i.d. dropouts may push an
+        actor BELOW the 2-view triangulation floor (make_scene always
+        repairs to >= 2 views);
+      * shuffle: per-(frame, camera) random permutation of detection order,
+        so nothing may rely on detections arriving in actor order.
+
+    Ground-truth arrays keep actor order; `detections`/`visible` carry
+    actors + false positives (actor slot a of view c at frame t is
+    detections[t, c, perm] — order is scrambled when shuffle=True).
+    """
+    rng = np.random.default_rng(seed)
+    P, K, RT = camera_ring(num_cameras=num_cameras)
+    C = num_cameras
+
+    # Straight crossing paths: start on a circle, end at the antipode, with
+    # per-actor timing offsets so they meet near (not exactly at) the center.
+    angles = 2 * np.pi * np.arange(num_actors) / num_actors + rng.uniform(0, 0.4)
+    starts = np.stack([2.0 * np.cos(angles), 2.0 * np.sin(angles)], axis=1)
+    ends = -starts + rng.normal(scale=0.25, size=starts.shape)
+    phase = rng.uniform(0, 2 * np.pi, size=num_actors)
+
+    gt3d = np.zeros((num_frames, num_actors, 17, 3))
+    for t in range(num_frames):
+        for a in range(num_actors):
+            u = t / max(num_frames - 1, 1)
+            if crossing:
+                cx, cy = starts[a] + (ends[a] - starts[a]) * u
+            else:
+                cx, cy = starts[a]
+            heading = np.arctan2(ends[a, 1] - starts[a, 1],
+                                 ends[a, 0] - starts[a, 0])
+            pose = COCO17_REST.copy()
+            s = np.sin(0.4 * t + phase[a])
+            pose[[7, 9], 1] += 0.05 * s
+            pose[[8, 10], 1] -= 0.05 * s
+            rot = np.array(
+                [[np.cos(heading), -np.sin(heading), 0],
+                 [np.sin(heading), np.cos(heading), 0], [0, 0, 1]]
+            )
+            pose = pose @ rot.T
+            pose[:, 0] += cx
+            pose[:, 1] += cy
+            gt3d[t, a] = pose
+
+    return _adversarialize(
+        gt3d, P, K, RT, rng, noise_px=noise_px, drop_prob=drop_prob,
+        enforce_two_views=enforce_two_views, occlusion_px=occlusion_px,
+        fp_per_view=fp_per_view, fp_score=fp_score, shuffle=shuffle,
+    )
+
+
+def _adversarialize(gt3d, P, K, RT, rng, *, noise_px, drop_prob,
+                    enforce_two_views, occlusion_px, fp_per_view, fp_score,
+                    shuffle):
+    """Shared detection-fabric for adversarial scenes: projections + noise,
+    view-dependent occlusion, i.i.d. dropouts, false positives, per-view
+    detection-order shuffling."""
+    num_frames, num_actors = gt3d.shape[:2]
+    C = P.shape[0]
+    gt2d = np.zeros((num_frames, C, num_actors, 17, 2))
+    for c in range(C):
+        gt2d[:, c] = _project(P[c].astype(np.float64), gt3d)
+
+    det_xy = gt2d + rng.normal(scale=noise_px, size=gt2d.shape)
+    scores = np.clip(
+        rng.normal(0.85, 0.05, size=gt2d.shape[:-1] + (1,)), 0.3, 1.0
+    )
+    actor_dets = np.concatenate([det_xy, scores], axis=-1)
+
+    visible = rng.uniform(size=(num_frames, C, num_actors)) >= drop_prob
+    if enforce_two_views:
+        for t in range(num_frames):
+            for a in range(num_actors):
+                if visible[t, :, a].sum() < 2:
+                    visible[t, :2, a] = True
+
+    # View-dependent occlusion: hip midpoint proximity in image space drops
+    # the actor farther from the camera.
+    cam_pos = np.stack(
+        [-(RT[c, :, :3].T @ RT[c, :, 3]) for c in range(C)]
+    )  # camera centers
+    hips3d = gt3d[:, :, [11, 12]].mean(axis=2)  # (T, A, 3)
+    hips2d = gt2d[:, :, :, [11, 12]].mean(axis=3)  # (T, C, A, 2)
+    for t in range(num_frames):
+        for c in range(C):
+            depth = np.linalg.norm(hips3d[t] - cam_pos[c], axis=-1)  # (A,)
+            for a in range(num_actors):
+                for b in range(a + 1, num_actors):
+                    if np.linalg.norm(hips2d[t, c, a] - hips2d[t, c, b]) < occlusion_px:
+                        far = a if depth[a] > depth[b] else b
+                        visible[t, c, far] = False
+
+    # False positives: real poses displaced into empty space.
+    n_fp = int(fp_per_view)
+    if n_fp:
+        fp = np.zeros((num_frames, C, n_fp, 17, 3))
+        fp_vis = np.ones((num_frames, C, n_fp), bool)
+        for t in range(num_frames):
+            for c in range(C):
+                for i in range(n_fp):
+                    src = rng.integers(num_actors)
+                    offset = rng.uniform(120, 400, size=2) * rng.choice([-1, 1], 2)
+                    fp[t, c, i, :, :2] = gt2d[t, c, src] + offset
+                    fp[t, c, i, :, 2] = fp_score
+        detections = np.concatenate([actor_dets, fp], axis=2)
+        visible = np.concatenate([visible, fp_vis], axis=2)
+    else:
+        detections = actor_dets
+
+    if shuffle:
+        for t in range(num_frames):
+            for c in range(C):
+                perm = rng.permutation(detections.shape[2])
+                detections[t, c] = detections[t, c, perm]
+                visible[t, c] = visible[t, c, perm]
+
+    return SyntheticScene(
+        P=P, K=K, RT=RT, gt3d=gt3d, gt2d=gt2d,
+        detections=detections.astype(np.float32), visible=visible,
+    )
+
+
+def make_continuous_adversarial_scene(
+    num_frames=1000,
+    num_cameras=5,
+    num_actors=3,
+    noise_px=1.5,
+    seed=0,
+    occlusion_px=60.0,
+    fp_per_view=0,
+    fp_score=0.75,
+    drop_prob=0.0,
+    shuffle=True,
+) -> SyntheticScene:
+    """Arbitrarily long CONTINUOUS adversarial stream (no teleports).
+
+    `make_adversarial_scene` walks straight lines across the scene once —
+    looping it repeats the clip verbatim, so every wrap teleports the
+    actors and forces delete/re-init churn that a steady-state deployment
+    never sees. Here actors follow incommensurate
+    Lissajous orbits inside the rig: smooth bounded motion at walking
+    speed that repeatedly funnels everyone through the scene center
+    (recurring image-space crossings in every view), forever. The same
+    occlusion / false-positive / shuffle fabric as the adversarial scene
+    applies per frame.
+    """
+    rng = np.random.default_rng(seed)
+    P, K, RT = camera_ring(num_cameras=num_cameras)
+
+    # Per-actor Lissajous parameters: irrational-ish frequency ratios so
+    # the orbit never exactly repeats; ~0.05 rad/frame => ~0.1 m/frame at
+    # the 2 m amplitude, a walking pace at 25 Hz.
+    wx = 0.045 + 0.01 * rng.uniform(size=num_actors)
+    wy = wx * (np.sqrt(2.0) / 2.0 + 0.1 * rng.uniform(size=num_actors))
+    px = rng.uniform(0, 2 * np.pi, size=num_actors)
+    py = rng.uniform(0, 2 * np.pi, size=num_actors)
+    sway_phase = rng.uniform(0, 2 * np.pi, size=num_actors)
+
+    t_arr = np.arange(num_frames)
+    cx = 2.0 * np.cos(wx[None, :] * t_arr[:, None] + px[None, :])  # (T, A)
+    cy = 2.0 * np.sin(wy[None, :] * t_arr[:, None] + py[None, :])
+    # heading from the velocity of the orbit (continuous by construction)
+    vx = np.gradient(cx, axis=0)
+    vy = np.gradient(cy, axis=0)
+    heading = np.arctan2(vy, vx)
+
+    gt3d = np.zeros((num_frames, num_actors, 17, 3))
+    for t in range(num_frames):
+        for a in range(num_actors):
+            pose = COCO17_REST.copy()
+            s = np.sin(0.4 * t + sway_phase[a])
+            pose[[7, 9], 1] += 0.05 * s
+            pose[[8, 10], 1] -= 0.05 * s
+            h = heading[t, a]
+            rot = np.array(
+                [[np.cos(h), -np.sin(h), 0],
+                 [np.sin(h), np.cos(h), 0], [0, 0, 1]]
+            )
+            pose = pose @ rot.T
+            pose[:, 0] += cx[t, a]
+            pose[:, 1] += cy[t, a]
+            gt3d[t, a] = pose
+
+    return _adversarialize(
+        gt3d, P, K, RT, rng, noise_px=noise_px, drop_prob=drop_prob,
+        enforce_two_views=False, occlusion_px=occlusion_px,
+        fp_per_view=fp_per_view, fp_score=fp_score, shuffle=shuffle,
+    )

@@ -6,16 +6,30 @@ augmenting rows and a padding cost scaled to the matrix (a fixed huge pad
 mixes pad-scale and cost-scale values in the f32 potentials and erases small
 affinity differences).
 
-The JAX package's `while_loop`s become Python loops. Each loop test reads
-one device value on the host (`host_bool`), which on a CUDA tensor is a
-device -> host sync; `host_syncs` counts them.
+* `solve_lap` and `masked_lap_plain` are the plain torch versions. The JAX
+  package's `while_loop`s become Python loops, and each loop test reads one
+  device value on the host (`host_bool`), counted in `host_syncs`.
+* `masked_lap_cuda` solves a batch of masked problems in one launch of the
+  hand-written kernel K3 (`tpupose_torch/csrc/lap.cu`), counted in
+  `launches`, with no host read.
+* `masked_lap` is what the tracker calls: the op `tpupose_torch::masked_lap`
+  over (..., R, C) costs. A CPU tensor goes to the plain version, a CUDA
+  tensor to K3, which raises rather than fall back; its vmap rule folds
+  the vmapped dimensions into the batch, so `torch.func.vmap` of a caller
+  (the multi-stream tracker) is still one launch.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-#: Host reads of device values made by the LAP and the tracker's branches.
+#: Host reads of device values made by the plain LAP (reset freely).
 host_syncs = 0
+#: Launches of K3 (reset freely; read by chip_smoke.py).
+launches = 0
+#: The plain version's INF, also the kernel's.
+INF = 3e38
 
 
 def host_bool(x) -> bool:
@@ -40,7 +54,7 @@ def solve_lap(cost):
     dev = cost.device
     # 0-d device tensors come from fills: torch.tensor(x, device=...) would
     # copy from the host and wait for the stream.
-    inf = torch.full((), 3e38, dtype=torch.float32, device=dev)
+    inf = torch.full((), INF, dtype=torch.float32, device=dev)
     VIRT = C  # virtual start column
     u = torch.zeros(R + 1, dtype=torch.float32, device=dev)
     v = torch.zeros(C + 1, dtype=torch.float32, device=dev)
@@ -49,7 +63,7 @@ def solve_lap(cost):
     trash = torch.full((), R, dtype=torch.long, device=dev)
     for i in range(R):
         p[VIRT] = i
-        minv = torch.full((C + 1,), 3e38, dtype=torch.float32, device=dev)
+        minv = torch.full((C + 1,), INF, dtype=torch.float32, device=dev)
         used = torch.zeros(C + 1, dtype=torch.bool, device=dev)
         way = torch.full((C + 1,), VIRT, dtype=torch.long, device=dev)
         j0 = torch.full((), VIRT, dtype=torch.long, device=dev)
@@ -87,18 +101,12 @@ def solve_lap(cost):
     return row_of_col, col_of_row[:R]
 
 
-def masked_lap(cost, row_valid, col_valid, maximize=False):
-    """LAP over a masked block of a fixed (R, C) matrix.
-
-    Invalid rows, columns and entries get the pad cmax + n * span + 1, so
-    the optimum never trades a real pair for a pad. Assignments to invalid
-    columns or from invalid rows come back as -1.
-
-    Returns:
-      col_of_row: (R,) int64, -1 for unassigned or invalid rows.
-    """
+def _masked_lap_one(cost, row_valid, col_valid, maximize):
+    """`masked_lap_plain` for one (R, C) problem."""
     c = cost.to(torch.float32)
     R, C = c.shape
+    if R * C == 0:
+        return torch.full((R,), -1, dtype=torch.long, device=c.device)
     if maximize:
         c = -c
     ok = row_valid[:, None] & col_valid[None, :]
@@ -120,3 +128,150 @@ def masked_lap(cost, row_valid, col_valid, maximize=False):
         & col_valid[col_of_row.clamp(min=0)]
     )
     return torch.where(assigned_ok, col_of_row, -1)
+
+
+def masked_lap_plain(cost, row_valid, col_valid, maximize=False):
+    """LAP over masked blocks of fixed (R, C) matrices, one at a time.
+
+    Invalid rows, columns and entries get the pad cmax + n * span + 1, so
+    the optimum never trades a real pair for a pad. Assignments to invalid
+    columns or from invalid rows come back as -1.
+
+    Args:
+      cost: (..., R, C) costs (scores if `maximize`), finite where valid.
+      row_valid: (..., R) bool; col_valid: (..., C) bool, the same leading
+        shape.
+
+    Returns:
+      col_of_row: (..., R) int64, -1 for unassigned or invalid rows.
+    """
+    R, C = cost.shape[-2:]
+    lead = cost.shape[:-2]
+    batch = lead.numel()
+    cost = cost.reshape(batch, R, C)
+    row_valid = row_valid.reshape(batch, R)
+    col_valid = col_valid.reshape(batch, C)
+    out = [_masked_lap_one(cost[b], row_valid[b], col_valid[b], maximize)
+           for b in range(batch)]
+    if not out:
+        return torch.full(lead + (R,), -1, dtype=torch.long, device=cost.device)
+    return torch.stack(out).reshape(lead + (R,))
+
+
+def _kernel():
+    from tpupose_torch import kernels
+
+    lib = kernels.library("lap")
+    fn = lib.tpupose_masked_lap
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.tpupose_masked_lap_warps.argtypes = [ctypes.c_int] * 2
+        lib.tpupose_masked_lap_warps.restype = ctypes.c_int
+        lib.tpupose_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.tpupose_empty_launch.restype = ctypes.c_int
+    return lib
+
+
+def empty_launch():
+    """One launch of an empty kernel on the current stream (the launch
+    cost K3's small batches sit on; measured by chip_smoke.py)."""
+    rc = _kernel().tpupose_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+
+
+def masked_lap_cuda(cost, row_valid, col_valid, maximize=False):
+    """`masked_lap_plain` over every problem of the batch in one launch of
+    K3. Takes (..., R, C) float32 costs and (..., R) / (..., C) bool masks
+    with one leading shape on one CUDA device; raises on anything else, on
+    a shape the kernel does not take (more than 256 columns after
+    orientation, or a problem above its shared memory) and on a failed
+    launch. Launches on the current stream and does not synchronize."""
+    global launches
+    if not (cost.device.type == "cuda" and row_valid.device == cost.device
+            and col_valid.device == cost.device):
+        raise ValueError(f"masked_lap_cuda needs CUDA tensors on one device, got "
+                         f"{cost.device}, {row_valid.device} and {col_valid.device}")
+    if cost.dtype != torch.float32 or row_valid.dtype != torch.bool \
+            or col_valid.dtype != torch.bool:
+        raise TypeError(f"masked_lap_cuda needs float32 costs and bool masks, got "
+                        f"{cost.dtype}, {row_valid.dtype} and {col_valid.dtype}")
+    if cost.dim() < 2:
+        raise ValueError(f"masked_lap_cuda needs (..., R, C) costs, got "
+                         f"{tuple(cost.shape)}")
+    R, C = cost.shape[-2:]
+    lead = cost.shape[:-2]
+    if row_valid.shape != lead + (R,) or col_valid.shape != lead + (C,):
+        raise ValueError(f"masked_lap_cuda: masks {tuple(row_valid.shape)} and "
+                         f"{tuple(col_valid.shape)} do not fit costs {tuple(cost.shape)}")
+    out = torch.empty(lead + (R,), dtype=torch.long, device=cost.device)
+    batch = lead.numel()
+    if batch == 0 or R == 0:
+        return out
+    lib = _kernel()
+    if lib.tpupose_masked_lap_warps(R, C) == 0:
+        raise ValueError(f"masked_lap_cuda: K3 takes at most 256 columns after "
+                         f"orientation and 48 KB of shared memory a problem, "
+                         f"got ({R}, {C})")
+    cost, row_valid, col_valid = (cost.contiguous(), row_valid.contiguous(),
+                                  col_valid.contiguous())
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpupose_masked_lap(cost.data_ptr(), row_valid.data_ptr(),
+                                    col_valid.data_ptr(), out.data_ptr(),
+                                    batch, R, C, int(bool(maximize)), stream)
+    if rc != 0:
+        raise RuntimeError(f"masked_lap kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+@torch.library.custom_op("tpupose_torch::masked_lap", mutates_args=(),
+                         device_types="cpu")
+def _masked_lap_op(cost: torch.Tensor, row_valid: torch.Tensor,
+                   col_valid: torch.Tensor, maximize: bool) -> torch.Tensor:
+    return masked_lap_plain(cost, row_valid, col_valid, maximize)
+
+
+@_masked_lap_op.register_kernel("cuda")
+def _masked_lap_op_cuda(cost, row_valid, col_valid, maximize):
+    return masked_lap_cuda(cost, row_valid, col_valid, maximize)
+
+
+@_masked_lap_op.register_fake
+def _masked_lap_op_fake(cost, row_valid, col_valid, maximize):
+    return cost.new_empty(cost.shape[:-1], dtype=torch.long)
+
+
+@_masked_lap_op.register_vmap
+def _masked_lap_op_vmap(info, in_dims, cost, row_valid, col_valid, maximize):
+    """The vmapped dimension becomes the leading batch dimension."""
+    def lead(x, dim):
+        if dim is None:
+            return x.expand((info.batch_size,) + x.shape)
+        return x.movedim(dim, 0)
+
+    cost_d, row_d, col_d, _ = in_dims
+    return _masked_lap_op(lead(cost, cost_d), lead(row_valid, row_d),
+                          lead(col_valid, col_d), maximize), 0
+
+
+def masked_lap(cost, row_valid, col_valid, maximize=False):
+    """LAP over masked blocks of fixed (R, C) matrices (`masked_lap_plain`
+    on a CPU tensor, K3 on a CUDA tensor).
+
+    Args:
+      cost: (..., R, C) costs (scores if `maximize`), finite where valid.
+      row_valid: (..., R) bool; col_valid: (..., C) bool; both broadcast to
+        the costs' leading shape.
+
+    Returns:
+      col_of_row: (..., R) int64, -1 for unassigned or invalid rows.
+    """
+    cost = cost.to(torch.float32)
+    R, C = cost.shape[-2:]
+    lead = cost.shape[:-2]
+    row_valid = row_valid.to(torch.bool).expand(lead + (R,))
+    col_valid = col_valid.to(torch.bool).expand(lead + (C,))
+    return _masked_lap_op(cost, row_valid, col_valid, bool(maximize))

@@ -18,6 +18,24 @@ def gaussian_kernel1d(sigma: float):
     return (k / k.sum()).astype(np.float32), radius
 
 
+#: (sigma, device) -> the kernel's weights on that device, copied once.
+_WEIGHTS: dict = {}
+
+
+def _weights(sigma: float, device):
+    """`gaussian_kernel1d(sigma)` as a tensor on `device`. The copy to a
+    card is made once, asynchronously from pinned memory, so a tracker step
+    never waits on it."""
+    w = _WEIGHTS.get((sigma, device))
+    if w is None:
+        with torch.inference_mode(False):
+            w = torch.from_numpy(gaussian_kernel1d(sigma)[0])
+            if device.type == "cuda":
+                w = w.pin_memory().to(device, non_blocking=True)
+        _WEIGHTS[(sigma, device)] = w
+    return w
+
+
 def _reflect_index(idx, n):
     """scipy 'reflect' (a b c d | d c b a) index folding, n >= 1."""
     period = 2 * n
@@ -37,14 +55,13 @@ def smooth_last(history, count, sigma: float):
     batched = count.dim() == 1
     if not batched:
         history, count = history[None], count.reshape(1)
-    kernel, radius = gaussian_kernel1d(sigma)
+    radius = gaussian_kernel1d(sigma)[1]
     taps = torch.arange(-radius, radius + 1, device=history.device)
     idx = _reflect_index(count[:, None] - 1 + taps[None, :], count[:, None])
     rest = history.shape[2:]
     idx = idx.reshape(idx.shape + (1,) * len(rest)).expand(idx.shape + rest)
     vals = torch.gather(history, 1, idx)  # (B, 2r+1, ...)
-    w = torch.as_tensor(kernel, device=history.device).reshape(
-        (1, -1) + (1,) * len(rest))
+    w = _weights(sigma, history.device).reshape((1, -1) + (1,) * len(rest))
     out = torch.sum(vals * w, dim=1)
     return out if batched else out[0]
 

@@ -6,10 +6,16 @@ max_dets, max_hyp) and validity masks. Where the JAX package vmaps over
 cameras, tracks or hypotheses, this module writes the batch dimension out;
 `lax.scan` over frames becomes a Python loop (`track_clip`).
 
-The JAX package's two `lax.cond`s (skip a camera with no qualified
-unmatched detections; skip hypothesis building when there are none) are
-Python `if`s here: each reads one device value on the host, a sync on
-CUDA, counted with the LAP's in `tpupose_torch.ops.lap.host_syncs`.
+`tracker_step` reads nothing on the host, so on CUDA a frame is queued
+without waiting for the card, and `torch.func.vmap` batches it over
+streams (`tpupose_torch.parallel.streams`). The LAPs go through
+`ops.lap.masked_lap` (kernel K3 on CUDA): one call over all cameras in the
+association, one per camera in the hypothesis init. The JAX package's two
+`lax.cond`s become what they are under vmap: a camera with no qualified
+unmatched detections runs its masked LAP and changes nothing, and the
+hypothesis build is selected with `torch.where` when there are
+hypotheses. Tensors made inside the step are written out of place, so
+that a vmapped step never writes batched values into an unbatched tensor.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from tpupose_torch.geometry import (
     project_points,
     triangulate_joints,
 )
-from tpupose_torch.ops.lap import host_bool, masked_lap
+from tpupose_torch.ops.lap import masked_lap
 from tpupose_torch.ops.smoothing import smooth_last_pose
 
 NEVER = -(10**8)  # "no 2D pose stored" timestamp sentinel
@@ -150,9 +156,9 @@ def _set_rows(x, slot, values):
     n = x.shape[0]
     slot = torch.where((slot >= 0) & (slot < n), slot, n).long()
     ext = torch.cat([x, x[:1]])
-    if torch.is_tensor(values):
-        values = values.to(x.dtype).expand((slot.shape[0],) + x.shape[1:])
-    ext[slot] = values
+    if not torch.is_tensor(values):  # a fill: a host scalar would be copied
+        values = torch.full((), values, dtype=x.dtype, device=x.device)
+    ext[slot] = values.to(x.dtype).expand((slot.shape[0],) + x.shape[1:])
     return ext[:n]
 
 
@@ -168,6 +174,12 @@ def _set_at(x, pos, column, values):
 def _one_hot_mask(index, size):
     """(B, size) bool rows with index[b] set (dropped if out of range)."""
     return torch.arange(size, device=index.device)[None, :] == index[:, None]
+
+
+def _hit_mask(index, size):
+    """(..., size) bool: entry k set where some index[..., b] == k (indices
+    out of range are dropped); the out-of-place `.at[index].set(True)`."""
+    return (index[..., :, None] == torch.arange(size, device=index.device)).any(dim=-2)
 
 
 # --------------------------------------------------------------------------
@@ -201,16 +213,12 @@ def _associate(cfg: TrackerConfig, cams: CameraSet, state: TrackerState,
         aff_sel = torch.where(aff > 0, aff + bias, aff)
     else:
         aff_sel = aff
-    col = torch.stack([
-        masked_lap(aff_sel[c], state.active, det_mask[c], maximize=True)
-        for c in range(cfg.num_cameras)
-    ])  # (C, T)
+    # one LAP per camera, all in one call
+    col = masked_lap(aff_sel, state.active, det_mask, maximize=True)  # (C, T)
     got = torch.gather(aff, 2, col.clamp(0, D - 1)[:, :, None])[:, :, 0]
     matched = (col >= 0) & (got > 0.0)
-    claimed = torch.zeros(cfg.num_cameras, D + 1, dtype=torch.bool,
-                          device=dets.device)
-    claimed.scatter_(1, torch.where(matched, col, D), True)
-    return matched, torch.where(matched, col, -1), det_mask & ~claimed[:, :D]
+    claimed = _hit_mask(torch.where(matched, col, -1), D)  # (C, D)
+    return matched, torch.where(matched, col, -1), det_mask & ~claimed
 
 
 def _apply_matches(state: TrackerState, dets, matched, match_col, frame_id):
@@ -406,13 +414,13 @@ def _init_targets(cfg: TrackerConfig, cams: CameraSet, state: TrackerState,
     hyp_member = torch.zeros((MH, C), dtype=torch.bool, device=dev)
     hyp_count = torch.zeros((), dtype=torch.int64, device=dev)
     hrange = torch.arange(MH, device=dev)
+    crange = torch.arange(C, device=dev)
 
     for c in range(C):
-        dets_c, mask_c, bel_c = dets[c], umask[c], bel[c]
         # A camera with no qualified unmatched detections can neither merge
-        # nor spawn (the JAX package's lax.cond fast path).
-        if not host_bool(mask_c.any()):
-            continue
+        # nor spawn: its LAP assigns nothing and every write below is void
+        # (the JAX package skips it with a lax.cond).
+        dets_c, mask_c, bel_c = dets[c], umask[c], bel[c]
         hyp_valid = hrange < hyp_count
         cost, veto = _hypothesis_costs(cfg, cams, hyp_pose, hyp_member, c,
                                        dets_c, bel_c)
@@ -430,16 +438,13 @@ def _init_targets(cfg: TrackerConfig, cams: CameraSet, state: TrackerState,
         got_veto = veto[hrange, safe]
         merged = (col >= 0) & ~got_veto
         mdet = dets_c[safe]  # (MH, J, 3)
-        hyp_pose = hyp_pose.clone()
-        hyp_member = hyp_member.clone()
-        hyp_pose[:, c] = torch.where(merged[:, None, None], mdet, hyp_pose[:, c])
-        hyp_member[:, c] = merged | hyp_member[:, c]
+        into = merged[:, None] & (crange == c)[None, :]  # (MH, C)
+        hyp_pose = torch.where(into[:, :, None, None], mdet[:, None], hyp_pose)
+        hyp_member = hyp_member | into
         # Spawn order: veto'd assignments in hypothesis order, then the
         # unassigned detections in index order.
         veto_spawn = (col >= 0) & got_veto
-        assigned = torch.zeros(D + 1, dtype=torch.bool, device=dev)
-        assigned[torch.where(col >= 0, col, D)] = True
-        unassigned = mask_c & ~assigned[:D]
+        unassigned = mask_c & ~_hit_mask(col, D)
         n1 = torch.cumsum(veto_spawn.to(torch.int64), 0)
         pos1 = torch.where(veto_spawn, hyp_count + n1 - 1, MH)
         n1_total = n1[-1]
@@ -451,12 +456,13 @@ def _init_targets(cfg: TrackerConfig, cams: CameraSet, state: TrackerState,
         hyp_member = _set_at(hyp_member, pos2, c, torch.ones_like(unassigned))
         hyp_count = torch.clamp(hyp_count + n1_total + n2[-1], max=MH)
 
-    # Hypothesis building and slot allocation are skipped when there are no
-    # hypotheses (steady state with every detection matched).
-    if not host_bool(hyp_count > 0):
-        return state
-    return _materialize_hypotheses(cfg, cams, state, hyp_pose, hyp_member,
-                                   hyp_count, frame_id)
+    # Hypothesis building and slot allocation take effect only when there
+    # are hypotheses (the JAX package's lax.cond, a select under vmap).
+    built = _materialize_hypotheses(cfg, cams, state, hyp_pose, hyp_member,
+                                    hyp_count, frame_id)
+    some = hyp_count > 0
+    return TrackerState(*(torch.where(some, new, old)
+                          for new, old in zip(built, state)))
 
 
 def _materialize_hypotheses(cfg, cams, state, hyp_pose, hyp_member, hyp_count,
@@ -599,9 +605,8 @@ def _match_graveyard(cfg, state, pose3d, alloc, frame_id):
                        dist, torch.inf)
     hit, g = _greedy_claim(dist)
     res_id = torch.where(hit, state.grave_id[g], -1).to(torch.int32)
-    consumed = torch.zeros(G + 1, dtype=torch.bool, device=dist.device)
-    consumed[torch.where(hit, g, G)] = True
-    return res_id, torch.where(consumed[:G], -1, state.grave_id)
+    consumed = _hit_mask(torch.where(hit, g, -1), G)
+    return res_id, torch.where(consumed, -1, state.grave_id)
 
 
 # --------------------------------------------------------------------------
