@@ -126,7 +126,8 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      (max_tracks, max_dets), maximizing; init: S of (max_hyp, max_dets),
      solved transposed) for S in 1, 2, 8, 32, on uniform and on integer
      costs in [0, 3] (ties), with random masks, an empty problem and one
-     with no valid column; K3's time per launch at each shape (median of
+     with no valid column, and 8 problems of (6, 100) and of (256, 9) (the
+     kernel's wider variants); K3's time per launch at each shape (median of
      20 CUDA-event timings), the plain version's on the card (S <= 2), an
      empty kernel's and the bound; (c) S = 1, 8, 32 streams of different
      continuous adversarial scenes (seeds 1..S, 64 frames) through
@@ -2076,6 +2077,9 @@ def k3_against_plain(torch, gen):
     for s in LAP_STREAMS:
         for d, t, h in MS_CAPS.values():
             shapes += [("association", 5 * s, (t, d), True), ("init", s, (h, d), False)]
+    # beyond the tracker: wider problems, the kernel's 4- and 8-column-a-lane
+    # variants, one of them solved transposed
+    shapes += [("wide", 8, (6, 100), False), ("wide", 8, (256, 9), True)]
     rows, checked = [], 0
     for site, batch, shape, maximize in shapes:
         for ties in (True, False):  # timed on the tie-free costs, below
