@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --learned-seeds 0 1 2   # phase 13 (e) per seed, no gates
+    python3 chip_smoke.py --only k2 k3            # phases 4 and 15 (a) alone
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
 memory holds none of phase 5's models); the first that fails ends the run
@@ -2045,15 +2046,20 @@ def no_syncs(torch):
         torch.cuda.set_sync_debug_mode(0)
 
 
-def lap_problems(torch, gen, batch, shape, ties):
-    """(B, R, C) costs on the card, uniform (tie-free) or integers in [0, 3]
-    (many ties), and random masks; problem 0 has no valid row, problem 1 no
-    valid column, problem 2 is full."""
+def lap_problems(torch, gen, batch, shape, kind):
+    """(B, R, C) costs on the card: "uniform" (tie-free), "ties" (integers
+    in [0, 3]) or "zeros" (uniform with about half the entries 0, the
+    tracker's unmatched affinities, which maximizing turns into -0.0); and
+    random masks. Problem 0 has no valid row, problem 1 no valid column,
+    problem 2 is full."""
     r, c = shape
-    if ties:
+    if kind == "ties":
         cost = torch.randint(0, 4, (batch, r, c), generator=gen, device="cuda").float()
     else:
         cost = torch.rand((batch, r, c), generator=gen, device="cuda")
+    if kind == "zeros":
+        cost = torch.where(torch.rand((batch, r, c), generator=gen, device="cuda") < 0.5,
+                           0.0, cost)
     rv = (torch.rand((batch, r), generator=gen, device="cuda")
           >= 0.6 * torch.rand((batch, 1), generator=gen, device="cuda"))
     cv = (torch.rand((batch, c), generator=gen, device="cuda")
@@ -2066,13 +2072,101 @@ def lap_problems(torch, gen, batch, shape, ties):
     return cost, rv, cv
 
 
+#: A sleep of t * SLEEP_HZ cycles lasts at least t seconds: above any H100
+#: SM clock.
+SLEEP_HZ = 2.0e9
+DEVICE_CALLS, DEVICE_RUNS = 20, 5   # (a)'s device_us: calls per run, runs
+HOST_CALLS = 1000                   # (a)'s host_us, in batches of HOST_BATCH
+HOST_BATCH = 250
+CHAIN_STEPS = (1024, 33792)         # the step-chain microkernel's two lengths
+
+
+def host_us_per_call(torch, fn):
+    """The host's submission of one call, in µs: HOST_CALLS calls timed on
+    the host clock in batches, each while the card sleeps (so that no call
+    waits on the card, nor the launch queue on it); fails if a sleep ended
+    before its batch was submitted."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.05 * SLEEP_HZ))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn()
+    estimate = (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(HOST_CALLS // HOST_BATCH):
+        torch.cuda._sleep(int((2 * HOST_BATCH * estimate + 0.01) * SLEEP_HZ))
+        busy = torch.cuda.Event()
+        busy.record()
+        t0 = time.perf_counter()
+        for _ in range(HOST_BATCH):
+            fn()
+        total += time.perf_counter() - t0
+        covered = not busy.query()
+        torch.cuda.synchronize()
+        if not covered:
+            fail("host_us: the card's sleep ended before the host had submitted its calls")
+    return total / HOST_CALLS * 1e6
+
+
+def device_us_per_call(torch, fn, host_us):
+    """The card's time for one call alone, in µs: the stream is filled with
+    a sleep longer than the host's submission of DEVICE_CALLS calls, then
+    events around DEVICE_CALLS back-to-back calls; the interval over the
+    calls, median of DEVICE_RUNS runs."""
+    fn()
+    times = []
+    sleep_s = 2 * DEVICE_CALLS * host_us * 1e-6 + 1e-3
+    while len(times) < DEVICE_RUNS:
+        torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(DEVICE_CALLS):
+            fn()
+        end.record()
+        covered = not start.query()
+        end.synchronize()
+        if not covered:  # the host was slower than the sleep: sleep longer
+            sleep_s *= 2
+            if sleep_s > 1.0:
+                fail("device_us: the host could not submit its calls within a 1 s sleep")
+            continue
+        times.append(start.elapsed_time(end) / DEVICE_CALLS * 1e3)
+    return statistics.median(times)
+
+
+def step_time_us(torch, lap):
+    """The card's time for one minimal dependent Dijkstra step (shared load,
+    __reduce_min_sync, select) on one warp, in µs: the step-chain
+    microkernel's device time at two lengths, differenced."""
+    out = torch.empty(32, dtype=torch.int32, device="cuda")
+    dev = {}
+    for n in CHAIN_STEPS:
+        call = lambda n=n: lap.step_chain(n, out)  # noqa: E731
+        dev[n] = device_us_per_call(torch, call, host_us_per_call(torch, call))
+    lo, hi = CHAIN_STEPS
+    return (dev[hi] - dev[lo]) / (hi - lo), dev
+
+
+def lap_timings(torch, fn):
+    """us (one call, CUDA events on an idle card, as PR 8 timed K3),
+    host_us and device_us of fn."""
+    host_us = host_us_per_call(torch, fn)
+    return {"us": cuda_time_ms(fn) * 1e3, "host_us": host_us,
+            "device_us": device_us_per_call(torch, fn, host_us)}
+
+
 def k3_against_plain(torch, gen):
     """(a): K3 torch.equal to the plain version on a CPU copy of the same
-    inputs at the tracker's shapes, ties and empty problems included;
-    times of K3, of the plain version (on the card, S <= 2) and of an
-    empty kernel, and K3's bound."""
+    inputs at the tracker's shapes, ties, zero scores and empty problems
+    included; K3's times (us, host_us, device_us), the plain version's (on
+    the card, S <= 2), an empty kernel's, and K3's latency bound: the
+    longest problem's Dijkstra steps (counted by the plain version) times
+    the card's time for one minimal dependent step."""
     from tpupose_torch.ops import lap
 
+    step_us, chain_us = step_time_us(torch, lap)
     shapes = []
     for s in LAP_STREAMS:
         for d, t, h in MS_CAPS.values():
@@ -2082,27 +2176,36 @@ def k3_against_plain(torch, gen):
     shapes += [("wide", 8, (6, 100), False), ("wide", 8, (256, 9), True)]
     rows, checked = [], 0
     for site, batch, shape, maximize in shapes:
-        for ties in (True, False):  # timed on the tie-free costs, below
-            cost, rv, cv = lap_problems(torch, gen, batch, shape, ties)
-            got = lap.masked_lap_cuda(cost, rv, cv, maximize)
-            ref = lap.masked_lap_plain(cost.cpu(), rv.cpu(), cv.cpu(), maximize)
-            if not torch.equal(got.cpu(), ref):
-                fail(f"K3 {site} {batch} x {shape} (ties {ties}): "
-                     f"{int((got.cpu() != ref).sum())} rows differ from the plain version")
+        # zero scores where maximizing; timed on the uniform costs, below
+        for kind in ("ties", "zeros", "uniform") if maximize else ("ties", "uniform"):
+            cost, rv, cv = lap_problems(torch, gen, batch, shape, kind)
+            got = lap.masked_lap_cuda(cost, rv, cv, maximize).cpu()
+            cost_c, rv_c, cv_c = cost.cpu(), rv.cpu(), cv.cpu()
+            steps = []
+            for b in range(batch):
+                before = lap.dijkstra_steps
+                ref = lap.masked_lap_plain(cost_c[b], rv_c[b], cv_c[b], maximize)
+                steps.append(lap.dijkstra_steps - before)
+                if not torch.equal(got[b], ref):
+                    fail(f"K3 {site} {batch} x {shape} ({kind}) problem {b}: "
+                         f"{int((got[b] != ref).sum())} rows differ from the plain version")
             checked += batch
-        us = cuda_time_ms(lambda: lap.masked_lap_cuda(cost, rv, cv, maximize)) * 1e3
+        call = lambda: lap.masked_lap_cuda(cost, rv, cv, maximize)  # noqa: E731
+        times = lap_timings(torch, call)
         # the plain version on the card reads the device per JV step: slow
         plain_ms = (cuda_time_ms(lambda: lap.masked_lap_plain(cost, rv, cv, maximize),
                                  warmup=1, reps=3) if batch <= 10 else None)
-        rs, cs = min(shape), max(shape)
+        cs = max(shape)
         moved = batch * (shape[0] * shape[1] * 4 + shape[0] + shape[1]) + batch * shape[0] * 8
-        # at least one Dijkstra step a row, 7 f32 operations a column each
+        # each Dijkstra step: 7 f32 operations a column
         rows.append({"site": site, "batch": batch, "shape": list(shape), "maximize": maximize,
-                     "us": us, "plain_ms": plain_ms,
-                     **bound(moved, batch * rs * cs * 7, H100_F32_OPS_PER_S)})
-    empty_us = cuda_time_ms(lap.empty_launch) * 1e3
-    return {"problems_checked": checked, "shapes": rows, "empty_kernel_us": empty_us,
-            "max_abs_err": 0.0,
+                     **times, "plain_ms": plain_ms, "steps_max": max(steps),
+                     "steps_total": sum(steps), "us_per_step": times["device_us"] / max(steps),
+                     "latency_bound_us": max(steps) * step_us, "latency_bound_by": "latency",
+                     **bound(moved, 7 * cs * sum(steps), H100_F32_OPS_PER_S)})
+    return {"problems_checked": checked, "shapes": rows, "step_us": step_us,
+            "step_chain_device_us": chain_us,
+            "empty_kernel": lap_timings(torch, lap.empty_launch), "max_abs_err": 0.0,
             "note": "K3 is bound by latency (dependent Dijkstra steps), not by bytes"}
 
 
@@ -2346,11 +2449,14 @@ def phase_multistream(torch, card, gen, float_models):
 
 def main():
     args = sys.argv[1:]
-    seeds = None
+    seeds = only = None
     if args:
-        if args[0] != "--learned-seeds" or len(args) < 2 or not all(a.isdigit() for a in args[1:]):
-            fail("usage: chip_smoke.py [--learned-seeds SEED ...]", 2)
-        seeds = [int(a) for a in args[1:]]
+        if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
+            seeds = [int(a) for a in args[1:]]
+        elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {"k2", "k3"}:
+            only = set(args[1:])
+        else:
+            fail("usage: chip_smoke.py [--learned-seeds SEED ... | --only k2|k3 ...]", 2)
     try:
         import torch
     except ImportError:
@@ -2384,6 +2490,12 @@ def main():
         return
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if only is not None:
+        if "k2" in only:
+            emit("k2_vs_plain", **phase_k2(torch, gen, card))
+        if "k3" in only:
+            emit("multistream_k3", card=card, **k3_against_plain(torch, gen))
+        return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
 
@@ -2474,8 +2586,12 @@ def main():
         "launches": ms_launches["int8"]["k3"],
         "max_abs_err": multistream["k3"]["max_abs_err"], "ms": k3["us"] / 1e3,
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"], "library_ms": None,
-        "shape": [k3["batch"]] + k3["shape"], "empty_kernel_ms": multistream["k3"]["empty_kernel_us"] / 1e3,
+        "bound_by": k3["bound_by"], "library_ms": None, "us": k3["us"],
+        "device_us": k3["device_us"], "host_us": k3["host_us"],
+        "latency_bound_ms": k3["latency_bound_us"] / 1e3, "latency_bound_by": "latency",
+        "steps_max": k3["steps_max"], "step_us": multistream["k3"]["step_us"],
+        "shape": [k3["batch"]] + k3["shape"],
+        "empty_kernel_ms": multistream["k3"]["empty_kernel"]["us"] / 1e3,
         "clip_launches": int8["k3_launches"], "cli_launches": {
             m: cli_path[m]["k3_launches"] for m in ("bf16", "int8")},
         "multistream_launches": {m: c["k3"] for m, c in ms_launches.items()},

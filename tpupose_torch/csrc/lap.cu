@@ -209,7 +209,31 @@ __global__ void masked_lap_kernel(const float* __restrict__ cost,
 
 __global__ void empty_kernel() {}
 
+// One warp runs n dependent minimal Dijkstra steps: a shared load whose
+// address is the previous step's result, a __reduce_min_sync over the warp,
+// and a select. Its time per step is the card's floor under one K3 step.
+__global__ void step_chain_kernel(int n, unsigned* out) {
+  __shared__ unsigned s[32];
+  const unsigned lane = threadIdx.x;
+  s[lane] = (lane * 13u + 7u) & 31u;
+  __syncwarp();
+  unsigned j = lane;
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+    const unsigned x = s[j] ^ lane;
+    const unsigned m = __reduce_min_sync(kFull, x);
+    j = x == m ? lane : m & 31u;
+  }
+  out[lane] = j;
+}
+
 }  // namespace
+
+// One launch of step_chain_kernel with n steps; out: 32 unsigned on the card.
+extern "C" int tpupose_step_chain(int n, unsigned* out, void* stream) {
+  step_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(n, out);
+  return (int)cudaGetLastError();
+}
 
 // One launch of an empty kernel: the card's launch cost, the floor under
 // K3's time at small batches.

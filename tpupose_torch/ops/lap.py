@@ -26,6 +26,9 @@ import torch
 
 #: Host reads of device values made by the plain LAP (reset freely).
 host_syncs = 0
+#: Dijkstra steps taken by the plain LAP (reset freely): one per pass of
+#: `solve_lap`'s inner loop, the chain of dependent steps K3 runs too.
+dijkstra_steps = 0
 #: Launches of K3 (reset freely; read by chip_smoke.py).
 launches = 0
 #: The plain version's INF, also the kernel's.
@@ -48,6 +51,7 @@ def solve_lap(cost):
     Returns:
       row_of_col (C,) int64 (-1 if none) and col_of_row (R,) int64.
     """
+    global dijkstra_steps
     cost = cost.to(torch.float32)
     R, C = cost.shape
     assert R <= C, f"solve_lap needs R <= C, got {tuple(cost.shape)}"
@@ -69,6 +73,7 @@ def solve_lap(cost):
         j0 = torch.full((), VIRT, dtype=torch.long, device=dev)
         # p[VIRT] = i >= 0, so the first loop test always passes.
         while True:
+            dijkstra_steps += 1
             used[j0] = True
             i0 = p[j0]
             cur = cost[i0, :] - u[i0] - v[:C]
@@ -170,6 +175,8 @@ def _kernel():
         lib.tpupose_masked_lap_warps.restype = ctypes.c_int
         lib.tpupose_empty_launch.argtypes = [ctypes.c_void_p]
         lib.tpupose_empty_launch.restype = ctypes.c_int
+        lib.tpupose_step_chain.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.tpupose_step_chain.restype = ctypes.c_int
     return lib
 
 
@@ -179,6 +186,18 @@ def empty_launch():
     rc = _kernel().tpupose_empty_launch(torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+
+
+def step_chain(n, out):
+    """One launch of a warp that runs `n` dependent minimal Dijkstra steps
+    (shared load, `__reduce_min_sync`, select) into `out`, 32 int32 on the
+    card: the card's floor under one K3 step (measured by chip_smoke.py)."""
+    if out.device.type != "cuda" or out.dtype != torch.int32 or out.numel() < 32:
+        raise ValueError("step_chain needs 32 int32 on a CUDA device")
+    rc = _kernel().tpupose_step_chain(int(n), out.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"step chain kernel launch failed: CUDA error {rc}")
 
 
 def masked_lap_cuda(cost, row_valid, col_valid, maximize=False):
