@@ -25,14 +25,16 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      against its plain version, `torch.equal`, at every distinct quantized
      conv shape at that batch, float input with a planted NaN and int8
      input, dequantize and requant-relu epilogue, plus one dilated shape:
-     K2 (K2a + the implicit GEMM K2b, or the gather kernel for the stems'
+     K2 (K2a + the implicit GEMM K2b, or the stem kernel for the stems'
      Cin of 3) runs on the whole batch, and its first and last 8 crops / 4
      images are held against the plain version on those images (the last
-     ones sit at the largest offsets); then the times of K2, K2a and K2b
-     alone, the plain version and the bf16 cuDNN conv, all on the whole
-     batch, for HRNet branch 0's 3x3 48->48 at 96x72 (x640) and YOLO's 3x3
-     128->256 at 52x52 (x160), and of the gather kernel and cuDNN at
-     HRNet's stem 3x3 s2 3->64 at 384x288 (x640), each with its bound;
+     ones sit at the largest offsets), the stems' whole outputs, 64 images
+     a part; then the times of K2, K2a and K2b alone, the plain version and
+     the bf16 cuDNN conv, all on the whole batch, for HRNet branch 0's 3x3
+     48->48 at 96x72 (x640) and YOLO's 3x3 128->256 at 52x52 (x160), and of
+     the stem kernel, the gather kernel (the stems' route before), the
+     plain version and cuDNN at HRNet's stem 3x3 s2 3->64 at 384x288 (x640)
+     and YOLO's 3x3 3->32 at 416x416 (x160), each with its bound;
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
@@ -42,8 +44,9 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
   6. the int8 main path: `Pipeline.quantize_models` on 8 frames of one view
      (on_drift="warn": random weights drift by design, so the self-check
      report is printed and not gated on), then `process_clip` twice on the
-     same clip; K1, K2 and K2a launch counts (364 K2 and 362 K2a per clip
-     expected), stage A, peak memory, and the int8-vs-bf16 keypoint shift
+     same clip; K1, K2, K2a and stem-kernel launch counts (364 K2, 362 K2a
+     and 2 stem per clip expected), stage A, peak memory, and the
+     int8-vs-bf16 keypoint shift
      (for information);
   7. int8-resident blocks: one HRNet-W48 forward with `int8_resident=True`
      on 8 crops in f32, each block held against the generic int8 block on
@@ -126,11 +129,18 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      inputs at the tracker's shapes (association: 5 x S problems of
      (max_tracks, max_dets), maximizing; init: S of (max_hyp, max_dets),
      solved transposed) for S in 1, 2, 8, 32, on uniform and on integer
-     costs in [0, 3] (ties), with random masks, an empty problem and one
-     with no valid column, and 8 problems of (6, 100) and of (256, 9) (the
-     kernel's wider variants); K3's time per launch at each shape (median of
-     20 CUDA-event timings), the plain version's on the card (S <= 2), an
-     empty kernel's and the bound; (c) S = 1, 8, 32 streams of different
+     costs in [0, 3] (ties), and, where maximizing, on uniform scores with
+     about half of them 0 (negated into -0.0), with random masks, an empty
+     problem and one with no valid column, and 8 problems of (6, 100) and of
+     (256, 9) (the kernel's wider variants); at each shape K3's `us` (median
+     of 20 CUDA-event timings of one call on an idle card, the host's
+     submission included), `host_us` (1,000 calls on the host clock while
+     the card sleeps) and `device_us` (20 back-to-back calls behind a sleep
+     longer than their submission, median of 5 runs), the same for an empty
+     kernel, the plain version's time on the card (S <= 2), the Dijkstra
+     steps of each problem (counted by the plain version), and the latency
+     bound: the longest problem's steps times one minimal dependent step,
+     timed on a one-warp microkernel; (c) S = 1, 8, 32 streams of different
      continuous adversarial scenes (seeds 1..S, 64 frames) through
      `multistream_step` under set_sync_debug_mode("error"), every stream's
      track ids, validity and views equal to its own single-stream
@@ -150,13 +160,16 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      the share of its masks equal to `process_clip_nn`'s on the same frames.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
-K2-against-plain check still fails the run).
+K2-against-plain check still fails the run). With `--only k2 k3`, it builds
+the kernels and runs only phase 4 (k2) and phase 15 (a) (k3).
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
-K2a's in phase 13 (e) as `learned_int8_launches`; K3's `launches` are
+K2a's in phase 13 (e) as `learned_int8_launches`; the stem kernel's row
+times HRNet's stem and, under `yolo_stem`, YOLO's; K3's `launches` are
 phase 15 (d)'s int8 run's, and its times those of (a) at (d)'s
-association shape), the
+association shape, with `device_us`, `host_us` and the latency bound
+beside the byte bound), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. It needs a CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result. The f32 comparisons run with TF32 off (so do phase 11's
@@ -179,6 +192,7 @@ H100_F32_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
 H100_INT8_OPS_PER_S = 1.979e15  # H100 SXM int8 tensor cores, dense
 MAIN_CROPS, MAIN_IMAGES = 640, 160  # the main path's batches (HRNet, YOLO)
 SUB_CROPS, SUB_IMAGES = 8, 4     # images of a K2 output held against plain
+STEM_PART = 64  # the stems' outputs are held against plain whole, 64 images a part
 
 #: configs/Shelf/model_configs.yaml as yaml.safe_load reads it, but with
 #: the bench's MAX_CANDIDATES of 4 (bench.py:95-110), so that the CLI's
@@ -519,6 +533,9 @@ def time_k2(torch, gen, shape, batch, with_plain=True):
             out["k2a"]["plain_ms"] = cuda_time_ms(lambda: k2.quantize_nhwc_plain(x, inv),
                                                   warmup=1, reps=5)
         del xq
+    if k2.stem_path(cin, k, k):  # the stems' route before the stem kernel
+        out["gather_ms"] = cuda_time_ms(lambda: k2.gather_conv_cuda(
+            x, wk, (k, k), inv, mul, add, b16, stride, dil), reps=10)
     if with_plain:
         out["plain_ms"] = cuda_time_ms(
             lambda: k2.int8_conv_plain(x, wq, inv, mul, add, b16, stride, dil),
@@ -546,36 +563,47 @@ def phase_k2(torch, gen, card):
     cases = ([(sh, MAIN_CROPS, SUB_CROPS, modes) for sh in sorted(hr_shapes)]
              + [(sh, MAIN_IMAGES, SUB_IMAGES, modes) for sh in sorted(yo_shapes)]
              + [(dilated, MAIN_CROPS, SUB_CROPS, modes + [(f32, f32), (f32, i8)])])
-    checked, gathered, max_err = 0, 0, 0.0
+    checked, stems, gathered, max_err, stem_err = 0, 0, 0, 0.0, 0.0
     for shape, batch, sub, shape_modes in cases:
-        _, _, _, _, k, stride, dil = shape
+        cin, _, _, _, k, stride, dil = shape
+        stem = k2.stem_path(cin, k, k)
+        # the stems' outputs whole, the others' first and last images
+        parts = ([(first, min(STEM_PART, batch - first)) for first in range(0, batch, STEM_PART)]
+                 if stem else [(0, sub), (batch - sub, sub)])
         for in_dtype, out_dtype in shape_modes:
             wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype)
             got = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, out_dtype, stride, dil)
             what = f"K2 {shape} batch {batch} {in_dtype} -> {out_dtype}"
             if out_dtype != i8 and not bool(torch.isfinite(got).all()):
                 fail(f"{what}: non-finite outputs")
-            for first in (0, batch - sub):
-                part = slice(first, first + sub)
+            for first, size in parts:
+                part = slice(first, first + size)
                 ref = k2.int8_conv_plain(x[part], wq, inv, mul, add, out_dtype, stride, dil)
                 err = float((got[part].float() - ref.float()).abs().max())
                 max_err = max(max_err, err)
+                if stem:
+                    stem_err = max(stem_err, err)
                 if not torch.equal(got[part], ref):
-                    fail(f"{what}: images {first}..{first + sub - 1} differ from the "
+                    fail(f"{what}: images {first}..{first + size - 1} differ from the "
                          f"plain version by up to {err}")
                 if out_dtype == i8 and not (ref.min() == 0 and ref.max() == 127):
                     fail(f"{what}: the requant check does not span [0, 127]")
+                del ref
             checked += 1
-            gathered += not k2.channels_last(shape[0])
+            stems += stem
+            gathered += not (stem or k2.channels_last(cin))
             del x, got
     timed = {name: time_k2(torch, gen, shape, batch, with_plain)
              for name, shape, batch, with_plain in (
                  ("hrnet_branch0_3x3_48", (48, 96, 72, 48, 3, 1, 1), MAIN_CROPS, True),
                  ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES, True),
-                 ("hrnet_stem_3x3_s2_3_64", (3, 384, 288, 64, 3, 2, 1), MAIN_CROPS, False))}
-    return {"card": card, "checked": checked, "checked_on_gather_path": gathered,
+                 ("hrnet_stem_3x3_s2_3_64", (3, 384, 288, 64, 3, 2, 1), MAIN_CROPS, True),
+                 ("yolo_stem_3x3_3_32", (3, 416, 416, 32, 3, 1, 1), MAIN_IMAGES, True))}
+    return {"card": card, "checked": checked, "checked_on_stem_kernel": stems,
+            "checked_on_gather_path": gathered, "stem_max_abs_err": stem_err,
             "k2a": k2a, "batch": {"hrnet_w48": MAIN_CROPS, "yolov3_416": MAIN_IMAGES},
-            "compared_images": {"hrnet_w48": 2 * SUB_CROPS, "yolov3_416": 2 * SUB_IMAGES},
+            "compared_images": {"hrnet_w48": 2 * SUB_CROPS, "yolov3_416": 2 * SUB_IMAGES,
+                                "stems": "all"},
             "distinct_shapes": {
                 "hrnet_w48": len(hr_shapes), "yolov3_416": len(yo_shapes), "dilated": 1},
             "quantized_convs": {"hrnet_w48": sum(hr_shapes.values()),
@@ -719,6 +747,7 @@ def phase_int8_path(torch, card, main):
     th.launches = 0
     k2.launches = 0
     k2.quantize_launches = 0
+    k2.stem_launches = 0
     lap.launches = 0
     clip_ms, syncs = [], 0
     for _ in range(2):
@@ -729,11 +758,12 @@ def phase_int8_path(torch, card, main):
         clip_ms.append((time.perf_counter() - t0) * 1e3)
         syncs += counted["syncs"]
     k1_launches, k2_launches, k3_launches = th.launches, k2.launches, lap.launches
-    k2a_launches = k2.quantize_launches
+    k2a_launches, stem_launches = k2.quantize_launches, k2.stem_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if k1_launches < 1 or (k2_launches, k2a_launches) != (2 * 364, 2 * 362):
-        fail(f"two int8 clips launched K1 {k1_launches}, K2 {k2_launches} and K2a "
-             f"{k2a_launches} times, expected >= 1, 728 and 724")
+    if k1_launches < 1 or (k2_launches, k2a_launches, stem_launches) != (2 * 364, 2 * 362, 2 * 2):
+        fail(f"two int8 clips launched K1 {k1_launches}, K2 {k2_launches}, K2a "
+             f"{k2a_launches} and the stem kernel {stem_launches} times, expected >= 1, "
+             f"728, 724 and 4")
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
     k2_ms, k2_calls = k2_time_in_stage_a(torch, pipe, clip)
     both = (mask & mask_bf16)
@@ -747,6 +777,7 @@ def phase_int8_path(torch, card, main):
         "fps": frames * 1e3 / ms, "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
         "k2_launches": k2_launches, "k2_launches_per_clip": k2_launches / 2,
         "quantize_launches": k2a_launches, "quantize_launches_per_clip": k2a_launches / 2,
+        "stem_launches": stem_launches,
         "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
         "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
         "host_syncs_per_frame": syncs / (2 * frames),
@@ -916,12 +947,13 @@ CLI_FRAMES, CLI_CLIP, CLI_CALIB = 68, 32, 8  # 2 clips + 4 trailing frames
 CLI_HEIGHT, CLI_WIDTH = 720, 1280
 #: K1, K2 and K2a launches per `process_clip` or `process_frame` call (one
 #: stage A batch each): one decode, and in int8 the 364 quantized convs of
-#: YOLOv3-416 and HRNet-W48, 362 of them through K2a (phase 6's counts).
+#: YOLOv3-416 and HRNet-W48, 362 of them through K2a and the 2 RGB stems
+#: through the stem kernel (phase 6's counts).
 STEP_LAUNCHES = {
     "bf16": {"heatmap.launches": 1, "int8_conv.launches": 0,
-             "int8_conv.quantize_launches": 0},
+             "int8_conv.quantize_launches": 0, "int8_conv.stem_launches": 0},
     "int8": {"heatmap.launches": 1, "int8_conv.launches": 364,
-             "int8_conv.quantize_launches": 362},
+             "int8_conv.quantize_launches": 362, "int8_conv.stem_launches": 2},
 }
 
 
@@ -1141,7 +1173,8 @@ def phase_cli_path(torch, card):
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import int8_conv as k2
 
-    counters = [(th, "launches"), (k2, "launches"), (k2, "quantize_launches")]
+    counters = [(th, "launches"), (k2, "launches"), (k2, "quantize_launches"),
+                (k2, "stem_launches")]
     out = {"card": card, "config": "configs/Shelf/model_configs.yaml with MAX_CANDIDATES 4: "
            "YOLOv3-416 + HRNet-W48 384x288 from .weights / .pth, BN folded, bf16; "
            f"{CLI_FRAMES} frames x 5 views x {CLI_HEIGHT}x{CLI_WIDTH} uint8, --clip {CLI_CLIP}"}
@@ -1737,7 +1770,7 @@ def k2_held_to_plain(torch, what):
     from tpupose_torch.ops import int8_conv as k2
 
     inner = layers.int8_conv
-    report = {"convs": 0, "gather_convs": 0, "distinct_shapes": set()}
+    report = {"convs": 0, "stem_convs": 0, "gather_convs": 0, "distinct_shapes": set()}
 
     def held(x, weight_q, weight_k, inv, mul, add, out_dtype, stride=1, dilation=1):
         y = inner(x, weight_q, weight_k, inv, mul, add, out_dtype, stride, dilation)
@@ -1748,7 +1781,9 @@ def k2_held_to_plain(torch, what):
                  f"differs from the plain version by up to "
                  f"{float((y.float() - ref.float()).abs().max())}")
         report["convs"] += 1
-        report["gather_convs"] += not k2.channels_last(x.shape[1])
+        stem = k2.stem_path(x.shape[1], *weight_q.shape[2:])
+        report["stem_convs"] += stem
+        report["gather_convs"] += not (stem or k2.channels_last(x.shape[1]))
         report["distinct_shapes"].add((*x.shape, weight_q.shape[0], weight_q.shape[2], stride,
                                        str(x.dtype)))
         return y
@@ -1801,11 +1836,13 @@ def learned_tiny(torch, tt, seed=LEARN_SEED, gate=True):
         fail(f"learned tiny HRNet (seed {seed}): decoded error {float_px} px, expected < "
              f"{LEARNED_PX} and < {LEARN_GAIN} x the untrained {untrained} px")
     qmodel = tq.quantize_hrnet(folded, cfg, imgs)
-    th.launches = k2.launches = k2.quantize_launches = 0
+    th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
     with k2_held_to_plain(torch, "learned tiny HRNet int8") as held:
         int8_px = decode_error_px(torch, qmodel, cfg, imgs, kps)
-    launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches}
-    if launches["k1"] != 1 or launches["k2"] < 1 or launches["k2"] != held["convs"]:
+    launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
+                "k2_stem": k2.stem_launches}
+    if (launches["k1"] != 1 or launches["k2"] < 1 or launches["k2"] != held["convs"]
+            or launches["k2_stem"] != held["stem_convs"]):
         fail(f"learned tiny HRNet int8 decode launched {launches}, {held['convs']} convs held")
     if gate and not abs(int8_px - float_px) < INT8_PX:
         fail(f"learned tiny HRNet: int8 decodes to {int8_px} px, the float model to "
@@ -1970,12 +2007,13 @@ def phase_e2e(torch, card, w48, tiny):
     tiny_cfg, tiny_float, tiny_int8 = tiny
     _, tiny_crops, tiny_boxes = e2e.build_scene_crops(tiny_cfg, scene=scene)
     for name, m in (("tiny_bf16", tiny_float), ("tiny_int8", tiny_int8)):
-        th.launches = k2.launches = 0
+        th.launches = k2.launches = k2.stem_launches = 0
         with k2_held_to_plain(torch, f"phase 14 {name} decode_tree") as held:
             tiny_kps = e2e.decode_tree(m, tiny_cfg, tiny_crops, tiny_boxes, "quarter",
                                        batch=E2E_BATCH)
-        used = {"k1": th.launches, "k2": k2.launches}
+        used = {"k1": th.launches, "k2": k2.launches, "k2_stem": k2.stem_launches}
         if used["k1"] != expect or used["k2"] != held["convs"] or (
+                used["k2_stem"] != held["stem_convs"]) or (
                 (name == "tiny_int8") != (held["convs"] > 0)):
             fail(f"phase 14 {name}: launches {used}, {held['convs']} K2 calls held to plain")
         out[name] = {**pcp_summary(*timed_pcp(torch, e2e, scene, tiny_kps, "cuda")),
@@ -2150,7 +2188,7 @@ def step_time_us(torch, lap):
 
 
 def lap_timings(torch, fn):
-    """us (one call, CUDA events on an idle card, as PR 8 timed K3),
+    """us (one call timed by CUDA events on an idle card, host included),
     host_us and device_us of fn."""
     host_us = host_us_per_call(torch, fn)
     return {"us": cuda_time_ms(fn) * 1e3, "host_us": host_us,
@@ -2341,6 +2379,7 @@ def multistream_clip(torch, float_models):
     expect = {mode: {"k1": n_chunks * c["heatmap.launches"],
                      "k2": n_chunks * c["int8_conv.launches"],
                      "k2a": n_chunks * c["int8_conv.quantize_launches"],
+                     "k2_stem": n_chunks * c["int8_conv.stem_launches"],
                      "k3": f * (1 + views)} for mode, c in STEP_LAUNCHES.items()}
     inner = throughput._clip_detections
     out = {"config": "S=2 streams x 128 frames x 5 views of 720x1280 uint8; YOLOv3-416 "
@@ -2359,7 +2398,8 @@ def multistream_clip(torch, float_models):
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            th.launches = k2.launches = k2.quantize_launches = lap.launches = 0
+            th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
+            lap.launches = 0
             t0 = time.perf_counter()
             with counted_syncs() as counted:
                 states, outs = fn(det_m, pose_m, broadcast_cameras(cams, s),
@@ -2369,7 +2409,7 @@ def multistream_clip(torch, float_models):
         finally:
             throughput._clip_detections = inner
         launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
-                    "k3": lap.launches}
+                    "k2_stem": k2.stem_launches, "k3": lap.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
         if launches != expect[mode]:
             fail(f"multistream clip ({mode}) launched {launches}, expected {expect[mode]}")
@@ -2539,6 +2579,7 @@ def main():
 
     quarter = k1["modes"]["quarter"]
     conv = k2["timed"]["hrnet_branch0_3x3_48"]
+    stem, yolo_stem = k2["timed"]["hrnet_stem_3x3_s2_3_64"], k2["timed"]["yolo_stem_3x3_3_32"]
     ms_launches = {mode: multistream["clip"][mode]["launches"] for mode in ("bf16", "int8")}
     # K3 at the multi-stream clip's association: S=2 streams x 5 views of (12, 4)
     k3 = next(r for r in multistream["k3"]["shapes"]
@@ -2567,6 +2608,21 @@ def main():
         "cli_launches": {m: c["int8_conv.launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2"],
         "multistream_launches": {m: c["k2"] for m, c in ms_launches.items()},
+    }, {
+        "name": "int8_stem", "route": "cuda",
+        "source": "tpupose_torch/csrc/int8_conv.cu",
+        "replaces": "tpupose/models/quantize.py:210",
+        "launches": int8["stem_launches"],
+        "max_abs_err": k2["stem_max_abs_err"], "ms": stem["ms"],
+        "plain_ms": stem["plain_ms"], "bound_ms": stem["bound_ms"],
+        "bound_by": stem["bound_by"], "library_ms": None,
+        "gather_ms": stem["gather_ms"], "bf16_cudnn_ms": stem["bf16_cudnn_ms"],
+        "shape": stem["shape"], "yolo_stem": {
+            f: yolo_stem[f] for f in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "gather_ms", "bf16_cudnn_ms")},
+        "cli_launches": {m: c["int8_conv.stem_launches"] for m, c in cli_launches.items()},
+        "learned_int8_launches": train["e"]["int8_launches"]["k2_stem"],
+        "multistream_launches": {m: c["k2_stem"] for m, c in ms_launches.items()},
     }, {
         "name": "quantize_nhwc", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",

@@ -33,7 +33,7 @@
 // into one pass (0.2535 ms at 3.35 TB/s), for 0.183 T int-ops (0.093 ms at
 // 1,979 TOPS); the 1x1 convs are more byte-bound still.
 //
-// Two paths, chosen by Cin alone (the wrapper decides):
+// Three paths, chosen by Cin, kh and kw (the wrapper decides):
 //
 // Cin % 16 == 0, every conv of the main path but the two RGB stems: two
 // launches.
@@ -68,19 +68,41 @@
 //   previous conv's epilogue, so that K2a disappears; a 48-wide N tile for
 //   branch 0, whose Cout of 48 wastes a quarter of a 64-wide tile.
 //
-// Any other Cin (the stems' 3): one launch of the gather kernel
-// `int8_conv_kernel`, which reads NCHW and quantizes as it loads. Its K is
-// in (ci, r, c) order. Each thread gathers the 32 K values of its own output
-// pixel per step through a per-block table k -> (input offset, dh, dw), so
-// neighbouring threads read neighbouring addresses; B comes as 16-byte
-// vectors; two shared buffers; each warp 64 x 32 of `mma.sync.m16n8k32`.
-// It re-quantizes each input element once per tap and per 64 output
-// channels, which is why the main path's other convs take the two-pass
-// path.
+// Cin * kh * kw <= 32, the two RGB stems (3 x 3 x 3 = 27 at Cin 3): one
+// launch of the stem kernel `int8_stem_kernel`. Bound: bytes, and 84% of
+// them the output: HRNet's stem 3x3 s2 3->64 at 384x288 on 640 crops reads
+// 424.7 MB of bf16 and writes 2,265 MB (0.8029 ms at 3.35 TB/s, for 0.05 T
+// int-ops); YOLO's 3x3 3->32 at 416x416 on 160 images 1.938 GB (0.5786
+// ms). Persistent blocks walk over tiles of `rows` x `cols` output pixels
+// of one image (whole rows where a row is at most 512 wide: HRNet 1 x 144,
+// YOLO 1 x 416), for 64 output channels. A block loads the input halo of
+// its next tile as 16-byte cp.async copies along W while it works on the
+// current one, quantizes each element once and keeps it as int8 in
+// shared memory; all of K is one m16n8k32 step. The mma's rows are the
+// output channels (A: the 64 weight rows in `pack_weight`'s (ci, r, c)
+// order, in registers for the whole block) and its columns 8 pixels (B:
+// fragment words of four taps of one pixel, gathered from the halo), so an
+// accumulator pair is one channel at two neighbouring pixels and leaves as
+// one store into a stage in shared memory, one row of pixels per channel.
+// The stage leaves as 16-byte stores along W of each NCHW plane, so a warp
+// fills whole 32-byte sectors, and drains while the block goes on to its
+// next tile.
+//
+// Any other Cin: one launch of the gather kernel `int8_conv_kernel` (once the
+// kernel of every Cin; on the main path it now runs no conv), which reads
+// NCHW and quantizes as it loads. Its K is in (ci, r, c) order. Each thread
+// gathers the 32 K values of its own output pixel per step through a
+// per-block table k -> (input offset, dh, dw), so neighbouring threads read
+// neighbouring addresses; B comes as 16-byte vectors; two shared buffers;
+// each warp 64 x 32 of `mma.sync.m16n8k32`. It re-quantizes each input
+// element once per tap and per 64 output channels, and writes one scalar a
+// thread a channel (half a 32-byte sector per warp store): 3.2 ms at the
+// HRNet stem on an H100 80GB HBM3 at 700 W, 25% of its bound.
 //
 // Traps, and what the code does about them:
 //   * Ragged K (27 for the RGB stems, 432, 576, 4,608): the weight operand
-//     is zero-padded to 32; a K position past K loads zeros on the A side.
+//     is zero-padded to 32; a K position past K loads zeros on the A side
+//     (the stem kernel gives it a halo offset of -1, read as code 0).
 //   * Ragged Cout (48, 96, 192, 384 are not multiples of 64): padded weight
 //     rows are zero and the epilogue stores only co < Cout.
 //   * Ragged M: a pixel past M loads zeros and stores nothing.
@@ -753,6 +775,329 @@ int launch_gemm(const int8_t* xq, const int8_t* wk, const float* mul,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The stem kernel: NCHW input with Cin * kh * kw <= 32 (one K step of
+// m16n8k32; the RGB stems' 3 x 3 x 3 = 27), quantized once into a halo in
+// shared memory.
+
+constexpr int kSThreads = 128;  // 4 warps
+constexpr int kSWarps = kSThreads / 32;
+constexpr int kSN = 64;         // output channels per block (4 m16 tiles)
+
+// Shared-memory layout of one stem block, computed on the host.
+struct StemTile {
+  int rows, cols;            // output rows x columns of the tile (cols % 16 == 0)
+  int halo_rows;             // input rows the tile's taps reach
+  int raw_chunks;            // 16-byte input chunks a halo row: the columns the
+                             // taps reach, from the chunk boundary at or below
+  int halo_stride;           // bytes a halo row: raw_chunks codes a chunk
+  int halo_bytes;            // cin * halo_rows * halo_stride, rounded up to 16
+  int raw_bytes;             // one raw halo buffer: cin * halo_rows * raw_chunks * 16
+  int stage_stride;          // bytes per output channel row of the stage
+  int stage_bytes;           // min(64, Cout rounded up to 8) rows, rounded up to 16
+  int off[32];               // K position -> halo offset from its pixel; -1 past K
+};
+
+template <int IN, int OUT>
+StemTile stem_tile(const Shape& s, int rows, int cols) {
+  constexpr int E = 16 / static_cast<int>(sizeof(typename Src<IN>::T));
+  StemTile t;
+  t.rows = rows;
+  t.cols = cols;
+  t.halo_rows = (rows - 1) * s.stride + (s.kh - 1) * s.dil + 1;
+  const int halo_cols = (cols - 1) * s.stride + (s.kw - 1) * s.dil + 1;
+  t.raw_chunks = (halo_cols + 2 * E - 2) / E;  // any start within a chunk
+  t.halo_stride = t.raw_chunks * E;
+  t.halo_bytes = (s.cin * t.halo_rows * t.halo_stride + 15) / 16 * 16;
+  t.raw_bytes = s.cin * t.halo_rows * t.raw_chunks * 16;
+  t.stage_stride = rows * cols * static_cast<int>(sizeof(typename Out<OUT>::T)) + 16;
+  t.stage_bytes = min(kSN, (s.cout + 7) / 8 * 8) * t.stage_stride;
+  const int taps = s.kh * s.kw;
+  for (int k = 0; k < 32; ++k) {
+    const int ci = k / taps, r = (k - ci * taps) / s.kw, c = k - ci * taps - r * s.kw;
+    t.off[k] = k < s.k ? (ci * t.halo_rows + r * s.dil) * t.halo_stride + c * s.dil : -1;
+  }
+  return t;
+}
+
+// Dynamic shared memory: the int8 halo, and the stage, whose space first
+// holds the raw input halo.
+inline int stem_smem(const StemTile& t) {
+  return t.halo_bytes + (t.raw_bytes > t.stage_bytes ? t.raw_bytes : t.stage_bytes);
+}
+
+// Bulk copies of shared memory to global memory by the TMA unit, off the
+// warps' load / store pipe (sm_90): `bytes` and both addresses multiples
+// of 16.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit_and_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Orders this thread's shared-memory writes before later bulk copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four codes of the halo at offsets base + off[first + i] (off < 0: a K
+// position past K, code 0), as one fragment word.
+__device__ __forceinline__ uint32_t gather4(const int8_t* halo, int base, const int (&off)[8],
+                                            int first) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int o = off[first + i];
+    const uint32_t b = o >= 0 ? static_cast<uint8_t>(halo[base + o]) : 0u;
+    w |= b << (8 * i);
+  }
+  return w;
+}
+
+// Two outputs of one channel at neighbouring pixels, finished as `finish`
+// does each, stored together at p (aligned to the pair).
+template <int OUT>
+__device__ __forceinline__ void store_pair(int8_t* p, int a0, int a1, float mul, float add,
+                                           bool has_add) {
+  float v0 = __fmul_rn(__int2float_rn(a0), mul), v1 = __fmul_rn(__int2float_rn(a1), mul);
+  if (has_add) {
+    v0 = __fadd_rn(v0, add);
+    v1 = __fadd_rn(v1, add);
+  }
+  if constexpr (OUT == kBF16) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else if constexpr (OUT == kF32) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    const int q0 = static_cast<int>(fminf(fmaxf(rintf(v0), 0.f), 127.f));
+    const int q1 = static_cast<int>(fminf(fmaxf(rintf(v1), 0.f), 127.f));
+    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(q0 | (q1 << 8));
+  }
+}
+
+// The E codes of one raw chunk, stored at dst (aligned to E bytes).
+template <int IN>
+__device__ __forceinline__ void quantize_chunk(const void* src, int8_t* dst, float inv) {
+  if constexpr (IN == kI8) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else if constexpr (IN == kBF16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+    uint32_t q[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t lo = quantize(__uint_as_float(w4[j] << 16), inv) & 0xffu;
+      const uint32_t hi = quantize(__uint_as_float(w4[j] & 0xffff0000u), inv) & 0xffu;
+      q[j >> 1] |= (lo | (hi << 8)) << (16 * (j & 1));
+    }
+    *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
+  } else {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    *reinterpret_cast<uint32_t*>(dst) = (quantize(v.x, inv) & 0xffu) |
+                                         ((quantize(v.y, inv) & 0xffu) << 8) |
+                                         ((quantize(v.z, inv) & 0xffu) << 16) |
+                                         (static_cast<uint32_t>(quantize(v.w, inv)) << 24);
+  }
+}
+
+// One block: image img, output rows oh0.. (t.rows), columns ow0.. (t.cols),
+// channels n0..n0+63.
+//   1. The raw input halo (rows oh0*s - ph .., the 16-byte input chunks
+//      that hold columns ow0*s - pw .. that the tile's taps reach, every
+//      input channel), all in flight at once (cp.async, zero-filled outside
+//      the image, where VEC: W a multiple of the chunk and x aligned; else
+//      scalar loads), while the weights and the epilogue vectors load.
+//   2. Each element quantized once (K2a's arithmetic) into an int8 halo
+//      laid out as the raw one, one chunk a lane.
+//   3. The mma's rows are output channels and its columns pixels: A, the
+//      block's 64 x 32-byte weight rows, sits in registers (4 fragments of
+//      16 channels); each warp takes 8-pixel runs of the tile's rows in turn
+//      and gathers its B fragment words (four taps of one pixel, (ci, r, c)
+//      order, at the offsets of t.off) from the halo; one mma.sync.m16n8k32
+//      per 16 channels. An accumulator pair is one channel at two
+//      neighbouring pixels, finished with that lane's channel's mul and add
+//      (registers) into one store to the stage, one row of pixels per
+//      channel.
+//   4. One thread a run of a channel's NCHW plane (one per tile row, or one
+//      for all its rows where they are whole output rows) copies it from the
+//      stage by one bulk copy, or, where the run is not 16-byte aligned,
+//      element by element.
+template <int IN, int OUT, bool VEC>
+__global__ void __launch_bounds__(kSThreads)
+int8_stem_kernel(const void* __restrict__ x, const int8_t* __restrict__ wk,
+                 const float* __restrict__ inv_p, const float* __restrict__ mul,
+                 const float* __restrict__ add, void* __restrict__ y, const Shape s,
+                 const StemTile t, int tiles_h, int tiles_w) {
+  using Raw = typename Src<IN>::T;
+  using O = typename Out<OUT>::T;
+  constexpr int E = 16 / static_cast<int>(sizeof(Raw));  // input elements a chunk
+  extern __shared__ __align__(16) int8_t smem[];
+  int8_t* const halo = smem;
+  int8_t* const stage = halo + t.halo_bytes;
+  Raw* const raw = reinterpret_cast<Raw*>(stage);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int per_img = tiles_h * tiles_w;
+  const long long img = blockIdx.x / per_img;
+  const int tile = static_cast<int>(blockIdx.x - img * per_img);
+  const int th = tile / tiles_w;
+  const int oh0 = th * t.rows, ow0 = (tile - th * tiles_w) * t.cols;
+  const int n0 = blockIdx.y * kSN;
+  const int ih0 = oh0 * s.stride - s.pad_h, iw0 = ow0 * s.stride - s.pad_w;
+  const int c_first = (iw0 >= 0 ? iw0 / E : -((-iw0 + E - 1) / E)) * E;
+  const int halo_rows = s.cin * t.halo_rows;
+
+  // 1. The raw halo, one warp a row.
+  for (int row = warp; row < halo_rows; row += kSWarps) {
+    const int ci = row / t.halo_rows, ih = ih0 + row - ci * t.halo_rows;
+    const bool row_ok = static_cast<unsigned>(ih) < static_cast<unsigned>(s.h);
+    const long long src = ((img * s.cin + ci) * s.h + ih) * static_cast<long long>(s.w);
+    for (int ch = lane; ch < t.raw_chunks; ch += 32) {
+      const int gc = c_first + ch * E;
+      Raw* dst = raw + (row * t.raw_chunks + ch) * E;
+      if constexpr (VEC) {
+        const bool ok = row_ok && gc >= 0 && gc + E <= s.w;
+        cp_async16(smem_addr(dst), ok ? static_cast<const Raw*>(x) + src + gc : x, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+          dst[j] = row_ok && static_cast<unsigned>(gc + j) < static_cast<unsigned>(s.w)
+                       ? Src<IN>::load(x, src + gc + j) : Raw(0);
+      }
+    }
+  }
+  if constexpr (VEC) cp_async_commit();
+
+  // The weights as A fragments of 4 channel tiles (rows n0 + 16*ct + g and
+  // + 8), this lane's two channels' mul and add and stage rows in each,
+  // and its K positions 4*q4 + i (B word 0) and 16 + 4*q4 + i (word 1) as
+  // halo offsets.
+  const bool has_add = add != nullptr;
+  uint32_t wa[4][4];
+  float cmul[4][2], cadd[4][2];
+  int crow[4][2];
+#pragma unroll
+  for (int ct = 0; ct < 4; ++ct) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int co = n0 + 16 * ct + g + 8 * h;  // < Cout padded to 64: a weight row
+      const int8_t* w = wk + static_cast<long long>(co) * s.kpad + 4 * q4;
+      wa[ct][h] = __ldg(reinterpret_cast<const uint32_t*>(w));
+      wa[ct][2 + h] = __ldg(reinterpret_cast<const uint32_t*>(w + 16));
+      cmul[ct][h] = co < s.cout ? __ldg(mul + co) : 0.f;
+      cadd[ct][h] = co < s.cout && has_add ? __ldg(add + co) : 0.f;
+      crow[ct][h] = (16 * ct + g + 8 * h) * t.stage_stride;
+    }
+  }
+  int off[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) off[i] = t.off[(i < 4 ? 4 * q4 : 16 + 4 * q4) + (i & 3)];
+  float inv = 1.f;
+  if constexpr (IN != kI8) inv = __ldg(inv_p);
+  if constexpr (VEC) cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. The int8 halo, one chunk a lane.
+  for (int i = tid; i < halo_rows * t.raw_chunks; i += kSThreads)
+    quantize_chunk<IN>(raw + i * E, halo + i * E, inv);
+  __syncthreads();  // the raw halo is consumed: the stage may be written
+
+  // 3. 8-pixel runs of the tile's rows, one warp each in turn.
+  const int channels = min(kSN, s.cout - n0);
+  const int ctiles = (channels + 15) / 16;
+  int tr = 0, tc = 8 * warp;
+  while (tc >= t.cols) {
+    tc -= t.cols;
+    ++tr;
+  }
+  while (tr < t.rows) {
+    const int base = tr * s.stride * t.halo_stride + (tc + g) * s.stride + (iw0 - c_first);
+    const uint32_t bfr[2] = {gather4(halo, base, off, 0), gather4(halo, base, off, 4)};
+    // pixel of accumulator columns 2*q4, + 1
+    const int m = (tr * t.cols + tc + 2 * q4) * static_cast<int>(sizeof(O));
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) {
+      if (ct >= ctiles) break;
+      int acc[4] = {0, 0, 0, 0};
+      mma_s8(acc, wa[ct], bfr);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store_pair<OUT>(stage + crow[ct][h] + m, acc[2 * h], acc[2 * h + 1], cmul[ct][h],
+                        cadd[ct][h], has_add);
+    }
+    tc += 8 * kSWarps;
+    while (tc >= t.cols) {
+      tc -= t.cols;
+      ++tr;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // 4. The stage to the NCHW planes, one thread a run.
+  const int rows = min(t.rows, s.ho - oh0), cols = min(t.cols, s.wo - ow0);
+  const bool whole = t.cols == s.wo;  // the tile's rows are one run of the plane
+  const int runs = whole ? 1 : rows, len = whole ? rows * s.wo : cols;
+  const int bytes = len * static_cast<int>(sizeof(O));
+  O* const out = static_cast<O*>(y);
+  const long long plane = static_cast<long long>(s.ho) * s.wo;
+  bool bulk = false;
+  for (int e = tid; e < channels * runs; e += kSThreads) {
+    const int co_l = e / runs, rr = e - co_l * runs;
+    O* const dst = out + (img * s.cout + n0 + co_l) * plane +
+                   static_cast<long long>(oh0 + rr) * s.wo + ow0;
+    const int8_t* src = stage + co_l * t.stage_stride + rr * t.cols * static_cast<int>(sizeof(O));
+    if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+      bulk_store(dst, smem_addr(src), bytes);
+      bulk = true;
+    } else {
+      for (int i = 0; i < len; ++i) dst[i] = reinterpret_cast<const O*>(src)[i];
+    }
+  }
+  // the stage must not be released before the copies have read it
+  if (bulk) bulk_commit_and_wait_read();
+}
+
+template <int IN, int OUT>
+int launch_stem(const void* x, const int8_t* wk, const float* inv, const float* mul,
+                const float* add, void* y, const Shape& s, int rows, int cols,
+                cudaStream_t stream) {
+  const StemTile t = stem_tile<IN, OUT>(s, rows, cols);
+  const int smem = stem_smem(t);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_h = (s.ho + rows - 1) / rows, tiles_w = (s.wo + cols - 1) / cols;
+  const long long blocks = static_cast<long long>(s.n) * tiles_h * tiles_w;
+  if (blocks > 0x7fffffffLL || (s.cout + kSN - 1) / kSN > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>((s.cout + kSN - 1) / kSN));
+  constexpr int kSize = static_cast<int>(sizeof(typename Src<IN>::T));
+  const bool vec = s.w % (16 / kSize) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kernel = vec ? int8_stem_kernel<IN, OUT, true> : int8_stem_kernel<IN, OUT, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kSThreads, smem, stream>>>(x, wk, inv, mul, add, y, s, t, tiles_h, tiles_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int IN>
+int dispatch_stem(int out_type, const void* x, const int8_t* wk, const float* inv,
+                  const float* mul, const float* add, void* y, const Shape& s, int rows,
+                  int cols, cudaStream_t stream) {
+  switch (out_type) {
+    case kF32: return launch_stem<IN, kF32>(x, wk, inv, mul, add, y, s, rows, cols, stream);
+    case kBF16: return launch_stem<IN, kBF16>(x, wk, inv, mul, add, y, s, rows, cols, stream);
+    case kI8: return launch_stem<IN, kI8>(x, wk, inv, mul, add, y, s, rows, cols, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // The gather kernel (Cin % 16 != 0).
@@ -828,6 +1173,33 @@ extern "C" int tpupose_int8_conv_nhwc(const int8_t* xq, const int8_t* wk,
     case kF32: return launch_gemm<kF32>(xq, wk, mul, add, y, s, st);
     case kBF16: return launch_gemm<kBF16>(xq, wk, mul, add, y, s, st);
     case kI8: return launch_gemm<kI8>(xq, wk, mul, add, y, s, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The stem kernel (Cin % 16 != 0 and cin*kh*kw <= 32). Arguments as the
+// gather kernel's (kpad == 32), plus the tile: `rows` output rows by `cols`
+// output columns (cols % 16 == 0) per block, for 64 output channels.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// an error without launching where the tile's shared memory passes 227 KB.
+extern "C" int tpupose_int8_stem(const void* x, int in_type, const int8_t* wk,
+                                 const float* inv, const float* mul,
+                                 const float* add, void* y, int out_type,
+                                 int n, int cin, int h, int w, int cout,
+                                 int kh, int kw, int stride, int pad_h,
+                                 int pad_w, int dil, int ho, int wo, int kpad,
+                                 int rows, int cols, void* stream) {
+  const Shape s{n, cin, h, w, cout, kh, kw, stride, pad_h, pad_w, dil, ho, wo,
+                cin * kh * kw, kpad};
+  if (static_cast<long long>(n) * ho * wo == 0 || cout == 0) return 0;
+  if (kpad != kBK || s.k > kBK || rows < 1 || cols < 16 || cols % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0 || reinterpret_cast<uintptr_t>(wk) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (in_type) {
+    case kF32: return dispatch_stem<kF32>(out_type, x, wk, inv, mul, add, y, s, rows, cols, st);
+    case kBF16: return dispatch_stem<kBF16>(out_type, x, wk, inv, mul, add, y, s, rows, cols, st);
+    case kI8: return dispatch_stem<kI8>(out_type, x, wk, inv, mul, add, y, s, rows, cols, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

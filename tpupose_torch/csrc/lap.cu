@@ -21,17 +21,36 @@
 // them into FMAs), the argmin to the first column of equal reach (as
 // torch.argmin), and rows in order. Costs must be finite at valid entries.
 //
-// Bound: latency, not bytes. A (16, 40) problem is 2.6 KB, read once; the
-// work is a chain of dependent Dijkstra steps (at most C + 1 per row, each
-// a pass over the columns, an argmin and a potential update) that no
-// parallelism inside a problem shortens. Design: one warp per problem, so
-// a step costs a few shuffles and no block barrier; lanes own columns
-// (column j on lane j % 32, at most 8 a lane, so C <= 256 after
-// orientation) and keep their minv, used and v in registers; the costs,
-// u, p, way and the rows of the current tree sit in the warp's slice of
-// shared memory; the argmin is a butterfly shuffle reduction over (value,
-// index). Several problems share a block and the grid covers B, so the
-// C cameras (or S streams) of a tracker phase are one launch.
+// Bound: latency. A (16, 40) problem is 2.6 KB, read once; the work is a
+// chain of dependent Dijkstra steps, at most i + 1 for row i of the
+// oriented problem (136 for 16 rows), that no parallelism inside a problem
+// shortens. The floor under one step is a shared load, a warp reduction and
+// a select (`step_chain_kernel` below measures it), so the latency bound of
+// a batch is its longest problem's step count times that.
+//
+// Design: one warp per problem, so a step costs no block barrier. Lanes own
+// columns (column j on lane j % 32, at most 8 a lane, so C <= 256 after
+// orientation) and keep their minv, used and v in registers; the oriented
+// costs, u, p and way sit in the warp's slice of shared memory. One step:
+//   i0 = p[j0] -> u[i0] and the lane's columns of cost row i0 (one round of
+//   shared loads) -> cur, minv, way, the lane's first best reach ->
+//   __reduce_min_sync over an order-preserving key of (reach + 0.0f) ->
+//   __reduce_min_sync over the column indices of the lanes at that key ->
+//   (p[j0] for the exit test || delta, the winner's own reach, by one
+//   shuffle) -> v -= delta on used columns, minv -= delta on the others.
+// The key rounds -0.0 to +0.0, so columns of reach -0.0 and +0.0 tie as
+// torch.argmin ties them (maximize negates zero scores into -0.0), and
+// delta keeps the winner's own sign of zero. The update u += delta * bump
+// of the plain version is taken off the step: it adds +-0 to every row
+// outside the tree, which leaves u unchanged (u starts at +0.0 and a sum
+// that comes out exactly zero is +0.0, so u is never -0.0), and a row's u
+// is read only in the step in which it enters the tree. So the lane
+// (step % 32) that sees a row enter keeps u[i0] in a register and adds each
+// later step's delta to it, in step order; the sums go back to u after the
+// augmentation. The same holds for v - delta * 0 on unused columns. The
+// load folds negation, orientation and the extremes into one division-free
+// pass (element indices stepped, loads issued 8 a lane at once); a second
+// pass writes the pad.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -42,11 +61,23 @@ constexpr float kInf = 3e38f;   // the plain version's INF
 constexpr int kMaxCols = 256;   // columns after orientation: 8 a lane
 constexpr int kMaxWarpsPerBlock = 4;
 constexpr int kMaxSharedBytes = 48 * 1024;
+constexpr int kLoadUnroll = 8;  // cost loads in flight per lane
 constexpr unsigned kFull = 0xffffffffu;
 
-// 32-bit words of shared memory one problem takes.
+// 32-bit words of shared memory one problem takes: the oriented costs, u,
+// p, way, and the R + C validity bytes.
 __host__ __device__ inline int words_per_problem(int rs, int cs) {
-  return rs * cs + (rs + 1) + 2 * (cs + 1) + (rs + 1);
+  return rs * cs + (rs + 1) + 2 * (cs + 1) + (rs + cs + 3) / 4;
+}
+
+// Order-preserving unsigned key of a float (no NaN): a < b iff key(a) <
+// key(b); -0.0 keys below +0.0, so callers add 0.0f first where they tie.
+__device__ __forceinline__ unsigned key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+}
+__device__ __forceinline__ float unkey(unsigned k) {
+  return __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : kFull));
 }
 
 template <int K>
@@ -66,43 +97,80 @@ __global__ void masked_lap_kernel(const float* __restrict__ cost,
   float* u = cmat + rs * cs;                       // rs + 1
   int* p = reinterpret_cast<int*>(u + rs + 1);     // cs + 1: row of column
   int* way = p + cs + 1;                           // cs + 1
-  int* tree = way + cs + 1;                        // rs + 1: rows visited
+  unsigned char* valid = reinterpret_cast<unsigned char*>(way + cs + 1);  // R rows, C cols
 
   const float* cb = cost + b * R * C;
-  const unsigned char* rv = row_valid + b * R;
-  const unsigned char* cv = col_valid + b * C;
+  const int rc = R * C;
 
-  // Load (oriented), negate, and the extremes over the valid entries.
-  float vmax = -INFINITY, vmin = INFINITY;
-  int has = 0;
-  for (int e = lane; e < R * C; e += 32) {
-    const int r = e / C, c = e - (e / C) * C;
-    float x = cb[e];
-    if (maximize) x = -x;
-    if (rv[r] && cv[c]) {
-      vmax = fmaxf(vmax, x);
-      vmin = fminf(vmin, x);
-      has = 1;
-    }
-    cmat[trans ? c * cs + r : r * cs + c] = x;
-  }
+  // The first costs in flight before the validity bytes are waited for.
+  float xs[kLoadUnroll];
 #pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    vmax = fmaxf(vmax, __shfl_xor_sync(kFull, vmax, off));
-    vmin = fminf(vmin, __shfl_xor_sync(kFull, vmin, off));
-    has |= __shfl_xor_sync(kFull, has, off);
+  for (int q = 0; q < kLoadUnroll; ++q) {
+    const int e = lane + 32 * q;
+    xs[q] = e < rc ? __ldg(cb + e) : 0.f;
   }
-  const float cmax = has ? vmax : 0.f, cmin = has ? vmin : 0.f;
+  for (int e = lane; e < R; e += 32) valid[e] = row_valid[b * R + e];
+  for (int e = lane; e < C; e += 32) valid[R + e] = col_valid[b * C + e];
+  __syncwarp();
+
+  // Load (oriented), negate, and the extremes over the valid entries, as
+  // order keys. Element e = lane + 32 * n sits at (r, c), stepped by
+  // (dr, dc) per 32 elements: no division per element.
+  const int dr = 32 / C, dc = 32 - dr * C;
+  int r = lane / C, c = lane - (lane / C) * C;
+  unsigned kmax = 0u, kmin = kFull;
+  for (int e0 = 0; e0 < rc; e0 += 32 * kLoadUnroll) {
+    float nx[kLoadUnroll];
+#pragma unroll
+    for (int q = 0; q < kLoadUnroll; ++q) {
+      const int e = e0 + 32 * kLoadUnroll + lane + 32 * q;
+      nx[q] = e < rc ? __ldg(cb + e) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kLoadUnroll; ++q) {
+      const int e = e0 + lane + 32 * q;
+      if (e < rc) {
+        const float x = maximize ? -xs[q] : xs[q];
+        if (valid[r] && valid[R + c]) {
+          kmax = max(kmax, key(x));
+          kmin = min(kmin, key(x));
+        }
+        cmat[trans ? c * cs + r : e] = x;
+        r += dr;
+        c += dc;
+        if (c >= C) {
+          c -= C;
+          ++r;
+        }
+      }
+      xs[q] = nx[q];
+    }
+  }
+  kmax = __reduce_max_sync(kFull, kmax);
+  kmin = __reduce_min_sync(kFull, kmin);
+  // a finite x keys above 0, so kmax == 0 means no valid entry
+  const float cmax = kmax ? unkey(kmax) : 0.f, cmin = kmax ? unkey(kmin) : 0.f;
   const float pad = __fadd_rn(
       __fadd_rn(cmax, __fmul_rn(__fsub_rn(cmax, cmin), (float)rs)), 1.0f);
+
+  // Validity of the lane's oriented columns; the pad on invalid entries.
+  bool col_ok[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + 32 * k;
+    col_ok[k] = j < cs && valid[trans ? j : R + j];
+  }
   __syncwarp();
-  for (int e = lane; e < rs * cs; e += 32) {
-    const int i = e / cs, j = e - (e / cs) * cs;
-    const int r = trans ? j : i, c = trans ? i : j;
-    if (!(rv[r] && cv[c])) cmat[e] = pad;
+  for (int i = 0; i < rs; ++i) {
+    const bool row_ok = valid[trans ? R + i : i];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = lane + 32 * k;
+      if (j < cs && !(row_ok && col_ok[k])) cmat[i * cs + j] = pad;
+    }
   }
   for (int j = lane; j <= cs; j += 32) p[j] = -1;
-  for (int r = lane; r <= rs; r += 32) u[r] = 0.f;
+  for (int i = lane; i <= rs; i += 32) u[i] = 0.f;
 
   float v[K];
 #pragma unroll
@@ -112,28 +180,35 @@ __global__ void masked_lap_kernel(const float* __restrict__ cost,
   for (int i = 0; i < rs; ++i) {
     float minv[K];
     bool used[K];
+    // tree rows this lane follows: the row entering at step 32 * q + lane,
+    // and its u plus the deltas since (steps <= i + 1 <= rs <= 32 * K)
+    int tree_row[K];
+    float tree_u[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       minv[k] = kInf;
       used[k] = false;
+      tree_row[k] = -1;
       const int j = lane + 32 * k;
       if (j < cs) way[j] = cs;
     }
-    for (int r = lane; r <= rs; r += 32) tree[r] = 0;
     if (lane == 0) p[cs] = i;
     __syncwarp();
 
-    int j0 = cs;  // the virtual start column
-    while (true) {
-      const int i0 = p[j0];
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (lane + 32 * k == j0) used[k] = true;
-      if (lane == 0) tree[i0] = 1;
+    int j0 = cs, i0 = i;  // the virtual start column, matched to row i
+    for (int step = 0;; ++step) {
       const float ui0 = u[i0];
       const float* crow = cmat + i0 * cs;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (lane + 32 * k == j0) used[k] = true;
+        if (32 * k + lane == step) {
+          tree_row[k] = i0;
+          tree_u[k] = ui0;
+        }
+      }
 
-      // cur = cost[i0] - u[i0] - v; relax minv / way; reach and its argmin
+      // cur = cost[i0] - u[i0] - v; relax minv / way; the lane's first best
       float best = INFINITY;
       int bj = 0x7fffffff;
 #pragma unroll
@@ -152,33 +227,29 @@ __global__ void masked_lap_kernel(const float* __restrict__ cost,
           }
         }
       }
-#pragma unroll
-      for (int off = 16; off; off >>= 1) {
-        const float ob = __shfl_xor_sync(kFull, best, off);
-        const int oj = __shfl_xor_sync(kFull, bj, off);
-        if (ob < best || (ob == best && oj < bj)) {
-          best = ob;
-          bj = oj;
-        }
-      }
-      const float delta = best;
-      __syncwarp();  // tree[i0] is seen by every lane
+      // the first column of least reach over the warp: keys, then indices
+      const unsigned kb = key(__fadd_rn(best, 0.f));
+      const unsigned kw = __reduce_min_sync(kFull, kb);
+      j0 = (int)__reduce_min_sync(kFull, kb == kw ? (unsigned)bj : kFull);
+      const float delta = __shfl_sync(kFull, best, j0 & 31);
+      i0 = p[j0];
 
-      // u += delta * bump (bump 1 on the tree's rows), v -= delta * used,
-      // minv -= delta where unused: the plain version's products and sums.
-      for (int r = lane; r < rs; r += 32)
-        u[r] = __fadd_rn(u[r], __fmul_rn(delta, tree[r] ? 1.f : 0.f));
+      // v -= delta on used columns, minv -= delta on the others (the plain
+      // version's v - delta * used leaves unused columns as they are)
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        if (lane + 32 * k < cs) {
-          v[k] = __fsub_rn(v[k], __fmul_rn(delta, used[k] ? 1.f : 0.f));
-          if (!used[k]) minv[k] = __fsub_rn(minv[k], delta);
-        }
+        if (used[k])
+          v[k] = __fsub_rn(v[k], delta);
+        else
+          minv[k] = __fsub_rn(minv[k], delta);
+        if (tree_row[k] >= 0) tree_u[k] = __fadd_rn(tree_u[k], delta);
       }
-      __syncwarp();  // u is settled before the next step reads it
-      j0 = bj;
-      if (p[j0] == -1) break;
+      if (i0 == -1) break;
     }
+    __syncwarp();  // way is seen by lane 0
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (tree_row[k] >= 0) u[tree_row[k]] = tree_u[k];
     // Augment along the alternating path back to the virtual column.
     if (lane == 0) {
       while (j0 != cs) {
@@ -195,14 +266,14 @@ __global__ void masked_lap_kernel(const float* __restrict__ cost,
   if (trans) {
     for (int j = lane; j < cs; j += 32) {  // oriented column j = row j
       const int col = p[j];
-      o[j] = (col >= 0 && rv[j] && cv[col]) ? col : -1;
+      o[j] = (col >= 0 && valid[j] && valid[R + col]) ? col : -1;
     }
   } else {
-    for (int r = lane; r < R; r += 32) o[r] = -1;
+    for (int r2 = lane; r2 < R; r2 += 32) o[r2] = -1;
     __syncwarp();
     for (int j = lane; j < cs; j += 32) {
-      const int r = p[j];
-      if (r >= 0 && rv[r] && cv[j]) o[r] = j;
+      const int r2 = p[j];
+      if (r2 >= 0 && valid[r2] && valid[R + j]) o[r2] = j;
     }
   }
 }

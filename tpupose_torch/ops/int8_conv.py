@@ -22,11 +22,15 @@ with `mul` and `add` per output channel (`add` may be None).
   (`pack_weight`). For Cin % 16 == 0 (every conv of the main path but the
   two RGB stems) that is two launches: K2a quantizes x once into a
   channels-last int8 copy (`quantize_nhwc_plain` is its plain version) and
-  K2b, an implicit GEMM over it, computes the conv and the epilogue. Any
-  other Cin goes to the gather kernel, which quantizes as it loads NCHW.
-  `quantize_nhwc_cuda` and `gemm_nhwc_cuda` launch K2a and K2b alone.
-  `launches` counts K2b and gather launches, one per conv;
-  `quantize_launches` counts K2a launches.
+  K2b, an implicit GEMM over it, computes the conv and the epilogue. A conv
+  whose Cin*kh*kw fits one K step of 32 (`stem_path`: the stems' 3 x 3 x 3)
+  goes to the stem kernel, which quantizes an input halo once into shared
+  memory (`stem_tile` sizes its blocks); any other Cin to the gather
+  kernel, which quantizes as it loads NCHW. `quantize_nhwc_cuda`,
+  `gemm_nhwc_cuda` and `gather_conv_cuda` launch K2a, K2b and the gather
+  kernel alone. `launches` counts K2b, stem and gather launches, one per
+  conv; `stem_launches` the stem kernel's alone; `quantize_launches` K2a
+  launches.
 * `int8_conv` is what the models call: a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel, which raises rather than fall back.
 """
@@ -42,6 +46,8 @@ import torch.nn.functional as F
 launches = 0
 #: Launches of K2a, the quantize-to-channels-last pass (reset freely).
 quantize_launches = 0
+#: Launches of the stem kernel, also counted in `launches` (reset freely).
+stem_launches = 0
 
 #: Tile of the kernel's weight operand: rows padded to BLOCK_N, K to BLOCK_K.
 BLOCK_N = 64
@@ -62,12 +68,34 @@ def channels_last(cin):
     return cin % CHANNELS == 0
 
 
+def stem_path(cin, kh, kw):
+    """True where the conv takes the stem kernel: not channels-last, and all
+    of K = Cin*kh*kw in one K step (the RGB stems' 3 x 3 x 3)."""
+    return not channels_last(cin) and cin * kh * kw <= BLOCK_K
+
+
+#: Output pixels a tile of the stem kernel covers, at most, unless one
+#: output row is longer (its stage holds them for 64 channels in shared
+#: memory).
+STEM_TILE_PIXELS = 256
+
+
+def stem_tile(ho, wo):
+    """(rows, cols) of output a tile of the stem kernel covers: each output
+    row split into equal runs of at most 512 columns, rounded up to 16, and
+    as many whole rows as fit in STEM_TILE_PIXELS, at least one."""
+    runs = -(-wo // 512)
+    cols = _round_up(-(-wo // runs), 16)
+    return max(1, min(ho, STEM_TILE_PIXELS // cols)), cols
+
+
 def pack_weight(weight_q):
     """(Cout, Cin, kh, kw) int8 -> the kernels' (Cout_pad, K_pad) int8
     operand: Cout padded to a multiple of 64 and K = Cin*kh*kw to a multiple
     of 32, with zeros. Row co holds weight_q[co] flattened in (r, c, ci)
     order (the HWIO order of the JAX package's `_int8_conv`) where
-    `channels_last(Cin)`, else in (ci, r, c) order (the gather kernel's)."""
+    `channels_last(Cin)`, else in (ci, r, c) order (the stem and gather
+    kernels')."""
     cout, cin = weight_q.shape[:2]
     k = weight_q[0].numel()
     rows = weight_q.permute(0, 2, 3, 1) if channels_last(cin) else weight_q
@@ -141,6 +169,7 @@ def _kernel(name, argtypes):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GATHER_ARGS = [_P, _I] + [_P] * 5 + [_I] * 15 + [_P]
+_STEM_ARGS = [_P, _I] + [_P] * 5 + [_I] * 17 + [_P]
 _QUANTIZE_ARGS = [_P, _I, _P, _P] + [_I] * 5 + [_P]
 _GEMM_ARGS = [_P] * 5 + [_I] * 15 + [_P]
 
@@ -253,10 +282,63 @@ def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
     return y
 
 
+def _nchw_input(what, x, inv, out_dtype):
+    """Checks an NCHW conv input; returns its device."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    if x.dtype not in _CODES or out_dtype not in _CODES:
+        raise TypeError(f"{what} takes f32 / bf16 / int8, got {x.dtype} -> {out_dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous NCHW input, got {tuple(x.shape)}")
+    _check_inv(x, inv)
+    return dev
+
+
+def _nchw_launch(stem, x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride,
+                 dilation):
+    """One launch of the stem kernel (`stem`) or of the gather kernel on an
+    NCHW input, to a new (N, Cout, Ho, Wo) tensor."""
+    global launches, stem_launches
+    what = "int8_conv_cuda" if stem else "gather_conv_cuda"
+    dev = _nchw_input(what, x, inv, out_dtype)
+    n, cin, h, w = x.shape
+    kh, kw = kernel_hw
+    ho, wo, kpad = _conv_geometry(what, dev, cin, h, w, weight_k, kernel_hw, mul, add,
+                                  stride, dilation)
+    cout = mul.shape[0]
+    y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev)
+    if n == 0:
+        return y
+    args = (x.data_ptr(), _CODES[x.dtype], weight_k.data_ptr(),
+            None if x.dtype == torch.int8 else inv.data_ptr(), mul.data_ptr(),
+            None if add is None else add.data_ptr(), y.data_ptr(),
+            _CODES[out_dtype], n, cin, h, w, cout, kh, kw, stride, kh // 2,
+            kw // 2, dilation, ho, wo, kpad) + (stem_tile(ho, wo) if stem else ())
+    fn = (_kernel("tpupose_int8_stem", _STEM_ARGS) if stem
+          else _kernel("tpupose_int8_conv", _GATHER_ARGS))
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _check_launch(rc, "int8_conv stem" if stem else "int8_conv gather")
+    launches += 1
+    stem_launches += stem
+    return y
+
+
+def gather_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
+                     dilation=1):
+    """One launch of the gather kernel, which takes any Cin (the main path
+    sends it none since the stems have their own kernel; chip_smoke.py
+    times it there). Arguments as `int8_conv_cuda`'s."""
+    return _nchw_launch(False, x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride,
+                        dilation)
+
+
 def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
                    dilation=1):
     """One int8 conv on the card: K2a then K2b where `channels_last(Cin)`,
-    else one launch of the gather kernel.
+    one launch of the stem kernel where `stem_path(Cin, kh, kw)`, else one
+    launch of the gather kernel.
 
     Args:
       x: (N, Cin, H, W) contiguous f32, bf16 or int8 on a CUDA device.
@@ -269,38 +351,15 @@ def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
     Launches on the current stream, does not synchronize, and raises on
     anything the kernels do not take and on a failed launch of either pass.
     """
-    global launches
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"int8_conv_cuda needs CUDA tensors, got {dev}")
-    if x.dtype not in _CODES or out_dtype not in _CODES:
-        raise TypeError(f"int8_conv_cuda takes f32 / bf16 / int8, got "
-                        f"{x.dtype} -> {out_dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"int8_conv_cuda needs a contiguous NCHW input, got "
-                         f"{tuple(x.shape)}")
-    _check_inv(x, inv)
-    n, cin, h, w = x.shape
-    kh, kw = kernel_hw
-    ho, wo, kpad = _conv_geometry("int8_conv_cuda", dev, cin, h, w, weight_k,
-                                  kernel_hw, mul, add, stride, dilation)
+    _nchw_input("int8_conv_cuda", x, inv, out_dtype)
+    cin = x.shape[1]
     if channels_last(cin):
+        _conv_geometry("int8_conv_cuda", x.device, cin, x.shape[2], x.shape[3], weight_k,
+                       kernel_hw, mul, add, stride, dilation)
         return gemm_nhwc_cuda(quantize_nhwc_cuda(x, inv), weight_k, kernel_hw, mul,
                               add, out_dtype, stride, dilation)
-    cout = mul.shape[0]
-    y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev)
-    if n == 0:
-        return y
-    fn = _kernel("tpupose_int8_conv", _GATHER_ARGS)
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), _CODES[x.dtype], weight_k.data_ptr(),
-                None if x.dtype == torch.int8 else inv.data_ptr(), mul.data_ptr(),
-                None if add is None else add.data_ptr(), y.data_ptr(),
-                _CODES[out_dtype], n, cin, h, w, cout, kh, kw, stride, kh // 2,
-                kw // 2, dilation, ho, wo, kpad, torch.cuda.current_stream().cuda_stream)
-    _check_launch(rc, "int8_conv gather")
-    launches += 1
-    return y
+    return _nchw_launch(stem_path(cin, *kernel_hw), x, weight_k, kernel_hw, inv, mul, add,
+                        out_dtype, stride, dilation)
 
 
 def int8_conv(x, weight_q, weight_k, inv, mul, add, out_dtype, stride=1,

@@ -180,10 +180,28 @@ def _kernel():
     return lib
 
 
+_FITS: dict[tuple[int, int], bool] = {}
+
+
+def _fits(lib, R, C):
+    """Whether K3 takes (R, C) problems, asked of the library once a shape."""
+    fits = _FITS.get((R, C))
+    if fits is None:
+        fits = _FITS[(R, C)] = lib.tpupose_masked_lap_warps(R, C) > 0
+    return fits
+
+
+def _stream(index):
+    """The raw handle of device `index`'s current stream. The public
+    `torch.cuda.current_stream().cuda_stream` builds a Stream object first,
+    which costs more host time than the rest of a K3 launch's binding."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def empty_launch():
     """One launch of an empty kernel on the current stream (the launch
     cost K3's small batches sit on; measured by chip_smoke.py)."""
-    rc = _kernel().tpupose_empty_launch(torch.cuda.current_stream().cuda_stream)
+    rc = _kernel().tpupose_empty_launch(_stream(torch.cuda.current_device()))
     if rc != 0:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
 
@@ -228,18 +246,23 @@ def masked_lap_cuda(cost, row_valid, col_valid, maximize=False):
     batch = lead.numel()
     if batch == 0 or R == 0:
         return out
+    if C == 0:
+        return out.fill_(-1)
     lib = _kernel()
-    if lib.tpupose_masked_lap_warps(R, C) == 0:
+    if not _fits(lib, R, C):
         raise ValueError(f"masked_lap_cuda: K3 takes at most 256 columns after "
                          f"orientation and 48 KB of shared memory a problem, "
                          f"got ({R}, {C})")
-    cost, row_valid, col_valid = (cost.contiguous(), row_valid.contiguous(),
-                                  col_valid.contiguous())
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tpupose_masked_lap(cost.data_ptr(), row_valid.data_ptr(),
-                                    col_valid.data_ptr(), out.data_ptr(),
-                                    batch, R, C, int(bool(maximize)), stream)
+    cost, row_valid, col_valid = (t if t.is_contiguous() else t.contiguous()
+                                  for t in (cost, row_valid, col_valid))
+    args = (cost.data_ptr(), row_valid.data_ptr(), col_valid.data_ptr(), out.data_ptr(),
+            batch, R, C, int(bool(maximize)))
+    index = cost.device.index
+    if index == torch.cuda.current_device():
+        rc = lib.tpupose_masked_lap(*args, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = lib.tpupose_masked_lap(*args, _stream(index))
     if rc != 0:
         raise RuntimeError(f"masked_lap kernel launch failed: CUDA error {rc}")
     launches += 1
