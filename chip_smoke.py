@@ -29,7 +29,8 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      Cin of 3) runs on the whole batch, and its first and last 8 crops / 4
      images are held against the plain version on those images (the last
      ones sit at the largest offsets), the stems' whole outputs, 64 images
-     a part; then the times of K2, K2a and K2b alone, the plain version and
+     a part; the stem kernel also at five small Cin-3 convs held whole
+     (Cout 2, 8, 24, 40, 56, a W of 70, strides 1 and 2); then the times of K2, K2a and K2b alone, the plain version and
      the bf16 cuDNN conv, all on the whole batch, for HRNet branch 0's 3x3
      48->48 at 96x72 (x640) and YOLO's 3x3 128->256 at 52x52 (x160), and of
      the stem kernel, the gather kernel (the stems' route before), the
@@ -137,7 +138,8 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      submission included), `host_us` (1,000 calls on the host clock while
      the card sleeps) and `device_us` (20 back-to-back calls behind a sleep
      longer than their submission, median of 5 runs), the same for an empty
-     kernel, the plain version's time on the card (S <= 2), the Dijkstra
+     kernel, `op_host_us` (as `host_us`, through the op the tracker calls),
+     the plain version's time on the card (S <= 2), the Dijkstra
      steps of each problem (counted by the plain version), and the latency
      bound: the longest problem's steps times one minimal dependent step,
      timed on a one-warp microkernel; (c) S = 1, 8, 32 streams of different
@@ -168,9 +170,10 @@ kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 K2a's in phase 13 (e) as `learned_int8_launches`; the stem kernel's row
 times HRNet's stem and, under `yolo_stem`, YOLO's; K3's `launches` are
 phase 15 (d)'s int8 run's, and its times those of (a) at (d)'s
-association shape, with `device_us`, `host_us` and the latency bound
-beside the byte bound), the
-nvidia-smi line, and last `{"ok": true, "device": {...}}`. It needs a CUDA
+association shape, with `device_us`, `host_us` and `op_host_us`; its
+`bound_ms` is the latency bound, `bound_by` "latency", and the
+bytes-or-operations bound of the other rows stands beside it as
+`rate_bound_ms`), the nvidia-smi line, and last `{"ok": true, "device": {...}}`. It needs a CUDA
 card and the repository around it; without either it exits non-zero and
 prints no result. The f32 comparisons run with TF32 off (so do phase 11's
 f32 fake-quant convolutions and phase 13's f32 training, but for the
@@ -193,6 +196,13 @@ H100_INT8_OPS_PER_S = 1.979e15  # H100 SXM int8 tensor cores, dense
 MAIN_CROPS, MAIN_IMAGES = 640, 160  # the main path's batches (HRNet, YOLO)
 SUB_CROPS, SUB_IMAGES = 8, 4     # images of a K2 output held against plain
 STEM_PART = 64  # the stems' outputs are held against plain whole, 64 images a part
+#: Stem-kernel convs off the main path, held whole against plain in phase 4:
+#: Cout not a multiple of 16 (the tiny YOLO config's stem has Cout 2), and a
+#: W that takes the scalar loads and stores, with tiles of several rows.
+STEM_EDGE_SHAPES = ((3, 96, 128, 2, 3, 1, 1), (3, 96, 128, 40, 3, 2, 1),
+                    (3, 50, 70, 8, 3, 1, 1), (3, 50, 70, 24, 3, 2, 1),
+                    (3, 64, 96, 56, 3, 1, 1))
+STEM_EDGE_BATCH = 4
 
 #: configs/Shelf/model_configs.yaml as yaml.safe_load reads it, but with
 #: the bench's MAX_CANDIDATES of 4 (bench.py:95-110), so that the CLI's
@@ -433,11 +443,12 @@ def main_path_conv_shapes(torch):
     return hr_shapes, yo_shapes
 
 
-def k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype):
+def k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype, gain=40.0):
     """Random operands of one K2 call: weights, input, 1/x_scale and the
-    epilogue vectors, scaled so that int8 outputs spread over [0, 127]. A
-    float input holds a NaN in its first and its last image (quantized to
-    0, as XLA converts NaN to int8)."""
+    epilogue vectors, scaled so that int8 outputs spread over [0, 127] (their
+    standard deviation `gain` times 0.5-1.5 a channel). A float input holds
+    a NaN in its first and its last image (quantized to 0, as XLA converts
+    NaN to int8)."""
     cin, h, w, cout, k, _, _ = shape
     kk = cin * k * k
     wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, device="cuda",
@@ -454,7 +465,7 @@ def k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype):
     acc_std = code_std * 73.3 * kk ** 0.5
     rnd = torch.rand((cout,), generator=gen, device="cuda") + 0.5
     if out_dtype == torch.int8:
-        mul, add = rnd * (40.0 / acc_std), torch.randn((cout,), generator=gen, device="cuda") * 10
+        mul, add = rnd * (gain / acc_std), torch.randn((cout,), generator=gen, device="cuda") * 10
     else:
         mul, add = rnd / acc_std, torch.randn((cout,), generator=gen, device="cuda")
     return wq, k2.pack_weight(wq), x, inv, mul, add
@@ -560,18 +571,23 @@ def phase_k2(torch, gen, card):
     b16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     modes = [(b16, b16), (b16, i8), (i8, b16), (i8, i8)]
     dilated = (48, 96, 72, 48, 3, 1, 2)
-    cases = ([(sh, MAIN_CROPS, SUB_CROPS, modes) for sh in sorted(hr_shapes)]
-             + [(sh, MAIN_IMAGES, SUB_IMAGES, modes) for sh in sorted(yo_shapes)]
-             + [(dilated, MAIN_CROPS, SUB_CROPS, modes + [(f32, f32), (f32, i8)])])
+    cases = ([(sh, MAIN_CROPS, SUB_CROPS, modes, 40.0) for sh in sorted(hr_shapes)]
+             + [(sh, MAIN_IMAGES, SUB_IMAGES, modes, 40.0) for sh in sorted(yo_shapes)]
+             + [(dilated, MAIN_CROPS, SUB_CROPS, modes + [(f32, f32), (f32, i8)], 40.0)]
+             # few outputs a channel: a wider spread, so that requant-relu
+             # still reaches both of its clamps
+             + [(sh, STEM_EDGE_BATCH, STEM_EDGE_BATCH, modes + [(f32, f32), (f32, i8)],
+                 120.0) for sh in STEM_EDGE_SHAPES])
     checked, stems, gathered, max_err, stem_err = 0, 0, 0, 0.0, 0.0
-    for shape, batch, sub, shape_modes in cases:
+    for shape, batch, sub, shape_modes, gain in cases:
         cin, _, _, _, k, stride, dil = shape
         stem = k2.stem_path(cin, k, k)
         # the stems' outputs whole, the others' first and last images
         parts = ([(first, min(STEM_PART, batch - first)) for first in range(0, batch, STEM_PART)]
                  if stem else [(0, sub), (batch - sub, sub)])
         for in_dtype, out_dtype in shape_modes:
-            wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, in_dtype, out_dtype)
+            wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, in_dtype,
+                                                   out_dtype, gain)
             got = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, out_dtype, stride, dil)
             what = f"K2 {shape} batch {batch} {in_dtype} -> {out_dtype}"
             if out_dtype != i8 and not bool(torch.isfinite(got).all()):
@@ -2198,8 +2214,9 @@ def lap_timings(torch, fn):
 def k3_against_plain(torch, gen):
     """(a): K3 torch.equal to the plain version on a CPU copy of the same
     inputs at the tracker's shapes, ties, zero scores and empty problems
-    included; K3's times (us, host_us, device_us), the plain version's (on
-    the card, S <= 2), an empty kernel's, and K3's latency bound: the
+    included; K3's times (us, host_us, device_us; op_host_us, the host's
+    submission through the op the tracker calls), the plain version's (on
+    the card, S <= 2), an empty kernel's, and K3's bound, by latency: the
     longest problem's Dijkstra steps (counted by the plain version) times
     the card's time for one minimal dependent step."""
     from tpupose_torch.ops import lap
@@ -2233,14 +2250,20 @@ def k3_against_plain(torch, gen):
         # the plain version on the card reads the device per JV step: slow
         plain_ms = (cuda_time_ms(lambda: lap.masked_lap_plain(cost, rv, cv, maximize),
                                  warmup=1, reps=3) if batch <= 10 else None)
+        # the tracker's path: the op `tpupose_torch::masked_lap`, then K3
+        op_host_us = host_us_per_call(torch, lambda: lap.masked_lap(cost, rv, cv, maximize))
         cs = max(shape)
         moved = batch * (shape[0] * shape[1] * 4 + shape[0] + shape[1]) + batch * shape[0] * 8
-        # each Dijkstra step: 7 f32 operations a column
+        # each Dijkstra step: 7 f32 operations a column; bytes and operations
+        # bound K3 far below its chain of dependent steps
+        rate = bound(moved, 7 * cs * sum(steps), H100_F32_OPS_PER_S)
         rows.append({"site": site, "batch": batch, "shape": list(shape), "maximize": maximize,
-                     **times, "plain_ms": plain_ms, "steps_max": max(steps),
-                     "steps_total": sum(steps), "us_per_step": times["device_us"] / max(steps),
-                     "latency_bound_us": max(steps) * step_us, "latency_bound_by": "latency",
-                     **bound(moved, 7 * cs * sum(steps), H100_F32_OPS_PER_S)})
+                     **times, "op_host_us": op_host_us, "plain_ms": plain_ms,
+                     "steps_max": max(steps), "steps_total": sum(steps),
+                     "us_per_step": times["device_us"] / max(steps),
+                     "bound_ms": max(steps) * step_us / 1e3, "bound_by": "latency",
+                     "rate_bound_ms": rate["bound_ms"], "rate_bound_by": rate["bound_by"],
+                     "bytes": moved, "ops": rate["ops"]})
     return {"problems_checked": checked, "shapes": rows, "step_us": step_us,
             "step_chain_device_us": chain_us,
             "empty_kernel": lap_timings(torch, lap.empty_launch), "max_abs_err": 0.0,
@@ -2644,7 +2667,7 @@ def main():
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None, "us": k3["us"],
         "device_us": k3["device_us"], "host_us": k3["host_us"],
-        "latency_bound_ms": k3["latency_bound_us"] / 1e3, "latency_bound_by": "latency",
+        "op_host_us": k3["op_host_us"], "rate_bound_ms": k3["rate_bound_ms"],
         "steps_max": k3["steps_max"], "step_us": multistream["k3"]["step_us"],
         "shape": [k3["batch"]] + k3["shape"],
         "empty_kernel_ms": multistream["k3"]["empty_kernel"]["us"] / 1e3,

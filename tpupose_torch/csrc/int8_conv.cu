@@ -73,20 +73,29 @@
 // them the output: HRNet's stem 3x3 s2 3->64 at 384x288 on 640 crops reads
 // 424.7 MB of bf16 and writes 2,265 MB (0.8029 ms at 3.35 TB/s, for 0.05 T
 // int-ops); YOLO's 3x3 3->32 at 416x416 on 160 images 1.938 GB (0.5786
-// ms). Persistent blocks walk over tiles of `rows` x `cols` output pixels
-// of one image (whole rows where a row is at most 512 wide: HRNet 1 x 144,
-// YOLO 1 x 416), for 64 output channels. A block loads the input halo of
-// its next tile as 16-byte cp.async copies along W while it works on the
-// current one, quantizes each element once and keeps it as int8 in
-// shared memory; all of K is one m16n8k32 step. The mma's rows are the
-// output channels (A: the 64 weight rows in `pack_weight`'s (ci, r, c)
-// order, in registers for the whole block) and its columns 8 pixels (B:
-// fragment words of four taps of one pixel, gathered from the halo), so an
-// accumulator pair is one channel at two neighbouring pixels and leaves as
-// one store into a stage in shared memory, one row of pixels per channel.
-// The stage leaves as 16-byte stores along W of each NCHW plane, so a warp
-// fills whole 32-byte sectors, and drains while the block goes on to its
-// next tile.
+// ms). One block a tile of `rows` x `cols` output pixels of one image
+// (runs of at most 512 columns, as many whole rows as fit in 256 pixels,
+// at least one: HRNet 1 x 144, YOLO 1 x 416), for 64 output channels; the
+// grid is images x tiles x Cout / 64.
+// The block loads its raw input halo in one round of 16-byte cp.async
+// copies along W (zero-filled outside the image; scalar loads where W or x
+// is not 16-byte aligned), quantizes each element once, one chunk a lane,
+// and keeps the codes as int8 in shared memory; all of K is one m16n8k32
+// step. The mma's rows are the output channels (A: the 64 weight rows in
+// `pack_weight`'s (ci, r, c) order, in registers for the whole block) and
+// its columns 8 pixels (B: fragment words of four taps of one pixel,
+// gathered from the halo at offsets the host computes), so an accumulator
+// pair is one channel at two neighbouring pixels and leaves as one store
+// into a stage in shared memory, one row of pixels per channel (the stage
+// has a row for every channel of the 16-channel tiles the block computes,
+// Cout rounded up to 16, at most 64). One thread a channel's run (its
+// tile row, or all the tile's rows where they are whole output rows) sends
+// the run to its NCHW plane as one TMA bulk copy (`cp.async.bulk`, off the
+// warps' load / store pipe), or element by element where the run or its
+// destination is not 16-byte aligned. Measured on an H100 80GB HBM3 at
+// 700 W, persistent blocks that prefetched the next tile's halo into a
+// second buffer, and tiles of more than one row at the stems' widths,
+// were slower.
 //
 // Any other Cin: one launch of the gather kernel `int8_conv_kernel` (once the
 // kernel of every Cin; on the main path it now runs no conv), which reads
@@ -794,7 +803,8 @@ struct StemTile {
   int halo_bytes;            // cin * halo_rows * halo_stride, rounded up to 16
   int raw_bytes;             // one raw halo buffer: cin * halo_rows * raw_chunks * 16
   int stage_stride;          // bytes per output channel row of the stage
-  int stage_bytes;           // min(64, Cout rounded up to 8) rows, rounded up to 16
+  int stage_bytes;           // min(64, Cout rounded up to 16) rows: every row the
+                             // block's 16-channel mma tiles write
   int off[32];               // K position -> halo offset from its pixel; -1 past K
 };
 
@@ -811,7 +821,7 @@ StemTile stem_tile(const Shape& s, int rows, int cols) {
   t.halo_bytes = (s.cin * t.halo_rows * t.halo_stride + 15) / 16 * 16;
   t.raw_bytes = s.cin * t.halo_rows * t.raw_chunks * 16;
   t.stage_stride = rows * cols * static_cast<int>(sizeof(typename Out<OUT>::T)) + 16;
-  t.stage_bytes = min(kSN, (s.cout + 7) / 8 * 8) * t.stage_stride;
+  t.stage_bytes = min(kSN, (s.cout + 15) / 16 * 16) * t.stage_stride;
   const int taps = s.kh * s.kw;
   for (int k = 0; k < 32; ++k) {
     const int ci = k / taps, r = (k - ci * taps) / s.kw, c = k - ci * taps - r * s.kw;
@@ -933,7 +943,7 @@ int8_stem_kernel(const void* __restrict__ x, const int8_t* __restrict__ wk,
   using Raw = typename Src<IN>::T;
   using O = typename Out<OUT>::T;
   constexpr int E = 16 / static_cast<int>(sizeof(Raw));  // input elements a chunk
-  extern __shared__ __align__(16) int8_t smem[];
+  extern __shared__ __align__(128) int8_t smem[];
   int8_t* const halo = smem;
   int8_t* const stage = halo + t.halo_bytes;
   Raw* const raw = reinterpret_cast<Raw*>(stage);

@@ -295,13 +295,12 @@ def _nchw_input(what, x, inv, out_dtype):
     return dev
 
 
-def _nchw_launch(stem, x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride,
-                 dilation):
+def _nchw_launch(what, dev, stem, x, weight_k, kernel_hw, inv, mul, add, out_dtype,
+                 stride, dilation):
     """One launch of the stem kernel (`stem`) or of the gather kernel on an
-    NCHW input, to a new (N, Cout, Ho, Wo) tensor."""
+    NCHW input that `_nchw_input` has passed (on `dev`), to a new
+    (N, Cout, Ho, Wo) tensor."""
     global launches, stem_launches
-    what = "int8_conv_cuda" if stem else "gather_conv_cuda"
-    dev = _nchw_input(what, x, inv, out_dtype)
     n, cin, h, w = x.shape
     kh, kw = kernel_hw
     ho, wo, kpad = _conv_geometry(what, dev, cin, h, w, weight_k, kernel_hw, mul, add,
@@ -330,8 +329,9 @@ def gather_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
     """One launch of the gather kernel, which takes any Cin (the main path
     sends it none since the stems have their own kernel; chip_smoke.py
     times it there). Arguments as `int8_conv_cuda`'s."""
-    return _nchw_launch(False, x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride,
-                        dilation)
+    dev = _nchw_input("gather_conv_cuda", x, inv, out_dtype)
+    return _nchw_launch("gather_conv_cuda", dev, False, x, weight_k, kernel_hw, inv, mul,
+                        add, out_dtype, stride, dilation)
 
 
 def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
@@ -351,15 +351,15 @@ def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
     Launches on the current stream, does not synchronize, and raises on
     anything the kernels do not take and on a failed launch of either pass.
     """
-    _nchw_input("int8_conv_cuda", x, inv, out_dtype)
+    dev = _nchw_input("int8_conv_cuda", x, inv, out_dtype)
     cin = x.shape[1]
     if channels_last(cin):
-        _conv_geometry("int8_conv_cuda", x.device, cin, x.shape[2], x.shape[3], weight_k,
+        _conv_geometry("int8_conv_cuda", dev, cin, x.shape[2], x.shape[3], weight_k,
                        kernel_hw, mul, add, stride, dilation)
         return gemm_nhwc_cuda(quantize_nhwc_cuda(x, inv), weight_k, kernel_hw, mul,
                               add, out_dtype, stride, dilation)
-    return _nchw_launch(stem_path(cin, *kernel_hw), x, weight_k, kernel_hw, inv, mul, add,
-                        out_dtype, stride, dilation)
+    return _nchw_launch("int8_conv_cuda", dev, stem_path(cin, *kernel_hw), x, weight_k,
+                        kernel_hw, inv, mul, add, out_dtype, stride, dilation)
 
 
 def int8_conv(x, weight_q, weight_k, inv, mul, add, out_dtype, stride=1,

@@ -180,17 +180,6 @@ def _kernel():
     return lib
 
 
-_FITS: dict[tuple[int, int], bool] = {}
-
-
-def _fits(lib, R, C):
-    """Whether K3 takes (R, C) problems, asked of the library once a shape."""
-    fits = _FITS.get((R, C))
-    if fits is None:
-        fits = _FITS[(R, C)] = lib.tpupose_masked_lap_warps(R, C) > 0
-    return fits
-
-
 def _stream(index):
     """The raw handle of device `index`'s current stream. The public
     `torch.cuda.current_stream().cuda_stream` builds a Stream object first,
@@ -249,7 +238,7 @@ def masked_lap_cuda(cost, row_valid, col_valid, maximize=False):
     if C == 0:
         return out.fill_(-1)
     lib = _kernel()
-    if not _fits(lib, R, C):
+    if lib.tpupose_masked_lap_warps(R, C) <= 0:
         raise ValueError(f"masked_lap_cuda: K3 takes at most 256 columns after "
                          f"orientation and 48 KB of shared memory a problem, "
                          f"got ({R}, {C})")
@@ -258,11 +247,8 @@ def masked_lap_cuda(cost, row_valid, col_valid, maximize=False):
     args = (cost.data_ptr(), row_valid.data_ptr(), col_valid.data_ptr(), out.data_ptr(),
             batch, R, C, int(bool(maximize)))
     index = cost.device.index
-    if index == torch.cuda.current_device():
+    with torch.cuda.device(index):
         rc = lib.tpupose_masked_lap(*args, _stream(index))
-    else:
-        with torch.cuda.device(index):
-            rc = lib.tpupose_masked_lap(*args, _stream(index))
     if rc != 0:
         raise RuntimeError(f"masked_lap kernel launch failed: CUDA error {rc}")
     launches += 1
