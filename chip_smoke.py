@@ -6,7 +6,8 @@
     python3 chip_smoke.py --only k2 k3            # phases 4 and 15 (a) alone
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
-memory holds none of phase 5's models); the first that fails ends the run
+memory holds none of phase 5's models, and 16 in two parts, (c) after 8
+and (a), (b) inside 10); the first that fails ends the run
 with a non-zero exit. "Host syncs" are the host's waits on the card inside
 the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
 (`counted_syncs`); K3 launches are counted where the tracker runs:
@@ -35,7 +36,10 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      48->48 at 96x72 (x640) and YOLO's 3x3 128->256 at 52x52 (x160), and of
      the stem kernel, the gather kernel (the stems' route before), the
      plain version and cuDNN at HRNet's stem 3x3 s2 3->64 at 384x288 (x640)
-     and YOLO's 3x3 3->32 at 416x416 (x160), each with its bound;
+     and YOLO's 3x3 3->32 at 416x416 (x160), each with its bound; K2a and
+     K2 also at width-packed branch 0 (`ops.packing`: 3x3 96->96 at 96x36,
+     x640, K = 864), checked as the main path's shapes and timed beside
+     the unpacked branch 0, with the bf16 cuDNN conv's bound;
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
@@ -160,6 +164,25 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      int8), peak memory, host syncs; each stream's stage B equal to
      `track_clip` on its own stage-A detections, and (bf16, information)
      the share of its masks equal to `process_clip_nn`'s on the same frames.
+ 16. serving bundles and packing (`bundle_pack`): (c), after phase 8:
+     `Pipeline.pack_models` on phase 5's bf16 models and on phase 6's int8
+     pipeline, `process_clip` on phase 5's clip before and after from a
+     fresh tracker (int8: detections and FrameOutputs torch.equal, K2
+     launches at the packed input 64 of 364; bf16: equal masks, and on 64
+     random crops the packed HRNet's heatmaps within 1e-4 of the unpacked
+     ones in f32 and within 2x bf16's own error of them in bf16, relative
+     norms; the decoded keypoints' agreement reported), then
+     stage A unpacked and packed in turns (U P P U U P), int8 with K2's
+     time in each; (a) and (b), inside phase 10 on its files and frames:
+     `cli.convert.convert_checkpoints` writes a bf16 bundle, then an int8
+     one quantized on the 8 calibration frames with on_drift="warn";
+     `build_pipeline_real(bundle=...)` serves each with the checkpoint
+     converters replaced by a function that fails; every tensor torch.equal
+     to phase 10's pipeline (folded, or quantized in process); the CLI loop
+     over the 68 frames gives phase 10's stage A detections (torch.equal),
+     poses, launch counts and byte-equal per-camera JSONs (on random
+     weights the tracker may confirm no track: the poses and JSONs are then
+     empty on both sides); convert and load seconds, bundle MB.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
@@ -167,7 +190,10 @@ the kernels and runs only phase 4 (k2) and phase 15 (a) (k3).
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
-K2a's in phase 13 (e) as `learned_int8_launches`; the stem kernel's row
+K2a's in phase 13 (e) as `learned_int8_launches`, K2's in phase 16 (b)'s
+bundle loop as `bundle_launches`; K2's `packed_branch0` holds phase 4's
+times and bounds at the packed branch-0 shape beside the unpacked one's
+and phase 16 (c)'s K2 launches at that shape a packed clip; the stem kernel's row
 times HRNet's stem and, under `yolo_stem`, YOLO's; K3's `launches` are
 phase 15 (d)'s int8 run's, and its times those of (a) at (d)'s
 association shape, with `device_us`, `host_us` and `op_host_us`; its
@@ -193,6 +219,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 H100_F32_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
 H100_INT8_OPS_PER_S = 1.979e15  # H100 SXM int8 tensor cores, dense
+H100_BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 MAIN_CROPS, MAIN_IMAGES = 640, 160  # the main path's batches (HRNet, YOLO)
 SUB_CROPS, SUB_IMAGES = 8, 4     # images of a K2 output held against plain
 STEM_PART = 64  # the stems' outputs are held against plain whole, 64 images a part
@@ -203,12 +230,16 @@ STEM_EDGE_SHAPES = ((3, 96, 128, 2, 3, 1, 1), (3, 96, 128, 40, 3, 2, 1),
                     (3, 50, 70, 8, 3, 1, 1), (3, 50, 70, 24, 3, 2, 1),
                     (3, 64, 96, 56, 3, 1, 1))
 STEM_EDGE_BATCH = 4
+#: HRNet-W48's branch-0 3x3 conv, 48->48 at 96x72, and its width-packed
+#: form (`ops.packing`): 96->96 at 96x36, K = 864 (phase 4, phase 16 (c)).
+BRANCH0 = (48, 96, 72, 48, 3, 1, 1)
+BRANCH0_PACKED = (96, 96, 36, 96, 3, 1, 1)
 
 #: configs/Shelf/model_configs.yaml as yaml.safe_load reads it, but with
 #: the bench's MAX_CANDIDATES of 4 (bench.py:95-110), so that the CLI's
 #: stage A has phase 5's size. Phase 10 also points WEIGHT, CHECKPOINT_FILE,
 #: ROOT and OUTPUT at its temporary files (`shelf_config`). Written out here
-#: because the card's machine has no PyYAML.
+#: so that the script needs no YAML reader (PyYAML is optional for the port).
 SHELF_CONFIG = {
     "TEST_FUNCTION": "PersonTrack_Project3DPose",
     "PIPELINE_COMBINATION": {
@@ -486,16 +517,18 @@ def k2a_input(torch, gen, shape, batch, dtype):
 def phase_k2a(torch, gen, hr_shapes, yo_shapes):
     """K2a against its plain version, torch.equal on the whole output, at
     every distinct (Cin, H, W) of the quantized convs at the main path's
-    batch: bf16 and int8 inputs, and f32 at branch 0's input."""
+    batch (and at packed branch 0's): bf16 and int8 inputs, and f32 at
+    branch 0's input, packed and not."""
     from tpupose_torch.ops import int8_conv as k2
 
     inv = torch.tensor([127.0 / 8.0], device="cuda")
     inputs = sorted({(sh[:3], MAIN_CROPS) for sh in hr_shapes}
+                    | {(BRANCH0_PACKED[:3], MAIN_CROPS)}
                     | {(sh[:3], MAIN_IMAGES) for sh in yo_shapes})
     checked = 0
     for shape, batch in inputs:
         dtypes = [torch.bfloat16, torch.int8]
-        if shape == (48, 96, 72):
+        if shape in (BRANCH0[:3], BRANCH0_PACKED[:3]):
             dtypes.append(torch.float32)
         for dtype in dtypes:
             x = k2a_input(torch, gen, shape, batch, dtype)
@@ -554,6 +587,8 @@ def time_k2(torch, gen, shape, batch, with_plain=True):
     wb = torch.randn((cout, cin, k, k), generator=gen, device="cuda").to(b16)
     out["bf16_cudnn_ms"] = cuda_time_ms(
         lambda: F.conv2d(x, wb, stride=stride, padding=k // 2, dilation=dil), reps=10)
+    out["bf16_cudnn_bound"] = bound(x.numel() * 2 + wb.numel() * 2 + y.numel() * 2, ops,
+                                    H100_BF16_OPS_PER_S)
     return out
 
 
@@ -571,7 +606,8 @@ def phase_k2(torch, gen, card):
     b16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     modes = [(b16, b16), (b16, i8), (i8, b16), (i8, i8)]
     dilated = (48, 96, 72, 48, 3, 1, 2)
-    cases = ([(sh, MAIN_CROPS, SUB_CROPS, modes, 40.0) for sh in sorted(hr_shapes)]
+    cases = ([(sh, MAIN_CROPS, SUB_CROPS, modes, 40.0)
+              for sh in sorted(hr_shapes) + [BRANCH0_PACKED]]
              + [(sh, MAIN_IMAGES, SUB_IMAGES, modes, 40.0) for sh in sorted(yo_shapes)]
              + [(dilated, MAIN_CROPS, SUB_CROPS, modes + [(f32, f32), (f32, i8)], 40.0)]
              # few outputs a channel: a wider spread, so that requant-relu
@@ -611,7 +647,8 @@ def phase_k2(torch, gen, card):
             del x, got
     timed = {name: time_k2(torch, gen, shape, batch, with_plain)
              for name, shape, batch, with_plain in (
-                 ("hrnet_branch0_3x3_48", (48, 96, 72, 48, 3, 1, 1), MAIN_CROPS, True),
+                 ("hrnet_branch0_3x3_48", BRANCH0, MAIN_CROPS, True),
+                 ("hrnet_branch0_packed_3x3_96", BRANCH0_PACKED, MAIN_CROPS, True),
                  ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES, True),
                  ("hrnet_stem_3x3_s2_3_64", (3, 384, 288, 64, 3, 2, 1), MAIN_CROPS, True),
                  ("yolo_stem_3x3_3_32", (3, 416, 416, 32, 3, 1, 1), MAIN_IMAGES, True))}
@@ -621,7 +658,8 @@ def phase_k2(torch, gen, card):
             "compared_images": {"hrnet_w48": 2 * SUB_CROPS, "yolov3_416": 2 * SUB_IMAGES,
                                 "stems": "all"},
             "distinct_shapes": {
-                "hrnet_w48": len(hr_shapes), "yolov3_416": len(yo_shapes), "dilated": 1},
+                "hrnet_w48": len(hr_shapes), "yolov3_416": len(yo_shapes), "dilated": 1,
+                "hrnet_w48_packed_branch0": 1},
             "quantized_convs": {"hrnet_w48": sum(hr_shapes.values()),
                                 "yolov3_416": sum(yo_shapes.values())},
             "max_abs_err": max_err, "timed": timed, "library_ms": None}
@@ -804,12 +842,14 @@ def phase_int8_path(torch, card, main):
     }
 
 
-def k2_time_in_stage_a(torch, pipe, clip):
+def k2_time_in_stage_a(torch, pipe, clip, shape=None):
     """Summed device time of the K2 launches in one int8 stage A, by CUDA
-    events around each launch (after the counted runs; no host syncs)."""
+    events around each launch (after the counted runs; no host syncs), and
+    the number of launches; with `shape`, a (C, H, W) input, also the
+    number of launches at it."""
     from tpupose_torch.ops import int8_conv as k2
 
-    events, inner = [], k2.int8_conv_cuda
+    events, inner, at_shape = [], k2.int8_conv_cuda, [0]
 
     def timed(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -818,6 +858,7 @@ def k2_time_in_stage_a(torch, pipe, clip):
         y = inner(*args, **kw)
         end.record()
         events.append((start, end))
+        at_shape[0] += tuple(args[0].shape[1:]) == shape
         return y
 
     k2.int8_conv_cuda = timed
@@ -826,7 +867,9 @@ def k2_time_in_stage_a(torch, pipe, clip):
     finally:
         k2.int8_conv_cuda = inner
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events), len(events)
+    if shape is None:
+        return sum(s.elapsed_time(e) for s, e in events), len(events)
+    return sum(s.elapsed_time(e) for s, e in events), len(events), at_shape[0]
 
 
 def phase_resident(torch, card, pipe, clip):
@@ -913,6 +956,137 @@ def phase_staged(torch, card, pipe, clip, frame_ids):
                  f"{float(err.max())}")
         worst = max(worst, float(err.max()))
     return {"card": card, "frames": n, "masks_equal": True, "dets_max_abs_diff": worst}
+
+
+PACK_TIMED_ORDER = "UPPUUP"  # phase 16 (c): stage A unpacked (U) and packed (P) in turns
+PACK_CROPS = 64  # random crops for phase 16 (c)'s heatmap check
+#: Phase 16 (c), bf16: packing may change the heatmaps by at most this
+#: multiple of bf16's own error (bf16 against f32 on the same weights, in
+#: relative norm): two independent bf16 roundings differ by about sqrt(2)
+#: times one. In f32 (TF32 off) the packed net is held within this
+#: relative norm of the unpacked one, the CPU tests' 1e-4.
+PACK_BF16_ERR_MULT, PACK_F32_REL = 2.0, 1e-4
+
+
+def packed_heatmaps(torch, unpacked, packed):
+    """Heatmaps of the unpacked and packed HRNet on the same random crops,
+    in bf16 and in f32 (copies of the bf16 weights cast to f32): relative
+    norms of packed against unpacked and of bf16 against f32, and the share
+    of planes whose argmax agrees packed and unpacked in bf16."""
+    import copy
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((PACK_CROPS, 3, *unpacked.cfg.input_size), generator=gen, device="cuda")
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    with torch.inference_mode():
+        hu, hp = unpacked(x, torch.bfloat16), packed(x, torch.bfloat16)
+        hu32 = copy.deepcopy(unpacked).float()(x, torch.float32)
+        hp32 = copy.deepcopy(packed).float()(x, torch.float32)
+    argmax_equal = (hu.flatten(2).argmax(-1) == hp.flatten(2).argmax(-1)).float().mean()
+    return {"crops": PACK_CROPS, "bf16_packed_vs_unpacked": rel(hp, hu),
+            "bf16_vs_f32": rel(hu, hu32), "f32_packed_vs_unpacked": rel(hp32, hu32),
+            "bf16_argmax_equal_share": float(argmax_equal)}
+
+
+def pack_one(torch, pipe, clip, frame_ids, mode):
+    """Phase 16 (c) for one pipeline: `process_clip` before and after
+    `Pipeline.pack_models` from a fresh tracker, the packed clip's K1 / K2
+    / K2a / stem launches counted from 0, then stage A (`process_clip_nn`,
+    to a sync) unpacked and packed in turns; int8 also K2's summed time in
+    each stage A. The pipeline is left unpacked."""
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.ops import int8_conv as k2
+
+    pipe.track_restart()
+    outs_u, dets_u, mask_u = pipe.process_clip(frame_ids, clip)
+    unpacked = (pipe.pose_cfg, pipe.pose_model)
+    pipe.pack_models()
+    packed = (pipe.pose_cfg, pipe.pose_model)
+    if not packed[0].pack_branch0 or packed[1] is unpacked[1]:
+        fail(f"pack_models ({mode}) did not swap in a packed pose model")
+    pipe.track_restart()
+    torch.cuda.synchronize()
+    th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
+    outs_p, dets_p, mask_p = pipe.process_clip(frame_ids, clip)
+    torch.cuda.synchronize()
+    launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
+                "k2_stem": k2.stem_launches}
+    expect = STEP_LAUNCHES[mode]
+    if (launches["k1"], launches["k2"], launches["k2a"], launches["k2_stem"]) != (
+            expect["heatmap.launches"], expect["int8_conv.launches"],
+            expect["int8_conv.quantize_launches"], expect["int8_conv.stem_launches"]):
+        fail(f"the packed {mode} clip launched {launches}, expected {expect}")
+    if not torch.equal(mask_p, mask_u):
+        fail(f"packed {mode} clip: detection masks differ from the unpacked clip")
+    out = {"launches": launches, "masks_equal": True, "detections_valid": int(mask_u.sum())}
+    err = (dets_p - dets_u).abs()[mask_u]
+    close = err <= 2e-2 + 1e-3 * dets_u.abs()[mask_u]
+    out["dets_max_abs_diff"] = float(err.max()) if err.numel() else 0.0
+    out["share_within_2e-2"] = float(close.float().mean()) if err.numel() else 1.0
+    if mode == "int8":
+        # int32 sums are exact and the structural zeros add nothing
+        if not torch.equal(dets_p, dets_u):
+            fail(f"packed int8 clip: detections differ from the unpacked clip by up to "
+                 f"{out['dets_max_abs_diff']}")
+        for field in ("valid", "track_id", "pose3d"):
+            if not torch.equal(getattr(outs_p, field), getattr(outs_u, field)):
+                fail(f"packed int8 clip: FrameOutput.{field} differs from the unpacked clip")
+        out["dets_equal"] = out["outputs_equal"] = True
+    else:
+        # cuDNN sums packed convs in another order: the decoded keypoints of
+        # random weights' near-flat heatmaps flip their argmax (reported),
+        # so the check is on the heatmaps
+        heat = out["heatmaps"] = packed_heatmaps(torch, unpacked[1], packed[1])
+        if heat["f32_packed_vs_unpacked"] > PACK_F32_REL:
+            fail(f"packed HRNet in f32: relative difference {heat['f32_packed_vs_unpacked']} "
+                 f"from the unpacked one, above {PACK_F32_REL}")
+        if heat["bf16_packed_vs_unpacked"] > PACK_BF16_ERR_MULT * heat["bf16_vs_f32"]:
+            fail(f"packed HRNet in bf16: relative difference {heat['bf16_packed_vs_unpacked']} "
+                 f"from the unpacked one, above {PACK_BF16_ERR_MULT} x bf16's own "
+                 f"{heat['bf16_vs_f32']}")
+
+    times = {"U": [], "P": []}
+    k2_ms = {}
+    for which in PACK_TIMED_ORDER:
+        pipe.pose_cfg, pipe.pose_model = unpacked if which == "U" else packed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process_clip_nn(clip)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3)
+    if mode == "int8":
+        for which in "UP":
+            pipe.pose_cfg, pipe.pose_model = unpacked if which == "U" else packed
+            k2_ms[which], _, out[f"k2_launches_at_packed_shape_{which}"] = k2_time_in_stage_a(
+                torch, pipe, clip, BRANCH0_PACKED[:3])
+        cfg = unpacked[0]
+        n_packed = 2 * cfg.stage_blocks * sum(cfg.stage_modules)  # conv1, conv2 a block
+        if (out["k2_launches_at_packed_shape_U"], out["k2_launches_at_packed_shape_P"]) != (
+                0, n_packed):
+            fail(f"K2 launches at the packed branch-0 input: {out['k2_launches_at_packed_shape_U']}"
+                 f" unpacked, {out['k2_launches_at_packed_shape_P']} packed, expected 0 and "
+                 f"{n_packed}")
+    pipe.pose_cfg, pipe.pose_model = unpacked
+    out.update(stage_a_ms={"unpacked": times["U"], "packed": times["P"]},
+               stage_a_median_ms={"unpacked": statistics.median(times["U"]),
+                                  "packed": statistics.median(times["P"])})
+    out["stage_a_ratio"] = out["stage_a_median_ms"]["packed"] / out["stage_a_median_ms"]["unpacked"]
+    if k2_ms:
+        out["k2_ms_in_stage_a"] = {"unpacked": k2_ms["U"], "packed": k2_ms["P"]}
+    return out
+
+
+def phase_pack(torch, card, int8_pipe, float_models, clip, frame_ids):
+    """Phase 16 (c): `Pipeline.pack_models` on phase 5's bf16 models and on
+    phase 6's int8 pipeline, on phase 5's clip (see `pack_one`)."""
+    from tpupose_torch.pipeline import Pipeline
+
+    int8 = pack_one(torch, int8_pipe, clip, frame_ids, "int8")
+    return {"card": card, "int8": int8,
+            "bf16": pack_one(torch, Pipeline(*float_models), clip, frame_ids, "bf16")}
 
 
 def phase_tracker(torch, card):
@@ -1028,6 +1202,7 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
     calls = {"process_clip": [], "process_frame": []}
     returned = {"process_clip": [], "process_frame": []}  # host clock at return
     syncs = [0]
+    detections = []  # (detections, mask) of each call, in order
 
     def timed(name):
         fn = getattr(pipe, name)
@@ -1040,6 +1215,7 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
             torch.cuda.synchronize()
             calls[name].append((time.perf_counter() - t0) * 1e3)
             syncs[0] += counted["syncs"]
+            detections.append(out[1:])
             return out
         return run
 
@@ -1088,7 +1264,7 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
         "host_syncs_per_frame": syncs[0] / frames.shape[0],
         "confirmed_track_frames": sum(len(p) for p in multi_poses3d.values()),
         "annotations": len(annotations),
-    }, (multi_poses3d, annotations)
+    }, (multi_poses3d, annotations, detections)
 
 
 def clip_split(torch, pipe, frames, **capacities):
@@ -1220,6 +1396,8 @@ def phase_cli_path(torch, card):
         frames = torch.randint(0, 256, (CLI_FRAMES, views, CLI_HEIGHT, CLI_WIDTH, 3),
                                generator=gen, device="cuda", dtype=torch.uint8).cpu().numpy()
         n_clips, n_tail = divmod(CLI_FRAMES, CLI_CLIP)
+        camera_parameter = {"P": scene.P, "K": scene.K, "RT": scene.RT}
+        direct = {}  # each mode's served modules and loop outputs, for phase 16
         for mode in ("bf16", "int8"):
             if mode == "int8":
                 log = io.StringIO()
@@ -1234,8 +1412,8 @@ def phase_cli_path(torch, card):
                 out["quantize_s"] = time.perf_counter() - t0
                 out["self_check"] = {"printed": log.getvalue().strip().splitlines(),
                                      **pipe.last_quant_report}
-            run, (multi_poses3d, annotations) = cli_loop(torch, cfg, pipe, frames, card,
-                                                         counters)
+            run, (multi_poses3d, annotations, detections) = cli_loop(torch, cfg, pipe, frames,
+                                                                     card, counters)
             expect = {k: (n_clips + n_tail) * v for k, v in STEP_LAUNCHES[mode].items()}
             if run["launches"] != expect:
                 fail(f"CLI loop ({mode}) launched {run['launches']}, expected {expect}")
@@ -1247,7 +1425,120 @@ def phase_cli_path(torch, card):
                                        max_hyp=24)]
             run["artifacts"] = check_artifacts(cfg, multi_poses3d, annotations, scene)
             out[mode] = run
-        del pipe, frames
+            direct[mode] = {"detector": pipe.detector, "pose_model": pipe.pose_model,
+                            "poses": multi_poses3d, "annotations": annotations,
+                            "detections": detections}
+        del pipe
+        bundles = bundle_serving(torch, card, cfg, camera_parameter, frames, direct, counters)
+        bundles["load_s_from_checkpoints"] = out["load_s"]
+        del frames, direct
+    return out, bundles
+
+
+BUNDLE_CONVERTERS = ("load_darknet_weights", "read_darknet_file",
+                     "darknet_array_to_state_dict", "load_hrnet_torch_checkpoint")
+
+
+def json_bytes_equal(annotations, ref, root):
+    """The per-camera JSONs `write_2d_result` writes for `annotations` and
+    for `ref`, compared byte for byte; returns the number of files."""
+    from tpupose_torch.eval import write_2d_result
+
+    dirs = [os.path.join(root, name) for name in ("got", "ref")]
+    for d, anns in zip(dirs, (annotations, ref)):
+        write_2d_result((CLI_HEIGHT, CLI_WIDTH), anns, save_dir=d)
+    names = sorted(os.listdir(dirs[1])) if os.path.isdir(dirs[1]) else []
+    if (sorted(os.listdir(dirs[0])) if os.path.isdir(dirs[0]) else []) != names:
+        fail("bundle: the per-camera JSON files differ from the direct run's")
+    for name in names:
+        with open(os.path.join(dirs[0], name), "rb") as a, open(os.path.join(dirs[1], name), "rb") as b:
+            if a.read() != b.read():
+                fail(f"bundle: {name} differs from the direct run's")
+    return len(names)
+
+
+def bundle_serving(torch, card, cfg, camera_parameter, frames, direct, counters):
+    """Phase 16 (a) and (b): `cli.convert.convert_checkpoints` writes a bf16
+    bundle and an int8 one (quantized on phase 10's 8 calibration frames,
+    on_drift="warn") from phase 10's checkpoint files; `build_pipeline_real(
+    bundle=...)` serves each with the checkpoint converters replaced by a
+    function that fails; every tensor equals phase 10's directly loaded (or
+    in-process quantized) models', and `run_eval_loop` over phase 10's
+    frames gives its stage A detections (torch.equal, every call), poses
+    and byte-equal per-camera JSONs, with phase 10's launch counts."""
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from tpupose_torch.cli import common as cli
+    from tpupose_torch.cli import convert
+    from tpupose_torch.models import convert as mconv
+
+    out = {"card": card}
+    n_clips, n_tail = divmod(CLI_FRAMES, CLI_CLIP)
+    calib = np.concatenate(frames[:CLI_CALIB], axis=0)
+    for mode in ("bf16", "int8"):
+        with tempfile.TemporaryDirectory() as root:
+            bundle = os.path.join(root, f"bundle_{mode}")
+            log = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with redirect_stdout(log):
+                manifest, _, _ = convert.convert_checkpoints(
+                    cfg, bundle, int8=mode == "int8", calib_images=calib,
+                    camera_parameter=camera_parameter, on_drift="warn")
+            torch.cuda.synchronize()
+            run = {"convert_s": time.perf_counter() - t0,
+                   "manifest": {k: manifest[k] for k in ("format", "folded", "dtype", "quantized")},
+                   "bundle_mb": sum(os.path.getsize(os.path.join(bundle, f))
+                                    for f in convert.BUNDLE_FILES.values()) / 1e6}
+            if mode == "int8":
+                run["self_check"] = log.getvalue().strip().splitlines()
+
+            def refuse(*a, **k):
+                raise AssertionError("a checkpoint converter ran on the bundle path")
+
+            saved = {name: getattr(mconv, name) for name in BUNDLE_CONVERTERS}
+            for name in saved:
+                setattr(mconv, name, refuse)
+            try:
+                t0 = time.perf_counter()
+                pipe = cli.build_pipeline_real(cfg, camera_parameter, CLI_WIDTH, CLI_HEIGHT,
+                                               bundle=bundle)
+                torch.cuda.synchronize()
+                run["load_s"] = time.perf_counter() - t0
+            finally:
+                for name, fn in saved.items():
+                    setattr(mconv, name, fn)
+            ref = direct[mode]
+            run["tensors_equal"] = (
+                check_state_dicts_equal(torch, pipe.detector, ref["detector"], f"{mode} bundle YOLOv3")
+                + check_state_dicts_equal(torch, pipe.pose_model, ref["pose_model"],
+                                          f"{mode} bundle HRNet"))
+            loop, (poses, annotations, detections) = cli_loop(torch, cfg, pipe, frames, card,
+                                                              counters)
+            expect = {k: (n_clips + n_tail) * v for k, v in STEP_LAUNCHES[mode].items()}
+            if loop["launches"] != expect:
+                fail(f"bundle CLI loop ({mode}) launched {loop['launches']}, expected {expect}")
+            if len(detections) != len(ref["detections"]) or not all(
+                    torch.equal(a, b) for got, want in zip(detections, ref["detections"])
+                    for a, b in zip(got, want)):
+                fail(f"bundle CLI loop ({mode}): stage A detections differ from the direct run's")
+            if list(poses) != list(ref["poses"]):
+                fail(f"bundle CLI loop ({mode}): other frames than the direct run's")
+            for t, p in ref["poses"].items():
+                if p.shape != poses[t].shape or not np.array_equal(p, poses[t]):
+                    fail(f"bundle CLI loop ({mode}): frame {t}'s poses differ from the direct run's")
+            run["camera_jsons_equal"] = json_bytes_equal(annotations, ref["annotations"], root)
+            run.update(poses_equal=True, detections_equal=True,
+                       detections_valid=sum(int(m.sum()) for _, m in detections),
+                       track_frames=sum(len(p) for p in poses.values()),
+                       loop={k: loop[k] for k in ("loop_s", "ms_per_clip", "ms_per_trailing_frame",
+                                                  "launches", "k3_launches", "peak_mem_gib")})
+            del pipe
+        out[mode] = run
     return out
 
 
@@ -2577,6 +2868,8 @@ def main():
 
     emit("int8_resident", **phase_resident(torch, card, pipe, clip))
     emit("staged_api", **phase_staged(torch, card, pipe, clip, frame_ids))
+    pack = phase_pack(torch, card, pipe, float_models, clip, frame_ids)  # phase 16 (c)
+    emit("pack", **pack)
     del pipe, state
     # phases 11 and 15 before 9 and 10, so that phase 10's peak memory
     # holds none of phase 5's models or its clip
@@ -2588,8 +2881,10 @@ def main():
     tracker = phase_tracker(torch, card)
     emit("tracker_scene", **tracker)
 
-    cli_path = phase_cli_path(torch, card)
+    cli_path, bundles = phase_cli_path(torch, card)
     emit("cli_path", **cli_path)
+    emit("bundle_pack", a=bundles["bf16"], b=bundles["int8"], c=pack,
+         load_s_from_checkpoints=bundles["load_s_from_checkpoints"])
     cli_launches = {mode: cli_path[mode]["launches"] for mode in ("bf16", "int8")}
 
     emit("cli_tracks", **phase_cli_tracks(torch, card))
@@ -2601,7 +2896,7 @@ def main():
     del w48, tiny
 
     quarter = k1["modes"]["quarter"]
-    conv = k2["timed"]["hrnet_branch0_3x3_48"]
+    conv, packed = k2["timed"]["hrnet_branch0_3x3_48"], k2["timed"]["hrnet_branch0_packed_3x3_96"]
     stem, yolo_stem = k2["timed"]["hrnet_stem_3x3_s2_3_64"], k2["timed"]["yolo_stem_3x3_3_32"]
     ms_launches = {mode: multistream["clip"][mode]["launches"] for mode in ("bf16", "int8")}
     # K3 at the multi-stream clip's association: S=2 streams x 5 views of (12, 4)
@@ -2628,6 +2923,18 @@ def main():
         "bound_by": conv["bound_by"], "library_ms": None,
         "k2b_ms": conv["k2b"]["ms"], "design_bound_ms": conv["design_bound_ms"],
         "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
+        "packed_branch0": {
+            "shape": packed["shape"], "ms": packed["ms"], "plain_ms": packed["plain_ms"],
+            "bound_ms": packed["bound_ms"], "bound_by": packed["bound_by"],
+            "k2b_ms": packed["k2b"]["ms"], "k2b_bound_ms": packed["k2b"]["bound_ms"],
+            "bf16_cudnn_ms": packed["bf16_cudnn_ms"],
+            "bf16_cudnn_bound_ms": packed["bf16_cudnn_bound"]["bound_ms"],
+            "launches_per_packed_clip": pack["int8"]["k2_launches_at_packed_shape_P"],
+            "unpacked": {"ms": conv["ms"], "k2b_ms": conv["k2b"]["ms"],
+                         "k2b_bound_ms": conv["k2b"]["bound_ms"],
+                         "bf16_cudnn_ms": conv["bf16_cudnn_ms"],
+                         "bf16_cudnn_bound_ms": conv["bf16_cudnn_bound"]["bound_ms"]}},
+        "bundle_launches": bundles["int8"]["loop"]["launches"]["int8_conv.launches"],
         "cli_launches": {m: c["int8_conv.launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2"],
         "multistream_launches": {m: c["k2"] for m, c in ms_launches.items()},

@@ -223,7 +223,9 @@ def test_dataset_frame_source_matches_jax(mini):
 
 
 def test_bundle_and_qat_raise_not_implemented(mini, monkeypatch, capsys):
-    """`--bundle` still raises: serving bundles are not ported. `--qat-steps`
+    """`--bundle` names a directory that must hold a bundle: a missing one
+    raises FileNotFoundError naming its manifest (serving bundles are ported;
+    tests/test_torch_bundle.py serves them). `--qat-steps`
     and the default `--int8-on-drift escalate` do what the JAX package does
     on the same fixture, whose random weights fail the self-check: QAT from
     the start refuses to serve at once, and escalation runs distill-QAT,
@@ -231,10 +233,9 @@ def test_bundle_and_qat_raise_not_implemented(mini, monkeypatch, capsys):
     `escalate_steps` are cut from 900 to 2 for the CPU. The JAX CLI runs
     the default only (its `qat_steps` refusal is tests/test_int8_selfcheck.py's);
     each JAX run is a minute of compiling on the CPU."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        evalmodel.main(_args(mini, *CPU, "--bundle", "x"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        testmodel.main(_args(mini, *CPU, "--bundle", "x"))
+    for main in (evalmodel.main, testmodel.main):
+        with pytest.raises(FileNotFoundError, match="bundle.json"):
+            main(_args(mini, *CPU, "--bundle", os.path.join(mini["root"], "no_bundle")))
     for cls in (JPipeline, Pipeline):
         monkeypatch.setattr(cls, "quantize_models",
                             functools.partialmethod(cls.quantize_models, escalate_steps=2))

@@ -147,8 +147,27 @@ def test_hrnet_keys_equal_official(cfg_fn, fixture):
 
 
 def test_unported_hrnet_options_raise():
-    with pytest.raises(NotImplementedError, match="pack_branch0"):
-        th.HRNet(th.HRNetConfig(pack_branch0=True))
+    """Both HRNet serving options are ported now: `pack_branch0` builds the
+    skeleton a width-packed state_dict loads into (branch 0's basic blocks
+    at twice the width, every key as the unpacked model's;
+    tests/test_torch_packing.py runs it), and packing raises on a model
+    whose BNs are not folded or that is packed already."""
+    from tpupose_torch.ops.packing import pack_hrnet_branch0
+
+    cfg = th.tiny_test_config()
+    with torch.device("meta"):
+        plain = th.HRNet(cfg).state_dict()
+        packed = th.HRNet(dataclasses.replace(cfg, pack_branch0=True)).state_dict()
+    assert packed.keys() == plain.keys()
+    widened = {k for k in plain if packed[k].shape != plain[k].shape}
+    assert widened and all(".branches.0." in k for k in widened)
+    conv = "stage2.0.branches.0.0.conv1.weight"
+    assert packed[conv].shape == (2 * cfg.width, 2 * cfg.width, 3, 3)
+    with pytest.raises(ValueError, match="BN-folded"):
+        pack_hrnet_branch0(th.HRNet(cfg))
+    folded = pack_hrnet_branch0(tl.fold_batchnorm(th.HRNet(cfg)))
+    with pytest.raises(ValueError, match="already packed"):
+        pack_hrnet_branch0(folded)
     # int8_resident is ported (tests/test_torch_quantize.py runs it)
     cfg = dataclasses.replace(th.tiny_test_config(), int8_resident=True)
     assert th.HRNet(cfg).cfg.int8_resident

@@ -330,8 +330,15 @@ def test_resident_dispatch_in_hrnet(monkeypatch):
     n_basic = sum(isinstance(m, th.BasicBlock) for m in qt.modules())
     assert calls == {"basic": n_basic, "bottleneck": cfg.layer1_blocks} and n_basic > 0
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
-    with pytest.raises(NotImplementedError, match="pack_branch0"):
-        th.HRNet(dataclasses.replace(th.tiny_test_config(), pack_branch0=True))
+    # width-packed branch 0 takes the same resident blocks, with the same
+    # int32 sums: the output is equal
+    from tpupose_torch.ops.packing import pack_hrnet_branch0
+
+    calls.update(basic=0, bottleneck=0)
+    with torch.no_grad():
+        packed = _nhwc(pack_hrnet_branch0(qt)(_nchw(x), torch.float32))
+    assert calls == {"basic": n_basic, "bottleneck": cfg.layer1_blocks}
+    np.testing.assert_array_equal(packed, got)
 
 
 def test_int8_conv_dispatch_keeps_cpu_tensors_on_the_plain_version(monkeypatch):

@@ -4,7 +4,8 @@ Counterpart of `tpupose/cli/common.py`. Builds a Pipeline from a
 reference-format YAML config (same `--dataset` selection as
 `src/testmodel.py:101-107` / `src/evalmodel.py:379-386`) and runs the
 per-frame loop. Three backend modes:
-  * real:      the published checkpoints (.weights / .pth paths in the YAML)
+  * real:      the published checkpoints (.weights / .pth paths in the YAML),
+               or a serving bundle that `cli.convert` made from them
   * replay:    2D detections loaded from a pickle (re-scoring w/o models)
   * synthetic: the built-in synthetic scene (no dataset or weights needed)
 """
@@ -27,36 +28,40 @@ from tpupose_torch.utils.timing import StageTimer
 
 def build_pipeline_real(cfg: Config, camera_parameter, width, height,
                         bundle: str | None = None, device=None) -> Pipeline:
-    """A Pipeline serving the config's checkpoints: the darknet `.weights`
-    detector and the `pose_hrnet` `.pth` pose model, BN folded into bf16
-    weights (exact for frozen statistics, half the weight traffic, and the
-    BN-folded form `quantize_models` expects). `device` as `Pipeline`'s."""
-    from tpupose_torch.models.convert import (
-        load_darknet_weights,
-        load_hrnet_torch_checkpoint,
-    )
-    from tpupose_torch.models.layers import fold_batchnorm
-    from tpupose_torch.models.yolov3 import YOLOv3
+    """A Pipeline serving the config's models, `device` as `Pipeline`'s.
 
-    if bundle:
-        raise NotImplementedError(
-            "--bundle: serving bundles (tpupose/cli/convert.py) are not ported "
-            "to tpupose_torch yet (ROADMAP Queue 1, item 5); pass no --bundle to "
-            "load the .weights / .pth checkpoints named in the config")
+    Without `bundle`: the config's checkpoints, the darknet `.weights`
+    detector and the `pose_hrnet` `.pth` pose model, BN folded into bf16
+    weights (`cli.convert.load_checkpoints`). With `bundle`: the modules a
+    `python -m tpupose_torch.cli.convert` run wrote (bf16, or already
+    int8), after `load_bundle` has checked its manifest against the
+    config; no checkpoint is read and nothing is folded."""
+    from tpupose_torch.cli.convert import load_bundle, load_checkpoints
+
     cams = Pipeline.camera_set_from_parameter_dict(
         camera_parameter, width, height, num_cameras=len(cfg.dataset.folders_order)
     )
     tcfg = tracker_config_from(cfg, num_cameras=cams.num_cameras)
     det_cfg = yolo_config_from(cfg)
     pose_cfg = hrnet_config_from(cfg)
-    detector = YOLOv3(det_cfg)
-    detector.load_state_dict(load_darknet_weights(cfg.detect_model.weight, det_cfg),
-                             strict=True)
-    pose_model = load_hrnet_torch_checkpoint(cfg.pose_model.checkpoint_file, pose_cfg)
-    return Pipeline(
-        cams, tcfg, det_cfg, fold_batchnorm(detector, dtype=torch.bfloat16),
-        pose_cfg, fold_batchnorm(pose_model, dtype=torch.bfloat16), device=device,
-    )
+    if bundle:
+        detector, pose_model = load_bundle(bundle, det_cfg, pose_cfg)
+    else:
+        detector, pose_model, _ = load_checkpoints(cfg, det_cfg, pose_cfg)
+    return Pipeline(cams, tcfg, det_cfg, detector, pose_cfg, pose_model, device=device)
+
+
+def skip_int8_calibration(args) -> bool:
+    """True, with a note, for `--int8` on an int8 `--bundle`: its models
+    were calibrated at convert time, and there are no float convs left to
+    calibrate."""
+    from tpupose_torch.cli.convert import read_manifest
+
+    if not (args.bundle and read_manifest(args.bundle).get("quantized")):
+        return False
+    print("note: bundle is already int8-quantized (calibrated at convert time); "
+          "skipping in-process calibration")
+    return True
 
 
 def yolo_config_from(cfg: Config):

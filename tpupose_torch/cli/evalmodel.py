@@ -22,6 +22,7 @@ from tpupose_torch.cli.common import (
     load_camera_parameter,
     result_path,
     run_eval_loop,
+    skip_int8_calibration,
     synthetic_tracks,
 )
 from tpupose_torch.data.config import load_config, tracker_config_from
@@ -79,9 +80,9 @@ def main(argv=None):
                              "refuse to serve; warn = print and continue "
                              "with the drifted models")
     parser.add_argument("--bundle", type=str, default=None,
-                        help="pre-converted serving bundle dir; not ported "
-                             "yet, raises NotImplementedError (ROADMAP "
-                             "Queue 1, item 5)")
+                        help="pre-converted serving bundle dir (python -m "
+                             "tpupose_torch.cli.convert); serving then reads "
+                             "neither the .weights nor the .pth file")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda, which "
                              "must be present; cpu for a host without a card)")
@@ -123,7 +124,7 @@ def main(argv=None):
             bundle=args.bundle, device=device,
         )
         head = [first]
-        if args.int8:
+        if args.int8 and not skip_int8_calibration(args):
             # calibrate activation scales on the first --int8-calib frames'
             # views (all consumed frames are replayed into the eval loop)
             while len(head) < max(args.int8_calib, 1):

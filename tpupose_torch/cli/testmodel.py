@@ -20,6 +20,7 @@ from tpupose_torch.cli.common import (
     build_pipeline_real,
     dataset_frame_source,
     load_camera_parameter,
+    skip_int8_calibration,
     synthetic_tracks,
 )
 from tpupose_torch.data.config import load_config
@@ -50,8 +51,8 @@ def main(argv=None):
                              "(escalate = distill-QAT, then re-check; see "
                              "evalmodel --int8-on-drift)")
     parser.add_argument("--bundle", type=str, default=None,
-                        help="pre-converted serving bundle dir; not ported "
-                             "yet, raises NotImplementedError")
+                        help="pre-converted serving bundle dir (python -m "
+                             "tpupose_torch.cli.convert)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda, which "
                              "must be present; cpu for a host without a card)")
@@ -74,7 +75,7 @@ def main(argv=None):
     images0 = first[2]
     pipe = build_pipeline_real(cfg, camera_parameter, images0.shape[2],
                                images0.shape[1], bundle=args.bundle, device=device)
-    if args.int8:
+    if args.int8 and not skip_int8_calibration(args):
         pipe.quantize_models(images0, on_drift=args.int8_on_drift)
     out_dir = os.path.join(cfg.output, cfg.dataset.test_dataset, "Images")
     os.makedirs(out_dir, exist_ok=True)

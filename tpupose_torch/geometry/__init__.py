@@ -6,12 +6,14 @@ from tpupose_torch.geometry.cameras import (
     CameraSet,
     fundamental_from_krt,
     fundamental_matrices,
+    load_calibration_pickle,
     make_camera_set,
     project_points,
 )
 from tpupose_torch.geometry.epipolar import (
     epipolar_distance_directed,
     epipolar_distance_matrix,
+    epipolar_distance_pair,
     point_line_distance_2d,
 )
 from tpupose_torch.geometry.rays import (
@@ -31,10 +33,12 @@ __all__ = [
     "CameraSet",
     "fundamental_from_krt",
     "fundamental_matrices",
+    "load_calibration_pickle",
     "make_camera_set",
     "project_points",
     "epipolar_distance_directed",
     "epipolar_distance_matrix",
+    "epipolar_distance_pair",
     "point_line_distance_2d",
     "back_project_rays",
     "line_line_distance_3d",

@@ -41,6 +41,17 @@ class CameraSet(NamedTuple):
     def to(self, device) -> "CameraSet":
         return CameraSet(*(t.to(device) for t in self))
 
+    # The reference Camera's undistortion hooks are no-ops (its datasets
+    # ship undistorted images, `src/ivclabpose.py:48-60`); kept for API
+    # parity, where a distortion model would go.
+    def undistort(self, images):
+        """(..., H, W, C) images -> unchanged (reference parity no-op)."""
+        return images
+
+    def undistort_points(self, points2d):
+        """(..., 2+) pixel points -> unchanged (reference parity no-op)."""
+        return points2d
+
 
 def _as_f32(x, device=None):
     return torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x)
@@ -111,3 +122,20 @@ def project_points(P, points3d):
     z = proj[..., 2:3]
     z = torch.where(z == 0.0, torch.full_like(z, 1e-5), z)
     return proj[..., :2] / z
+
+
+def load_calibration_pickle(path: str, num_cameras: int | None = None):
+    """The reference's `camera_parameter.pickle`: a dict with 'P' (C, 3, 4),
+    'K' (C, 3, 3) and 'RT' (C, 3, 4) (`src/ivclabpose.py:162-165`), as
+    f32 numpy arrays (P, K, RT), the first `num_cameras` if given. The
+    file is unpickled: load only calibration files you trust."""
+    import pickle
+
+    with open(path, "rb") as f:
+        params = pickle.load(f)
+    P = np.asarray(params["P"], np.float32)
+    K = np.asarray(params["K"], np.float32)
+    RT = np.asarray(params["RT"], np.float32)
+    if num_cameras is not None:
+        P, K, RT = P[:num_cameras], K[:num_cameras], RT[:num_cameras]
+    return P, K, RT

@@ -29,6 +29,16 @@ def epipolar_distance_directed(F_ab, points_a, points_b):
     return point_line_distance_2d(points_b[..., :2], lines_in_b)
 
 
+def epipolar_distance_pair(F_ab, points_a, points_b):
+    """Both per-joint epipolar distances (d_a, d_b): d_a of a's points to
+    the epilines F_ab x_b, d_b of b's points to the epilines F_ab^T x_a,
+    the reference's `epipolar_distance` columns (d1, d2)
+    (`src/utils/matching.py:82-84`)."""
+    lines_in_a = _homogenize(points_b[..., :2]) @ F_ab.transpose(-1, -2)
+    d_a = point_line_distance_2d(points_a[..., :2], lines_in_a)
+    return d_a, epipolar_distance_directed(F_ab, points_a, points_b)
+
+
 def epipolar_distance_matrix(F_pairs, poses, valid=None):
     """Symmetrized per-joint epipolar distances over all view pairs.
 

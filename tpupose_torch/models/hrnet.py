@@ -22,6 +22,7 @@ from tpupose_torch.models.layers import (
     he_normal_init_,
     upsample_nearest,
 )
+from tpupose_torch.ops.packing import pack_width, unpack_width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,9 +35,13 @@ class HRNetConfig:
     layer1_planes: int = 64
     stage_modules: tuple = (1, 4, 3)  # stages 2, 3, 4
     stage_blocks: int = 4
-    #: Width-packed branch 0 is a serving option of the JAX package that the
-    #: port does not have yet; setting it makes `HRNet` raise
-    #: NotImplementedError.
+    #: Width-packed branch 0 (`tpupose_torch.ops.packing`): each stage
+    #: module packs branch 0's (N, C, H, W) activations to (N, 2C, H, W/2)
+    #: before its basic blocks and unpacks them after, and those blocks'
+    #: convs are 2C -> 2C (the shape of a packed tree). Make a packed model
+    #: with `packing.pack_hrnet_branch0` from a folded one
+    #: (`Pipeline.pack_models`); `HRNet` of such a config builds the
+    #: skeleton a packed state_dict loads into.
     pack_branch0: bool = False
     #: Fused int8-resident blocks: in a quantized model, each basic block and
     #: bottleneck whose convs are all quantized (BN folded) requantizes in
@@ -135,13 +140,16 @@ class Bottleneck(nn.Module):
 class HighResolutionModule(nn.Module):
     """One multi-branch module: BasicBlock branches then the fuse layers
     (fuse_layers[i][j]: None for j == i, 1x1 conv + BN + upsample for
-    j > i, a chain of stride-2 3x3 convs for j < i)."""
+    j > i, a chain of stride-2 3x3 convs for j < i). With `pack0`, branch
+    0's blocks are built for width-packed activations (twice the
+    channels)."""
 
-    def __init__(self, channels, num_blocks, out_branches):
+    def __init__(self, channels, num_blocks, out_branches, pack0=False):
         super().__init__()
+        widths = [2 * c if pack0 and b == 0 else c for b, c in enumerate(channels)]
         self.branches = nn.ModuleList(
             nn.Sequential(*(BasicBlock(c, c) for _ in range(num_blocks)))
-            for c in channels
+            for c in widths
         )
         fuse = []
         for i in range(out_branches):
@@ -161,11 +169,15 @@ class HighResolutionModule(nn.Module):
             fuse.append(nn.ModuleList(row))
         self.fuse_layers = nn.ModuleList(fuse)
 
-    def forward(self, xs, resident=False):
+    def forward(self, xs, resident=False, pack0=False):
         ys = []
-        for branch, x in zip(self.branches, xs):
+        for b, (branch, x) in enumerate(zip(self.branches, xs)):
+            if pack0 and b == 0:
+                x = pack_width(x)  # branch-0 blocks carry width-packed kernels
             for block in branch:
                 x = block(x, resident)
+            if pack0 and b == 0:
+                x = unpack_width(x)
             ys.append(x)
         outs = []
         for i, row in enumerate(self.fuse_layers):
@@ -199,9 +211,6 @@ class HRNet(nn.Module):
 
     def __init__(self, cfg: HRNetConfig):
         super().__init__()
-        if cfg.pack_branch0:
-            raise NotImplementedError(
-                "pack_branch0 (width-packed branch 0) is not ported to tpupose_torch")
         self.cfg = cfg
         w = cfg.branch_channels
         self.conv1 = Conv2d(3, cfg.stem_channels, 3, stride=2)
@@ -224,7 +233,7 @@ class HRNet(nn.Module):
             setattr(self, f"stage{s + 2}", nn.Sequential(*(
                 HighResolutionModule(
                     w[:n_br], cfg.stage_blocks,
-                    1 if (last_stage and m == n_mod - 1) else n_br)
+                    1 if (last_stage and m == n_mod - 1) else n_br, cfg.pack_branch0)
                 for m in range(n_mod)
             )))
         self.final_layer = Conv2d(w[0], cfg.num_joints, 1, bias=True)
@@ -233,18 +242,18 @@ class HRNet(nn.Module):
         x = x.to(compute_dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
-        resident = self.cfg.int8_resident
+        resident, pack0 = self.cfg.int8_resident, self.cfg.pack_branch0
         for block in self.layer1:
             x = block(x, resident)
         xs = [self.transition1[0](x), self.transition1[1](x)]
         for module in self.stage2:
-            xs = module(xs, resident)
+            xs = module(xs, resident, pack0)
         xs = xs + [self.transition2[2](xs[-1])]
         for module in self.stage3:
-            xs = module(xs, resident)
+            xs = module(xs, resident, pack0)
         xs = xs + [self.transition3[3](xs[-1])]
         for module in self.stage4:
-            xs = module(xs, resident)
+            xs = module(xs, resident, pack0)
         return self.final_layer(xs[0]).to(torch.float32)
 
 

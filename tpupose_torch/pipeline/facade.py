@@ -155,6 +155,24 @@ class Pipeline:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                                dtype=dtype, device=self.device)
 
+    def pack_models(self):
+        """Width-pack the pose model's high-resolution branch
+        (`ops.packing.pack_hrnet_branch0`): branch 0's activations move as
+        (N, 2C, H, W/2) through convs with structural zeros, an exact
+        reparameterization in bf16 and int8. Call after `quantize_models`
+        or on the folded float model; idempotent. The pipeline keeps no
+        compiled programs, so nothing built for the unpacked model
+        outlives the swap. Whether it pays on the card is measured by
+        `chip_smoke.py` phase 16; nothing calls it by default."""
+        import dataclasses
+
+        from tpupose_torch.ops.packing import pack_hrnet_branch0
+
+        if self.pose_cfg is None or self.pose_cfg.pack_branch0:
+            return
+        self.pose_model = pack_hrnet_branch0(self.pose_model)
+        self.pose_cfg = dataclasses.replace(self.pose_cfg, pack_branch0=True)
+
     # -- int8 serving ------------------------------------------------------------
 
     def quantize_models(self, sample_images, qat_steps=0, qat_lr=1e-5,
