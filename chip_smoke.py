@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --learned-seeds 0 1 2   # phase 13 (e) per seed, no gates
     python3 chip_smoke.py --only k2 k3            # phases 4 and 15 (a) alone
+    python3 chip_smoke.py --only ingest           # phase 17 alone
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
-memory holds none of phase 5's models, and 16 in two parts, (c) after 8
-and (a), (b) inside 10); the first that fails ends the run
+memory holds none of phase 5's models, 16 in two parts, (c) after 8
+and (a), (b) inside 10, and 17 inside 10, after 16 (a), (b), on phase 10's
+checkpoint files); the first that fails ends the run
 with a non-zero exit. "Host syncs" are the host's waits on the card inside
 the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
 (`counted_syncs`); K3 launches are counted where the tracker runs:
@@ -61,8 +63,12 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      2e-2 / rtol 1e-3);
   9. the tracker on a synthetic scene with 5 views and 3 people: the same
      detections replayed through `person_track` on the card and on the CPU
-     must give the same track ids, and 3 confirmed tracks; ms per frame, K3
-     launches and host syncs (the host detections' copies) per frame;
+     must give the same track ids, and 3 confirmed tracks; the card's track
+     ids, states, hits, time since update and valid outputs must equal the
+     port's f64 `OracleTracker` on the same detections at every frame, the
+     last poses within 5e-3 m (tests/test_tracker_parity.py's rule); ms per
+     frame, K3 launches and host syncs (the host detections' copies) per
+     frame;
  10. the evaluation CLI's loop (`tpupose_torch.cli.common`): full-width
      YOLOv3-416 and HRNet-W48 with random weights from a seed (BN not
      folded) written to a temporary directory as a darknet 0.2 `.weights`
@@ -183,15 +189,39 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      poses, launch counts and byte-equal per-camera JSONs (on random
      weights the tracker may confirm no track: the poses and JSONs are then
      empty on both sides); convert and load seconds, bundle MB.
+ 17. the frame loader from disk (`ingest`, `runtime.loader`,
+     `runtime.ingest_bench`): (a) `fabricate_jpeg_dataset` writes 68 frames
+     x 5 views of photo-like 720x1280 JPEGs at quality 90 (Pillow's 4:2:0
+     chroma) and `fabricate_mini_dataset` 24 frames x 3 views of stick
+     figures; every frame decoded with nvJPEG at each backend the card
+     accepts against the Pillow plain version: mean, 99.9th percentile and
+     max |difference| per channel, gated by DECODE_GATE (reported first, as
+     the `ingest_decode` line); nvJPEG with 4 threads 8 frames ahead
+     torch.equal, frame by frame, to one frame at a time; (b)
+     `bench_decode`: the Pillow pool at 1, 2, 4, 8 threads, nvJPEG at each
+     backend (2 threads) and the default backend at 4, sequential Pillow,
+     the host's CPU count; (c)
+     `bench_disk_to_device` through pinned memory (Pillow) and on the card
+     (nvJPEG); (d) phase 10's Shelf config at MAX_CANDIDATES 4 and its
+     checkpoint files in bf16 with ROOT at (a)'s folders: `run_eval_loop`
+     over the frames decoded in (a) held in memory, then over
+     `dataset_frame_source(cfg, True, timer, prefetch=32, device="cuda")`,
+     K1 counted from 0 (6) and `loader.nvjpeg_images` (340); stage A's
+     detections of every call and the harvested poses torch.equal between
+     the two; ms per clip, decode_wait per frame after the first clip,
+     decode_work, both loops' totals beside phase 10's.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
-the kernels and runs only phase 4 (k2) and phase 15 (a) (k3).
+the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
+`--only ingest`, phase 17, its checkpoint files written anew from phase
+10's seed.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
 K2a's in phase 13 (e) as `learned_int8_launches`, K2's in phase 16 (b)'s
-bundle loop as `bundle_launches`; K2's `packed_branch0` holds phase 4's
+bundle loop as `bundle_launches`, K1's and K3's in phase 17 (d)'s loop
+from disk as `ingest_launches`; K2's `packed_branch0` holds phase 4's
 times and bounds at the packed branch-0 shape beside the unpacked one's
 and phase 16 (c)'s K2 launches at that shape a packed clip; the stem kernel's row
 times HRNet's stem and, under `yolo_stem`, YOLO's; K3's `launches` are
@@ -1089,12 +1119,34 @@ def phase_pack(torch, card, int8_pipe, float_models, clip, frame_ids):
             "bf16": pack_one(torch, Pipeline(*float_models), clip, frame_ids, "bf16")}
 
 
+def oracle_summary(oracle):
+    """{track id: (state, hits, time since update, last pose)} of the
+    port's OracleTracker."""
+    return {t.track_id: (t.state, t.hits, t.time_since_update, t.history[-1][1])
+            for t in oracle.tracks}
+
+
+def state_summary(torch, state, confirmed_state):
+    """The same of a TrackerState, read on the host."""
+    state = type(state)(*(x.cpu() for x in state))
+    out = {}
+    for i in torch.nonzero(state.active).flatten().tolist():
+        count = int(state.hist_count[i])
+        out[int(state.track_id[i])] = (confirmed_state if bool(state.confirmed[i]) else 1,
+                                       int(state.hits[i]), int(state.time_since_update[i]),
+                                       state.hist_pose[i, count - 1].numpy())
+    return out
+
+
 def phase_tracker(torch, card):
+    import numpy as np
+
     import tpupose_torch.tracking.tracker as tt
     from tpupose_torch.data.synthetic import make_scene
     from tpupose_torch.geometry import make_camera_set
     from tpupose_torch.ops import lap
     from tpupose_torch.pipeline import Pipeline
+    from tpupose_torch.tracking import oracle as to
 
     frames, views, D = 24, 5, 4
     scene = make_scene(num_frames=frames, num_cameras=views, num_actors=3, seed=0)
@@ -1102,8 +1154,12 @@ def phase_tracker(torch, card):
     cfg = tt.TrackerConfig(num_cameras=views, max_dets=D, max_tracks=12, max_hyp=24)
     gpu = Pipeline(cams, cfg, device="cuda")
     cpu = Pipeline(cams, cfg, device="cpu")
+    oracle = to.OracleTracker(
+        to.OracleTracker.make_cameras(*(np.asarray(getattr(cams, f))
+                                        for f in ("P", "F", "rk_inv", "center"))),
+        to.TrackerParams(max_tracks=cfg.max_tracks))
 
-    step_s, syncs, err = 0.0, 0, 0.0
+    step_s, syncs, err, oracle_err = 0.0, 0, 0.0, 0.0
     lap.launches = 0
     for t in range(frames):
         dets = torch.zeros((views, D, 17, 3))
@@ -1124,13 +1180,30 @@ def phase_tracker(torch, card):
                 fail(f"tracker frame {t}: {field} differs between the card and the CPU")
         if bool(out_c.valid.any()):
             err = max(err, float(torch.abs(out_g.pose3d.cpu() - out_c.pose3d)[out_c.valid].max()))
+        # the f64 oracle on the same detections, by tests/test_tracker_parity.py's rule
+        oracle.step(t, [scene.detections[t, c][scene.visible[t, c]] for c in range(views)])
+        ref, got = oracle_summary(oracle), state_summary(torch, gpu.state, to.CONFIRMED)
+        if set(ref) != set(got):
+            fail(f"tracker frame {t}: track ids {sorted(got)} on the card, {sorted(ref)} "
+                 "in the oracle")
+        for tid in ref:
+            if ref[tid][:3] != got[tid][:3]:
+                fail(f"tracker frame {t} track {tid}: (state, hits, time since update) "
+                     f"{got[tid][:3]} on the card, {ref[tid][:3]} in the oracle")
+            oracle_err = max(oracle_err, float(np.abs(ref[tid][3] - got[tid][3]).max()))
+        valid_ids = set(out_g.track_id.cpu()[out_g.valid.cpu()].tolist())
+        if valid_ids != {o["id"] for o in oracle.outputs(t)}:
+            fail(f"tracker frame {t}: valid outputs {sorted(valid_ids)} against the oracle's")
+    if not oracle_err < 5e-3:
+        fail(f"the card tracker's poses lie {oracle_err} m from the oracle's (limit 5e-3)")
     confirmed = int(out_g.valid.sum())
     if confirmed != 3:
         fail(f"the tracker confirmed {confirmed} tracks on a 3-person scene")
     return {"card": card, "frames": frames, "confirmed": confirmed,
             "ms_per_frame": step_s * 1e3 / frames,
             "k3_launches_per_frame": lap.launches / frames,
-            "host_syncs_per_frame": syncs / frames, "pose3d_max_abs_diff_m": err}
+            "host_syncs_per_frame": syncs / frames, "pose3d_max_abs_diff_m": err,
+            "oracle_pose3d_max_abs_diff_m": oracle_err}
 
 
 CLI_FRAMES, CLI_CLIP, CLI_CALIB = 68, 32, 8  # 2 clips + 4 trailing frames
@@ -1190,17 +1263,19 @@ def check_state_dicts_equal(torch, loaded, ref, what):
     return len(want)
 
 
-def cli_loop(torch, cfg, pipe, frames, card, counters):
-    """`cli.common.run_eval_loop` over the in-memory frames in CLI_CLIP-frame
-    clips, with every counter of `counters` (module, attribute) set to 0
-    just before and read just after; each clip and each trailing frame
-    timed to a device sync."""
+def cli_loop(torch, cfg, pipe, frames, card, counters, source=None, timer=None):
+    """`cli.common.run_eval_loop` over the in-memory frames, or the frames
+    of `source` (a `dataset_frame_source` writing to `timer`, CLI_FRAMES of
+    them), in CLI_CLIP-frame clips, with every counter of `counters` (module,
+    attribute) set to 0 just before and read just after; each clip and each
+    trailing frame timed to a device sync."""
     from tpupose_torch.cli import common as cli
     from tpupose_torch.ops import lap
     from tpupose_torch.utils.timing import StageTimer
 
     calls = {"process_clip": [], "process_frame": []}
     returned = {"process_clip": [], "process_frame": []}  # host clock at return
+    started = []  # host clock at each call's start
     syncs = [0]
     detections = []  # (detections, mask) of each call, in order
 
@@ -1209,6 +1284,7 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
 
         def run(*args, **kw):
             t0 = time.perf_counter()
+            started.append(t0)
             with counted_syncs() as counted:
                 out = fn(*args, **kw)
             returned[name].append((time.perf_counter() - t0) * 1e3)
@@ -1219,13 +1295,15 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
             return out
         return run
 
-    def source():
+    def in_memory():
         for t in range(frames.shape[0]):
             yield t, t, frames[t], None, None
 
+    n = frames.shape[0] if source is None else CLI_FRAMES
+
     pipe.track_restart()
     pipe.process_clip, pipe.process_frame = timed("process_clip"), timed("process_frame")
-    timer = StageTimer()
+    timer = StageTimer() if timer is None else timer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for module, attr in counters:
@@ -1233,25 +1311,24 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
     lap.launches = 0
     t0 = time.perf_counter()
     try:
-        multi_poses3d, annotations = cli.run_eval_loop(cfg, pipe, source(), timer,
-                                                       clip=CLI_CLIP)
+        multi_poses3d, annotations = cli.run_eval_loop(
+            cfg, pipe, in_memory() if source is None else source, timer, clip=CLI_CLIP)
         torch.cuda.synchronize()
     finally:
         del pipe.process_clip, pipe.process_frame
     loop_s = time.perf_counter() - t0
     launches = {f"{module.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(module, attr)
                 for module, attr in counters}
-    n_clips, n_tail = divmod(frames.shape[0], CLI_CLIP)
+    n_clips, n_tail = divmod(n, CLI_CLIP)
     if (len(calls["process_clip"]), len(calls["process_frame"])) != (n_clips, n_tail):
         fail(f"the CLI loop made {len(calls['process_clip'])} process_clip and "
              f"{len(calls['process_frame'])} process_frame calls, expected {n_clips} "
              f"and {n_tail}")
-    if sorted(multi_poses3d) != list(range(frames.shape[0])):
+    if sorted(multi_poses3d) != list(range(n)):
         fail("the CLI loop did not harvest every frame")
     views = len(cfg.dataset.folders_order)
-    if lap.launches != frames.shape[0] * (1 + views):
-        fail(f"the CLI loop launched K3 {lap.launches} times, expected "
-             f"{frames.shape[0] * (1 + views)}")
+    if lap.launches != n * (1 + views):
+        fail(f"the CLI loop launched K3 {lap.launches} times, expected {n * (1 + views)}")
     return {
         "card": card, "loop_s": loop_s, "clip_ms": calls["process_clip"],
         "ms_per_clip": statistics.median(calls["process_clip"]),
@@ -1261,9 +1338,9 @@ def cli_loop(torch, cfg, pipe, frames, card, counters):
         "timer_report": timer.report(num_views=len(cfg.dataset.folders_order)).splitlines(),
         "launches": launches, "k3_launches": lap.launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "host_syncs_per_frame": syncs[0] / frames.shape[0],
+        "host_syncs_per_frame": syncs[0] / n,
         "confirmed_track_frames": sum(len(p) for p in multi_poses3d.values()),
-        "annotations": len(annotations),
+        "annotations": len(annotations), "first_call_at": started[0],
     }, (multi_poses3d, annotations, detections)
 
 
@@ -1351,7 +1428,8 @@ def check_artifacts(cfg, multi_poses3d, annotations, scene):
 
 def phase_cli_path(torch, card):
     """Phase 10: the evaluation CLI's loop at full width from checkpoint
-    files, in bf16 and then int8."""
+    files, in bf16 and then int8; then phase 16 (a), (b) and phase 17 on
+    those files. Returns the three phases' results."""
     import io
     import tempfile
     from contextlib import redirect_stdout
@@ -1432,7 +1510,228 @@ def phase_cli_path(torch, card):
         bundles = bundle_serving(torch, card, cfg, camera_parameter, frames, direct, counters)
         bundles["load_s_from_checkpoints"] = out["load_s"]
         del frames, direct
-    return out, bundles
+        ingest = phase_ingest(torch, card, root, weights, checkpoint, out["bf16"])
+    return out, bundles, ingest
+
+
+#: Phase 17 (ingest): phase 10's frame count, 5 views of 720x1280 at
+#: quality 90 (Pillow's default 4:2:0 chroma), the CLI's decode-ahead depth
+#: for --clip 32, and the Pillow pool's thread counts.
+INGEST_QUALITY, INGEST_PREFETCH, INGEST_THREADS = 90, 32, (1, 2, 4, 8)
+#: nvJPEG against Pillow on the same files, per channel, in levels (mean
+#: and 99.9th percentile of |difference|): the JPEG standard fixes neither
+#: the IDCT nor the chroma upsampling, so the decoders need not agree bit
+#: for bit. DECODE_LIMIT is the loosest gate allowed: a worse reading is a
+#: fault of the loader. DECODE_GATE is set from the reading on the H100
+#: (PERF.md): with nvJPEG's interpolated chroma upsampling, mean
+#: 0.57-0.76 and 99.9th percentile 2-3 on the photo-like files, 0.01-0.02
+#: and 1-2 on the stick figures, the same on every backend; with its
+#: default replication, 2.06-3.99 and 23-47 (the fault the flag repairs).
+DECODE_LIMIT = {"mean": 2.0, "p999": 16}
+DECODE_GATE = {"mean": 1.0, "p999": 4}
+
+
+def decode_histogram(torch, got, ref, hist):
+    """Adds the per-channel histogram of |got - ref| over two (..., 3)
+    uint8 frames on the card to `hist` (3, 256) int64."""
+    d = (got.to(torch.int16) - ref.to(torch.int16)).abs().long()
+    d = d + torch.arange(3, device=d.device) * 256
+    hist += torch.bincount(d.flatten(), minlength=768).view(3, 256)
+
+
+def decode_stats(torch, hist):
+    """Mean, 99.9th percentile and max |difference| per channel."""
+    levels = torch.arange(256, device=hist.device, dtype=torch.float64)
+    n = hist.sum(dim=1)
+    cdf = hist.cumsum(dim=1)
+    out = {"mean": (hist.double() * levels).sum(dim=1) / n.double(),
+           "p999": (cdf < 0.999 * n[:, None]).sum(dim=1),
+           "max": torch.tensor([int(torch.nonzero(h).max()) for h in hist])}
+    return {k: [float(x) for x in v.cpu()] for k, v in out.items()}
+
+
+def check_decode(what, stats, gate):
+    for key in ("mean", "p999"):
+        worst = max(stats[key])
+        if worst > gate[key]:
+            fail(f"{what}: nvJPEG lies {worst} levels ({key}) from Pillow, over the "
+                 f"gate of {gate[key]}")
+
+
+def decoded(torch, loader_mod, frame_paths, **kw):
+    """Every frame of a `FrameLoader(frame_paths, **kw)`, in order."""
+    with loader_mod.FrameLoader(frame_paths, **kw) as frames:
+        out = list(frames)
+    torch.cuda.synchronize()
+    return out
+
+
+def against_pillow(torch, loader_mod, frame_paths, pillow, backend):
+    """nvJPEG (`backend`) against the Pillow frames `pillow` of the same
+    files: the per-channel statistics of |difference|."""
+    hist = torch.zeros((3, 256), dtype=torch.int64, device="cuda")
+    with loader_mod.FrameLoader(frame_paths, prefetch=8, threads=2, device="cuda",
+                                backend=backend) as frames:
+        for got, ref in zip(frames, pillow, strict=True):
+            decode_histogram(torch, got, torch.from_numpy(ref).cuda(), hist)
+    return decode_stats(torch, hist)
+
+
+def recording_timer():
+    """A StageTimer that also keeps every decode_wait it is given, with
+    the host clock when it was given, in `waits`."""
+    from tpupose_torch.utils.timing import StageTimer
+
+    class Recording(StageTimer):
+        def __init__(self):
+            super().__init__()
+            self.waits = []
+
+        def add(self, stage, seconds, count=1):
+            if stage == "decode_wait":
+                self.waits.append((time.perf_counter(), seconds))
+            super().add(stage, seconds, count)
+
+    return Recording()
+
+
+def phase_ingest(torch, card, root, weights, checkpoint, cli10):
+    """Phase 17: the frame loader from disk. (a) nvJPEG against Pillow on
+    photo-like and stick-figure JPEGs, and nvJPEG's frame order; (b) decode
+    rates; (c) disk to the card; (d) the evaluation CLI's loop from disk
+    against the same frames held in memory (and phase 10's loop, `cli10`)."""
+    import numpy as np
+
+    from tpupose_torch.cli import common as cli
+    from tpupose_torch.data.config import config_from_raw
+    from tpupose_torch.data.fabricate import fabricate_mini_dataset
+    from tpupose_torch.data.synthetic import make_scene
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.runtime import ingest_bench as ib
+    from tpupose_torch.runtime import loader as tl
+
+    out = {"card": card, "host_cpus": os.cpu_count(), "default_backend": tl.DEFAULT_BACKEND}
+    data = os.path.join(root, "ingest")
+    t0 = time.perf_counter()
+    paths = ib.fabricate_jpeg_dataset(data, num_frames=CLI_FRAMES, num_views=5,
+                                      width=CLI_WIDTH, height=CLI_HEIGHT,
+                                      quality=INGEST_QUALITY)
+    out["fabricate_s"] = time.perf_counter() - t0
+    out["jpeg_kb"] = os.path.getsize(paths[0][0]) / 1024
+    _, stick = fabricate_mini_dataset(os.path.join(root, "stick"), num_frames=24)
+    stick_paths = [[os.path.join(stick["root"], f"Camera{c}", f"campus4-c{c}-{t}.jpg")
+                    for c in range(3)] for t in range(24)]
+
+    # (a) nvJPEG against Pillow, every backend the card accepts; frame order
+    backends, refused = [], {}
+    for backend in tl.BACKENDS:
+        try:
+            tl.NvJpegDecoder("cuda", backend).close()
+            backends.append(backend)
+        except RuntimeError as e:
+            refused[backend] = str(e)
+    if tl.DEFAULT_BACKEND not in backends:
+        fail(f"the card refuses nvJPEG's {tl.DEFAULT_BACKEND} backend: "
+             f"{refused[tl.DEFAULT_BACKEND]}")
+    reading = {"refused": refused, "gate": DECODE_GATE, "limit": DECODE_LIMIT}
+    for name, frame_paths in (("photo", paths), ("stick", stick_paths)):
+        pillow = decoded(torch, tl, frame_paths, prefetch=8, threads=8)
+        reading[name] = {b: against_pillow(torch, tl, frame_paths, pillow, b) for b in backends}
+        del pillow
+    emit("ingest_decode", **reading)  # before the gates, so that a failing reading shows
+    for name in ("photo", "stick"):
+        for b, stats in reading[name].items():
+            check_decode(f"{name} JPEGs, {b} backend", stats, DECODE_GATE)
+    in_order = decoded(torch, tl, paths, prefetch=1, threads=1, device="cuda")
+    frames = decoded(torch, tl, paths, prefetch=8, threads=4, device="cuda")
+    if len(frames) != CLI_FRAMES or not all(torch.equal(a, b) for a, b in zip(frames, in_order)):
+        fail("nvJPEG with 4 threads ahead gives other frames, or another order, than one "
+             "frame at a time")
+    del in_order
+    reading["order"] = f"{CLI_FRAMES} frames torch.equal to one-at-a-time decoding"
+    out["a"] = reading
+
+    # (b) decode rates; (c) disk -> card
+    out["b"] = ib.bench_decode(paths, threads_list=INGEST_THREADS, prefetch=8, device="cuda",
+                               backends=backends)
+    out["b"]["nvjpeg_4_threads"] = ib.bench_decode(
+        paths, threads_list=(), prefetch=8, use_pil_baseline=False, device="cuda",
+        backends=(tl.DEFAULT_BACKEND,), card_threads=4)["nvjpeg"]
+    best = max(out["b"]["pillow"], key=out["b"]["pillow"].get)
+    out["c"] = {
+        "pillow": {"threads": best, **ib.bench_disk_to_device(paths, threads=best, prefetch=8,
+                                                              device="cuda", route="pillow")},
+        "nvjpeg": {"threads": 2, "backend": tl.DEFAULT_BACKEND, **ib.bench_disk_to_device(
+            paths, threads=2, prefetch=8, device="cuda", route="nvjpeg")}}
+
+    # (d) the CLI's loop over (a)'s frames in memory, then from disk
+    raw = shelf_config(data, weights, checkpoint)
+    raw["DATASET"]["TEST_RANGE"] = [0, CLI_FRAMES]
+    cfg = config_from_raw(raw)
+    scene = make_scene(num_frames=CLI_FRAMES, num_cameras=5, num_actors=3, seed=0)
+    pipe = cli.build_pipeline_real(cfg, {"P": scene.P, "K": scene.K, "RT": scene.RT},
+                                   CLI_WIDTH, CLI_HEIGHT)
+    counters = [(th, "launches")]
+    # one clip first, so that neither loop pays the first call (the loops
+    # restart the tracker); then the same frames in memory, then from disk
+    pipe.process_clip(list(range(CLI_CLIP)), torch.stack(frames[:CLI_CLIP]))
+    torch.cuda.synchronize()
+    memory, (poses_m, _, dets_m) = cli_loop(torch, cfg, pipe, torch.stack(frames), card,
+                                            counters)
+    del frames
+    timer = recording_timer()
+    tl.nvjpeg_images = 0
+    source = cli.dataset_frame_source(cfg, True, timer, prefetch=INGEST_PREFETCH, device="cuda")
+    disk, (poses, _, dets) = cli_loop(torch, cfg, pipe, None, card, counters, source=source,
+                                      timer=timer)
+    images = tl.nvjpeg_images
+    if images != CLI_FRAMES * 5:
+        fail(f"the CLI loop from disk decoded {images} images with nvJPEG, expected "
+             f"{CLI_FRAMES * 5}")
+    calls = sum(divmod(CLI_FRAMES, CLI_CLIP))  # one K1 launch a clip or trailing frame
+    if disk["launches"] != {"heatmap.launches": calls}:
+        fail(f"the CLI loop from disk launched K1 {disk['launches']}, expected {calls}")
+    if len(dets) != len(dets_m) or not all(torch.equal(a, b) for got, want in zip(dets, dets_m)
+                                           for a, b in zip(got, want)):
+        fail("the CLI loop from disk: stage A detections differ from the same frames in memory")
+    if list(poses) != list(poses_m) or not all(
+            np.array_equal(poses[t], poses_m[t]) for t in poses_m):
+        fail("the CLI loop from disk: poses differ from the same frames in memory")
+    # the frames pulled before the first clip starts against those after:
+    # the loader decodes the latter while the card runs stage A and B
+    before = [w for at, w in timer.waits if at <= disk["first_call_at"]]
+    after = [w for at, w in timer.waits if at > disk["first_call_at"]]
+    keep = ("loop_s", "ms_per_clip", "clip_ms", "ms_per_trailing_frame", "launches",
+            "k3_launches", "peak_mem_gib", "host_syncs_per_frame")
+    out["d"] = {
+        "nvjpeg_images": images, "detections_equal": True, "poses_equal": True,
+        "detections_valid": sum(int(m.sum()) for _, m in dets),
+        "disk": {**{k: disk[k] for k in keep}, "timer_report": disk["timer_report"]},
+        "memory": {k: memory[k] for k in keep},
+        "decode_wait_before_first_clip": {"frames": len(before), "s": sum(before)},
+        "decode_wait_after_first_clip": {
+            "frames": len(after), "ms_per_frame": 1e3 * sum(after) / max(len(after), 1),
+            "ms_max": 1e3 * max(after, default=0.0)},
+        "decode_work_ms_per_frame": 1e3 * timer.per_frame("decode_work"),
+        "phase10_bf16": None if cli10 is None else {k: cli10[k] for k in (
+            "loop_s", "ms_per_clip", "ms_per_trailing_frame")},
+    }
+    return out
+
+
+def standalone_ingest(torch, card):
+    """Phase 17 alone (`--only ingest`): phase 10's checkpoints written anew
+    from its seed, no phase 10 loop to compare with."""
+    import tempfile
+
+    from tpupose_torch.cli import common as cli
+    from tpupose_torch.data.config import config_from_raw
+
+    with tempfile.TemporaryDirectory() as root:
+        probe = config_from_raw(shelf_config(root, "", ""))
+        weights, checkpoint, _, _ = write_checkpoints(torch, root, cli.yolo_config_from(probe),
+                                                      cli.hrnet_config_from(probe))
+        return phase_ingest(torch, card, root, weights, checkpoint, None)
 
 
 BUNDLE_CONVERTERS = ("load_darknet_weights", "read_darknet_file",
@@ -2429,8 +2728,9 @@ CHAIN_STEPS = (1024, 33792)         # the step-chain microkernel's two lengths
 def host_us_per_call(torch, fn):
     """The host's submission of one call, in µs: HOST_CALLS calls timed on
     the host clock in batches, each while the card sleeps (so that no call
-    waits on the card, nor the launch queue on it); fails if a sleep ended
-    before its batch was submitted."""
+    waits on the card, nor the launch queue on it). A batch whose sleep
+    ended before it was submitted is not counted and runs again behind a
+    sleep twice as long; fails if a batch needs more than a 1 s sleep."""
     torch.cuda.synchronize()
     torch.cuda._sleep(int(0.05 * SLEEP_HZ))
     t0 = time.perf_counter()
@@ -2438,19 +2738,25 @@ def host_us_per_call(torch, fn):
         fn()
     estimate = (time.perf_counter() - t0) / 20
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(HOST_CALLS // HOST_BATCH):
-        torch.cuda._sleep(int((2 * HOST_BATCH * estimate + 0.01) * SLEEP_HZ))
+    total, batches = 0.0, 0
+    sleep_s = 2 * HOST_BATCH * estimate + 0.01
+    while batches < HOST_CALLS // HOST_BATCH:
+        torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
         busy = torch.cuda.Event()
         busy.record()
         t0 = time.perf_counter()
         for _ in range(HOST_BATCH):
             fn()
-        total += time.perf_counter() - t0
+        elapsed = time.perf_counter() - t0
         covered = not busy.query()
         torch.cuda.synchronize()
-        if not covered:
-            fail("host_us: the card's sleep ended before the host had submitted its calls")
+        if not covered:  # the host was slower than the sleep: sleep longer
+            sleep_s *= 2
+            if sleep_s > 1.0:
+                fail("host_us: the host could not submit its calls within a 1 s sleep")
+            continue
+        total += elapsed
+        batches += 1
     return total / HOST_CALLS * 1e6
 
 
@@ -2807,10 +3113,10 @@ def main():
     if args:
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
-        elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {"k2", "k3"}:
+        elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {"k2", "k3", "ingest"}:
             only = set(args[1:])
         else:
-            fail("usage: chip_smoke.py [--learned-seeds SEED ... | --only k2|k3 ...]", 2)
+            fail("usage: chip_smoke.py [--learned-seeds SEED ... | --only k2|k3|ingest ...]", 2)
     try:
         import torch
     except ImportError:
@@ -2849,6 +3155,8 @@ def main():
             emit("k2_vs_plain", **phase_k2(torch, gen, card))
         if "k3" in only:
             emit("multistream_k3", card=card, **k3_against_plain(torch, gen))
+        if "ingest" in only:
+            emit("ingest", **standalone_ingest(torch, card))
         return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
@@ -2881,10 +3189,11 @@ def main():
     tracker = phase_tracker(torch, card)
     emit("tracker_scene", **tracker)
 
-    cli_path, bundles = phase_cli_path(torch, card)
+    cli_path, bundles, ingest = phase_cli_path(torch, card)
     emit("cli_path", **cli_path)
     emit("bundle_pack", a=bundles["bf16"], b=bundles["int8"], c=pack,
          load_s_from_checkpoints=bundles["load_s_from_checkpoints"])
+    emit("ingest", **ingest)
     cli_launches = {mode: cli_path[mode]["launches"] for mode in ("bf16", "int8")}
 
     emit("cli_tracks", **phase_cli_tracks(torch, card))
@@ -2911,6 +3220,7 @@ def main():
         "plain_ms": quarter["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
         "cli_launches": {m: c["heatmap.launches"] for m, c in cli_launches.items()},
+        "ingest_launches": ingest["d"]["disk"]["launches"]["heatmap.launches"],
         "e2e_launches": e2e["k1_launches"],
         "multistream_launches": {m: c["k1"] for m, c in ms_launches.items()},
     }, {
@@ -2980,6 +3290,7 @@ def main():
         "empty_kernel_ms": multistream["k3"]["empty_kernel"]["us"] / 1e3,
         "clip_launches": int8["k3_launches"], "cli_launches": {
             m: cli_path[m]["k3_launches"] for m in ("bf16", "int8")},
+        "ingest_launches": ingest["d"]["disk"]["k3_launches"],
         "multistream_launches": {m: c["k3"] for m, c in ms_launches.items()},
     }]}), flush=True)
     print(card, flush=True)

@@ -3,7 +3,13 @@ and checkpoint loaders against the JAX package's, on one mini-dataset that
 `tpupose.data.fabricate.fabricate_mini_dataset(with_weights=True)` writes:
 3 views of 24 rendered 720x1280 JPEG frames, calibration, actorsGT.mat, a
 replay dump, a reference-schema YAML and tiny random checkpoints in the
-published formats (darknet 0.2 `.weights`, `pose_hrnet` `.pth`).
+published formats (darknet 0.2 `.weights`, `pose_hrnet` `.pth`). The
+tests of the port's CLIs alone that need no confirmed track run on the
+same dataset as the port's `tpupose_torch.data.fabricate` writes it (the
+same files but the tiny weights, drawn from the port's own models); on
+those weights the tracker confirms no track (0 track-frames in 24, where
+the JAX package's weights give some), so the tests that compare tracked
+poses keep the JAX package's dataset.
 
 Tolerances and why:
 * Loaders: the state_dicts equal `state_dict_from_jax` of the JAX
@@ -50,6 +56,7 @@ import tpupose_torch.cli.common as tcommon
 import tpupose_torch.models.convert as tconv
 from tpupose_torch.cli import evalmodel, score, testmodel
 from tpupose_torch.data.config import load_config
+from tpupose_torch.data.fabricate import fabricate_mini_dataset as t_fabricate_mini_dataset
 from tpupose_torch.models.convert import state_dict_from_jax
 from tpupose_torch.models.quantize import QuantizationDriftError
 from tpupose_torch.pipeline.facade import Pipeline
@@ -60,10 +67,9 @@ TIMING = ("Person Detect", "Pose Detect", "Track Processing", "fps:", "tracking 
           "Decode")
 
 
-@pytest.fixture(scope="module")
-def mini(tmp_path_factory):
+def _fabricated(tmp_path_factory, fabricate):
     root = tmp_path_factory.mktemp("minicampus")
-    _, paths = fabricate_mini_dataset(root, with_weights=True)
+    _, paths = fabricate(root, with_weights=True)
     assert paths["hrnet_checkpoint"], "tiny .pth missing"
     paths["pkl"] = os.path.join(paths["root"], "results", "MiniCampus", "logs",
                                 "YOLOv3_HRPose_Iterative_"
@@ -71,6 +77,16 @@ def mini(tmp_path_factory):
     paths["track_dir"] = os.path.join(paths["root"], "results", "MiniCampus",
                                       "TrackResult")
     return paths
+
+
+@pytest.fixture(scope="module")
+def mini(tmp_path_factory):
+    return _fabricated(tmp_path_factory, fabricate_mini_dataset)
+
+
+@pytest.fixture(scope="module")
+def port_mini(tmp_path_factory):
+    return _fabricated(tmp_path_factory, t_fabricate_mini_dataset)
 
 
 def _args(mini, *extra):
@@ -252,9 +268,9 @@ def test_bundle_and_qat_raise_not_implemented(mini, monkeypatch, capsys):
         assert ("after distill-QAT" in str(e.value)) == escalated, str(e.value)
 
 
-def test_cli_errors(mini, monkeypatch, capsys):
+def test_cli_errors(port_mini, monkeypatch, capsys):
     with pytest.raises(FileNotFoundError, match=os.path.join("Bogus", "model_configs.yaml")):
-        evalmodel.main(["--dataset", "Bogus", "--config-dir", mini["config_dir"], *CPU])
+        evalmodel.main(["--dataset", "Bogus", "--config-dir", port_mini["config_dir"], *CPU])
     with pytest.raises(SystemExit) as e:
         score.main([])
     assert e.value.code == 2 and "--pred" in capsys.readouterr().err
@@ -384,11 +400,11 @@ def test_nn_int8_mode(mini, capsys):
                 assert len(pose["points_2d"]) == 17 and len(pose["scores"]) == 17
 
 
-def test_testmodel_save_images(mini, tmp_path, capsys):
+def test_testmodel_save_images(port_mini, tmp_path, capsys):
     """testmodel --save-images with SAVE_IMAGE on: one overlay JPEG per
     camera per frame under <OUTPUT>/<dataset>/Images, from both the clip
     path (a clip of 10) and the trailing per-frame path (4 frames)."""
-    with open(mini["yaml"]) as f:
+    with open(port_mini["yaml"]) as f:
         raw = yaml.safe_load(f)
     raw["SAVE_IMAGE"] = True
     raw["OUTPUT"] = str(tmp_path / "out")

@@ -98,10 +98,13 @@ def hrnet_config_from(cfg: Config):
 def device_prefetch(frame_source, device, depth: int = 2):
     """Overlap host->device copies with device compute.
 
-    Each item's arrays are copied into pinned host memory (on a CUDA
+    Each item's host arrays are copied into pinned host memory (on a CUDA
     device) and sent with `non_blocking=True`, `depth` items ahead of the
     consumer, so the next frame's copy runs behind the current frame's
-    work. Works for both image frames and replay detections."""
+    work. Frames already on the card (the loader decoded them there) have
+    no copy to overlap: they pass through at once, neither copied, pinned
+    nor held back, so the loader's own decode-ahead is not doubled. Works
+    for both image frames and replay detections."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
@@ -121,6 +124,12 @@ def device_prefetch(frame_source, device, depth: int = 2):
 
     queue = collections.deque()
     for item in frame_source:
+        images = item[2]
+        if torch.is_tensor(images) and images.is_cuda:
+            while queue:  # keep the order
+                yield queue.popleft()
+            yield item[:2] + (images.to(device, non_blocking=True),) + item[3:]
+            continue
         queue.append(move(item))
         if len(queue) >= depth:
             yield queue.popleft()
@@ -218,21 +227,65 @@ def run_eval_loop(cfg: Config, pipe: Pipeline, frame_source, timer: StageTimer,
     return multi_poses3d, annotations
 
 
-def dataset_frame_source(cfg: Config, timer: StageTimer | None = None):
-    """Frames from disk, decoded one after another with PIL.
+def dataset_frame_source(cfg: Config, use_native: bool = True,
+                         timer: StageTimer | None = None, prefetch: int = 4,
+                         *, device=None):
+    """Frames from disk, as (frame_id, timestamp, images, None, None).
 
-    When `timer` is given, the time spent decoding each frame is recorded
-    as the `decode_wait` stage: the serial decode cost the reference pays
-    inside its timed loop (`src/dataset.py:36-45`)."""
+    The JAX package's positional parameters. With `use_native` and JPEG
+    files, a decode-ahead `runtime.loader.FrameLoader` decodes them: on a
+    CUDA `device` with nvJPEG, each frame a (V, H, W, 3) uint8 tensor on
+    the card; otherwise with Pillow on worker threads, numpy frames. Other
+    file types (nvJPEG reads JPEG only) go to the Pillow workers whatever
+    the device. `prefetch` frames are decoded ahead (at least 4): clip mode
+    pulls a whole clip back to back, so callers pass at least the clip
+    length. With `use_native=False`, Pillow decodes one frame after another
+    on this thread.
+
+    When `timer` is given, the time this thread spends blocked on the next
+    frame is recorded as the `decode_wait` stage (the whole serial decode
+    cost without `use_native`, the cost the reference pays inside its timed
+    loop, `src/dataset.py:36-45`), and the loader's workers' own decode
+    time as `decode_work`, counted per frame decoded."""
+    from tpupose_torch.data.dataset import parse_timestamp
+    from tpupose_torch.runtime.loader import FrameLoader
+
     datas = load_filenames(cfg.dataset)
     start, end = cfg.dataset.test_range
-    for frame_id in range(start, min(end, len(datas))):
-        t0 = _time.perf_counter()
-        images, timestamp = load_images(cfg.dataset.test_dataset, datas[frame_id])
-        images = np.stack(images)
-        if timer is not None:
-            timer.add("decode_wait", _time.perf_counter() - t0)
-        yield frame_id, timestamp, images, None, None
+    frame_paths = datas[start:end]
+    if not frame_paths:
+        return
+
+    if not use_native:
+        for frame_id, paths in zip(range(start, end), frame_paths):
+            t0 = _time.perf_counter()
+            images, timestamp = load_images(cfg.dataset.test_dataset, paths)
+            images = np.stack(images)
+            if timer is not None:
+                timer.add("decode_wait", _time.perf_counter() - t0)
+            yield frame_id, timestamp, images, None, None
+        return
+
+    is_jpeg = frame_paths[0][0].lower().endswith((".jpg", ".jpeg"))
+    loader = FrameLoader(frame_paths, prefetch=max(4, prefetch), threads=2,
+                         device=device if is_jpeg else None)
+    try:
+        for n, (frame_id, paths) in enumerate(zip(range(start, end), frame_paths)):
+            t0 = _time.perf_counter()
+            images = next(loader, None)
+            if images is None:
+                raise RuntimeError(f"the frame loader ended after {n} of "
+                                   f"{len(frame_paths)} frames")
+            if timer is not None:
+                timer.add("decode_wait", _time.perf_counter() - t0)
+            yield (frame_id, parse_timestamp(cfg.dataset.test_dataset, paths[0]),
+                   images, None, None)
+    finally:
+        loader.close()
+        stats = loader.stats()
+        if timer is not None and stats["frames_decoded"]:
+            timer.add("decode_work", stats["decode_s"],
+                      count=int(stats["frames_decoded"]))
 
 
 def synthetic_frame_source(num_frames=60, num_cameras=5, num_actors=3,

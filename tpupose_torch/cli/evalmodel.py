@@ -14,7 +14,7 @@ from __future__ import annotations
 import argparse
 import os
 
-import numpy as np
+import torch
 
 from tpupose_torch.cli.common import (
     build_pipeline_real,
@@ -115,7 +115,9 @@ def main(argv=None):
         )
         image_hw = (height, width)
     else:
-        source = dataset_frame_source(cfg, timer=timer)
+        # --device cuda decodes on the card (nvJPEG); a clip's worth ahead
+        source = dataset_frame_source(cfg, True, timer, prefetch=max(4, args.clip),
+                                      device=device)
         # peek first frame for image size
         first = next(source)
         images0 = first[2]
@@ -135,7 +137,7 @@ def main(argv=None):
             print(f"--int8: calibrating + self-checking on frames "
                   f"{[int(item[0]) for item in head]}")
             pipe.quantize_models(
-                np.concatenate([item[2] for item in head], axis=0),
+                torch.cat([torch.as_tensor(item[2]) for item in head]),
                 qat_steps=args.qat_steps,
                 on_drift=args.int8_on_drift,
             )

@@ -15,6 +15,7 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
 from tpupose_torch.cli.common import (
     build_pipeline_real,
@@ -70,7 +71,8 @@ def main(argv=None):
         os.path.join(args.config_dir, args.dataset, "model_configs.yaml")
     )
     camera_parameter = load_camera_parameter(cfg)
-    source = dataset_frame_source(cfg, timer=timer)
+    source = dataset_frame_source(cfg, True, timer, prefetch=max(4, args.clip),
+                                  device=device)
     first = next(source)
     images0 = first[2]
     pipe = build_pipeline_real(cfg, camera_parameter, images0.shape[2],
@@ -86,7 +88,8 @@ def main(argv=None):
 
     def save_overlays(out, frame_id, timestamp, images):
         _, ids, anns = pipe.harvest(out, frame_id, timestamp)
-        vis = {c: images[c].copy() for c in range(images.shape[0])}
+        host = images.cpu().numpy() if torch.is_tensor(images) else images
+        vis = {c: host[c].copy() for c in range(host.shape[0])}
         for ann in anns:
             vis[ann["cid"]] = draw_skeleton_overlay(
                 vis[ann["cid"]], ann["pose"], ann["scores"], ann["pid"]
@@ -108,7 +111,7 @@ def main(argv=None):
             fids = np.asarray([b[0] for b in buf], np.int32)
             with timer.time("track"):
                 outs, _, _ = pipe.process_clip(
-                    fids, np.stack([b[2] for b in buf])
+                    fids, torch.stack([torch.as_tensor(b[2]) for b in buf])
                 )
             timer.counts["track"] += len(buf) - 1  # report per-frame
             n += len(buf)

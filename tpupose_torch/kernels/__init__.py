@@ -2,10 +2,13 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for sm_90a into its own shared library under `tpupose_torch/_build/`
-(named by a hash of the source and the flags, so an edited source is
-rebuilt), then loaded with ctypes. Nothing is built at import time: the
-first call that needs a kernel builds it, and `build_all` compiles every
-source at once, one `nvcc` process per source, all started together.
+(named by a hash of the source and the flags, its link flags included, so
+an edited source is rebuilt), then loaded with ctypes. A source that calls
+a CUDA library names it in `LIBRARIES`; it is linked from the toolkit's
+library directory, which the shared library keeps as its run path.
+Nothing is built at import time: the first call that needs a kernel
+builds it, and `build_all` compiles every source at once, one `nvcc`
+process per source, all started together.
 """
 from __future__ import annotations
 
@@ -25,6 +28,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+#: CUDA toolkit libraries a source links against, by kernel name.
+LIBRARIES = {"jpeg_decode": ("nvjpeg",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -47,9 +53,23 @@ def nvcc() -> str:
                        "with sm_90a support")
 
 
+def link_flags(name: str) -> tuple[str, ...]:
+    """`-l` flags for the source's `LIBRARIES`, with the toolkit's library
+    directory as link path and run path; none for a source without any."""
+    libs = LIBRARIES.get(name, ())
+    if not libs:
+        return ()
+    lib_dir = str(Path(nvcc()).resolve().parent.parent / "lib64")
+    return ("-L" + lib_dir, "-Xlinker", "-rpath=" + lib_dir, *("-l" + lib for lib in libs))
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, *link_flags(name))
+
+
 def _target(name: str) -> Path:
     src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -67,7 +87,7 @@ def build_all(names=None, verbose: bool = False) -> dict[str, float]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, str(sources()[name])]
+               "-o", tmp, str(sources()[name]), *link_flags(name)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())

@@ -65,8 +65,9 @@ def init_method_greedy():
 
 @INIT_METHODS.register("bip")
 def init_method_bip():
-    """BIP clique-partition alternative: a name only here; its host-side
-    solver (`tpupose/tracking/bip.py`) is not ported yet."""
+    """BIP clique-partition alternative: its host-side solver is
+    `tpupose_torch.tracking.bip` (`solve_clique_partition`,
+    `bip_matching`); the tracker step builds hypotheses greedily only."""
     return "bip"
 
 
