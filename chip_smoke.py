@@ -1623,13 +1623,7 @@ def phase_ingest(torch, card, root, weights, checkpoint, cli10):
                     for c in range(3)] for t in range(24)]
 
     # (a) nvJPEG against Pillow, every backend the card accepts; frame order
-    backends, refused = [], {}
-    for backend in tl.BACKENDS:
-        try:
-            tl.NvJpegDecoder("cuda", backend).close()
-            backends.append(backend)
-        except RuntimeError as e:
-            refused[backend] = str(e)
+    backends, refused = tl.accepted_backends("cuda")
     if tl.DEFAULT_BACKEND not in backends:
         fail(f"the card refuses nvJPEG's {tl.DEFAULT_BACKEND} backend: "
              f"{refused[tl.DEFAULT_BACKEND]}")
@@ -2728,9 +2722,10 @@ CHAIN_STEPS = (1024, 33792)         # the step-chain microkernel's two lengths
 def host_us_per_call(torch, fn):
     """The host's submission of one call, in µs: HOST_CALLS calls timed on
     the host clock in batches, each while the card sleeps (so that no call
-    waits on the card, nor the launch queue on it). A batch whose sleep
-    ended before it was submitted is not counted and runs again behind a
-    sleep twice as long; fails if a batch needs more than a 1 s sleep."""
+    waits on the card, nor the launch queue on it). If a sleep ends before
+    its batch was submitted, every batch so far is dropped and the whole
+    measurement starts again behind sleeps twice as long, so that all the
+    batches counted ran under one sleep; fails past a 1 s sleep."""
     torch.cuda.synchronize()
     torch.cuda._sleep(int(0.05 * SLEEP_HZ))
     t0 = time.perf_counter()
@@ -2738,26 +2733,26 @@ def host_us_per_call(torch, fn):
         fn()
     estimate = (time.perf_counter() - t0) / 20
     torch.cuda.synchronize()
-    total, batches = 0.0, 0
     sleep_s = 2 * HOST_BATCH * estimate + 0.01
-    while batches < HOST_CALLS // HOST_BATCH:
-        torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
-        busy = torch.cuda.Event()
-        busy.record()
-        t0 = time.perf_counter()
-        for _ in range(HOST_BATCH):
-            fn()
-        elapsed = time.perf_counter() - t0
-        covered = not busy.query()
-        torch.cuda.synchronize()
-        if not covered:  # the host was slower than the sleep: sleep longer
-            sleep_s *= 2
-            if sleep_s > 1.0:
-                fail("host_us: the host could not submit its calls within a 1 s sleep")
-            continue
-        total += elapsed
-        batches += 1
-    return total / HOST_CALLS * 1e6
+    while True:
+        total = 0.0
+        for _ in range(HOST_CALLS // HOST_BATCH):
+            torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
+            busy = torch.cuda.Event()
+            busy.record()
+            t0 = time.perf_counter()
+            for _ in range(HOST_BATCH):
+                fn()
+            total += time.perf_counter() - t0
+            covered = not busy.query()
+            torch.cuda.synchronize()
+            if not covered:
+                break
+        else:
+            return total / HOST_CALLS * 1e6
+        sleep_s *= 2  # the host was slower than the sleep: start again
+        if sleep_s > 1.0:
+            fail("host_us: the host could not submit its calls within a 1 s sleep")
 
 
 def device_us_per_call(torch, fn, host_us):

@@ -230,7 +230,8 @@ def test_dataset_frame_source_matches_jax(mini):
     timestamps, and `device_prefetch` passes them through unchanged."""
     ref = list(jcommon.dataset_frame_source(j_load_config(mini["yaml"]), use_native=False))
     cfg = load_config(mini["yaml"])
-    got = list(tcommon.device_prefetch(tcommon.dataset_frame_source(cfg), "cpu", depth=5))
+    got = list(tcommon.device_prefetch(tcommon.dataset_frame_source(cfg, device="cpu"), "cpu",
+                                       depth=5))
     assert len(got) == len(ref) == 24
     for (f1, t1, im1, _, _), (f2, t2, im2, _, _) in zip(got, ref):
         assert (f1, t1) == (f2, t2)

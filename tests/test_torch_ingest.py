@@ -50,8 +50,9 @@ def test_bench_disk_to_device_delivers_all_frames(tmp_path, clip):
 
 def test_report_structure():
     buf = io.StringIO()
-    res = ib.report(threads_list=(1, 2), file=buf, **SMALL)
+    res = ib.report(threads_list=(1, 2), file=buf, device="cpu", **SMALL)
     assert set(res) == {"decode", "disk_to_device"}
     assert set(res["disk_to_device"]) == {"pillow"}
     text = buf.getvalue()
     assert "Pillow pool 2 threads" in text and "host CPUs" in text and "disk -> pillow" in text
+    assert "-> cpu -> reduce" in text

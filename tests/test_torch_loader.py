@@ -23,6 +23,8 @@ import tpupose_torch.cli.common as tcommon
 from tpupose_torch.data.config import load_config
 from tpupose_torch.data.dataset import load_filenames
 from tpupose_torch.data.fabricate import fabricate_mini_dataset
+from tpupose_torch.cli import convert
+from tpupose_torch.runtime import ingest_bench
 from tpupose_torch.runtime import loader as tloader
 from tpupose_torch.runtime.loader import FrameLoader
 from tpupose_torch.utils.timing import StageTimer
@@ -128,6 +130,11 @@ def test_cuda_without_card_raises_and_decodes_nothing(mini, monkeypatch):
     cfg = load_config(paths["yaml"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         next(tcommon.dataset_frame_source(cfg, True, None, 4, device="cuda"))
+    for use_native in (True, False):  # no device is CUDA, as `Pipeline`'s
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            next(tcommon.dataset_frame_source(cfg, use_native))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ingest_bench.report(num_frames=1, num_views=1, width=16, height=16)
     with pytest.raises(ValueError, match="unknown nvJPEG backend"):
         tloader.NvJpegDecoder("cuda", "bogus")
     with pytest.raises(ValueError):
@@ -142,7 +149,7 @@ def test_dataset_frame_source_positional(mini, use_native):
     paths, ref = mini
     timer = StageTimer()
     got = list(tcommon.dataset_frame_source(load_config(paths["yaml"]), use_native,
-                                            timer, 2))
+                                            timer, 2, device="cpu"))
     assert len(got) == len(ref)
     for (f1, t1, im1, d1, m1), (f2, t2, im2, _, _) in zip(got, ref):
         assert (f1, t1, d1, m1) == (f2, t2, None, None)
@@ -162,16 +169,55 @@ def test_dataset_frame_source_early_end_is_descriptive(mini, monkeypatch):
         return real_next(self)
 
     monkeypatch.setattr(FrameLoader, "__next__", short)
-    source = tcommon.dataset_frame_source(load_config(paths["yaml"]))
+    source = tcommon.dataset_frame_source(load_config(paths["yaml"]), device="cpu")
     with pytest.raises(RuntimeError, match=f"ended after 3 of {FRAMES} frames"):
         list(source)
+
+
+def test_card_frame_source_refuses_pillow(mini, tmp_path, monkeypatch):
+    """Asked for the card, `dataset_frame_source` decodes nothing with
+    Pillow: the sequential loop and files nvJPEG cannot read raise before
+    a frame is read (a card posed by `is_available`)."""
+    def no_pillow(*args):
+        raise AssertionError("decoded with Pillow")
+
+    paths, _ = mini
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tloader, "decode_frame_pil", no_pillow)
+    monkeypatch.setattr(tcommon, "load_images", no_pillow)
+    with pytest.raises(ValueError, match="use_native=False"):
+        next(tcommon.dataset_frame_source(load_config(paths["yaml"]), False, device="cuda"))
+    _, png = fabricate_mini_dataset(tmp_path, num_frames=2, image_format="png")
+    for device in (None, "cuda"):
+        with pytest.raises(ValueError, match="JPEG files only"):
+            next(tcommon.dataset_frame_source(load_config(png["yaml"]), True, device=device))
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_convert_int8_decodes_on_its_device(mini, tmp_path, monkeypatch, device):
+    """`convert --int8` reads its calibration frames through the loader on
+    its resolved `--device`, as `evalmodel --int8` does."""
+    class Seen(Exception):
+        pass
+
+    def loader(frame_paths, prefetch=4, threads=2, device=None, backend=None):
+        raise Seen(device)
+
+    paths, _ = mini
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tloader, "FrameLoader", loader)
+    with pytest.raises(Seen) as e:
+        convert.main(["--dataset", "MiniCampus", "--config-dir", paths["config_dir"],
+                      "--device", device, "--int8", "--int8-calib", "2",
+                      "--out", str(tmp_path / "bundle")])
+    assert e.value.args[0] == torch.device(device)
 
 
 def test_png_frames_through_the_pool(tmp_path):
     _, paths = fabricate_mini_dataset(tmp_path, num_frames=3, image_format="png")
     cfg = load_config(paths["yaml"])
     got = list(tcommon.dataset_frame_source(cfg, True, None, 4, device="cpu"))
-    ref = list(tcommon.dataset_frame_source(cfg, False))
+    ref = list(tcommon.dataset_frame_source(cfg, False, device="cpu"))
     assert len(got) == len(ref) == 3
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a[2], b[2])

@@ -232,15 +232,16 @@ def dataset_frame_source(cfg: Config, use_native: bool = True,
                          *, device=None):
     """Frames from disk, as (frame_id, timestamp, images, None, None).
 
-    The JAX package's positional parameters. With `use_native` and JPEG
-    files, a decode-ahead `runtime.loader.FrameLoader` decodes them: on a
-    CUDA `device` with nvJPEG, each frame a (V, H, W, 3) uint8 tensor on
-    the card; otherwise with Pillow on worker threads, numpy frames. Other
-    file types (nvJPEG reads JPEG only) go to the Pillow workers whatever
-    the device. `prefetch` frames are decoded ahead (at least 4): clip mode
-    pulls a whole clip back to back, so callers pass at least the clip
-    length. With `use_native=False`, Pillow decodes one frame after another
-    on this thread.
+    The JAX package's positional parameters. `device` is resolved as
+    `Pipeline`'s: None is CUDA, which must be present. With `use_native`, a
+    decode-ahead `runtime.loader.FrameLoader` decodes the frames: on a CUDA
+    device with nvJPEG, each frame a (V, H, W, 3) uint8 tensor on the card
+    (JPEG files only: other files raise there); on the CPU with Pillow on
+    worker threads, numpy frames. `prefetch` frames are decoded ahead (at
+    least 4): clip mode pulls a whole clip back to back, so callers pass at
+    least the clip length. With `use_native=False`, Pillow decodes one
+    frame after another on this thread, on the CPU only: a CUDA device
+    raises.
 
     When `timer` is given, the time this thread spends blocked on the next
     frame is recorded as the `decode_wait` stage (the whole serial decode
@@ -248,13 +249,23 @@ def dataset_frame_source(cfg: Config, use_native: bool = True,
     loop, `src/dataset.py:36-45`), and the loader's workers' own decode
     time as `decode_work`, counted per frame decoded."""
     from tpupose_torch.data.dataset import parse_timestamp
+    from tpupose_torch.pipeline.facade import resolve_device
     from tpupose_torch.runtime.loader import FrameLoader
 
+    device = resolve_device(device)
+    on_card = device.type == "cuda"
+    if on_card and not use_native:
+        raise ValueError("dataset_frame_source: the sequential loop (use_native=False) "
+                         "decodes with Pillow on the host; pass device='cpu', or "
+                         "use_native=True to decode on the card")
     datas = load_filenames(cfg.dataset)
     start, end = cfg.dataset.test_range
     frame_paths = datas[start:end]
     if not frame_paths:
         return
+    if on_card and not frame_paths[0][0].lower().endswith((".jpg", ".jpeg")):
+        raise ValueError(f"dataset_frame_source: nvJPEG decodes JPEG files only, not "
+                         f"{frame_paths[0][0]}; pass device='cpu' to decode them with Pillow")
 
     if not use_native:
         for frame_id, paths in zip(range(start, end), frame_paths):
@@ -266,9 +277,7 @@ def dataset_frame_source(cfg: Config, use_native: bool = True,
             yield frame_id, timestamp, images, None, None
         return
 
-    is_jpeg = frame_paths[0][0].lower().endswith((".jpg", ".jpeg"))
-    loader = FrameLoader(frame_paths, prefetch=max(4, prefetch), threads=2,
-                         device=device if is_jpeg else None)
+    loader = FrameLoader(frame_paths, prefetch=max(4, prefetch), threads=2, device=device)
     try:
         for n, (frame_id, paths) in enumerate(zip(range(start, end), frame_paths)):
             t0 = _time.perf_counter()

@@ -13,7 +13,8 @@ pinning the model configs the weights were converted for. `evalmodel` /
 / `.pth` files, folding BN or, for an `--int8` bundle, calibrating.
 
 `main` reads the dataset's YAML (PyYAML) and, for `--int8`, its leading
-frames (Pillow); `convert_checkpoints` below it takes a `Config` and the
+frames (decoded on `--device` as `evalmodel` decodes them: nvJPEG on the
+card, Pillow on the CPU); `convert_checkpoints` below it takes a `Config` and the
 calibration frames and needs neither. A bundle of the JAX package (orbax
 directories) does not load here: `load_bundle` says so.
 """
@@ -21,10 +22,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -182,7 +183,7 @@ def convert_checkpoints(cfg, out, int8=False, calib_images=None, camera_paramete
     `int8`, they are quantized as `evalmodel --int8` does in process:
     `Pipeline.quantize_models` (calibration, the drift self-check,
     `qat_steps` / `on_drift`) on `calib_images`, (N, H, W, 3) uint8 frames
-    (every view of the leading frames), on `device` (as `Pipeline`'s),
+    (every view of the leading frames; a tensor or an array), on `device` (as `Pipeline`'s),
     with the rig of `camera_parameter` (a dict with 'P', 'K', 'RT'), so
     the bundle equals the in-process int8 models on those frames.
     `provenance` adds entries to the manifest's. Returns (manifest,
@@ -198,7 +199,7 @@ def convert_checkpoints(cfg, out, int8=False, calib_images=None, camera_paramete
         if calib_images is None or camera_parameter is None:
             raise ValueError("convert_checkpoints(int8=True) needs calib_images "
                              "and camera_parameter")
-        calib_images = np.asarray(calib_images)
+        calib_images = torch.as_tensor(calib_images)
         cams = Pipeline.camera_set_from_parameter_dict(
             camera_parameter, calib_images.shape[2], calib_images.shape[1],
             num_cameras=len(cfg.dataset.folders_order))
@@ -270,17 +271,16 @@ def main(argv=None):
         # the leading dataset frames that `evalmodel --int8 --int8-calib N`
         # calibrates on, through the same `Pipeline.quantize_models`
         camera_parameter = load_camera_parameter(cfg)
-        head = []
-        for item in dataset_frame_source(cfg):
-            head.append(item)
-            if len(head) >= max(args.int8_calib, 1):
-                break
+        # decoded on `device` as evalmodel's frames are (nvJPEG on the card)
+        source = dataset_frame_source(cfg, True, None, args.int8_calib, device=device)
+        head = list(itertools.islice(source, max(args.int8_calib, 1)))
+        source.close()
         if not head:
             raise FileNotFoundError("no dataset frames available for --int8 "
                                     f"calibration (dataset root {cfg.dataset.root!r})")
         print(f"--int8: calibrating + self-checking on frames "
               f"{[int(item[0]) for item in head]}")
-        calib_images = np.concatenate([item[2] for item in head], axis=0)
+        calib_images = torch.cat([torch.as_tensor(item[2]) for item in head])
     converted = convert_checkpoints(
         cfg, args.out, int8=args.int8, calib_images=calib_images,
         camera_parameter=camera_parameter, qat_steps=args.qat_steps,

@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from tpupose_torch.runtime.loader import BACKENDS, FrameLoader, NvJpegDecoder, decode_view_pil
+from tpupose_torch.runtime.loader import BACKENDS, FrameLoader, accepted_backends, decode_view_pil
 
 
 def fabricate_jpeg_dataset(root, num_frames=32, num_views=5, width=1280,
@@ -96,11 +96,11 @@ def bench_decode(frame_paths, threads_list=(1, 2, 4), prefetch=8,
             raise RuntimeError(f"the Pillow pool gave {count} of {n_imgs} images")
         out["pillow"][th] = count / dt
     if device is not None and torch.device(device).type == "cuda":
+        # the card may lack a backend: report it, measure the rest
+        _, refused = accepted_backends(device, backends)
         for backend in backends:
-            try:  # the card may lack a backend: report it, measure the rest
-                NvJpegDecoder(device, backend).close()
-            except RuntimeError as e:
-                out["nvjpeg"][backend] = f"refused: {e}"
+            if backend in refused:
+                out["nvjpeg"][backend] = f"refused: {refused[backend]}"
                 continue
             count, dt = _drain(frame_paths, device, prefetch=prefetch,
                                threads=card_threads, backend=backend)
@@ -172,12 +172,17 @@ def bench_disk_to_device(frame_paths, threads=4, prefetch=8, clip=8, device="cud
 def report(num_frames=32, num_views=5, width=1280, height=720,
            threads_list=(1, 2, 4, 8), root=None, device=None, file=None):
     """Fabricate, run both measurements, print a report; return the dict.
-    With a CUDA `device`, nvJPEG is measured beside the Pillow pool and
-    both routes go disk to device; otherwise the Pillow pool goes disk to
-    the CPU."""
+    `device` is resolved as `Pipeline`'s (None is CUDA, which must be
+    present). On a CUDA device nvJPEG is measured beside the Pillow pool
+    and both routes go disk to device; on the CPU the Pillow pool goes
+    disk to the CPU."""
     import shutil
     import sys
     import tempfile
+
+    from tpupose_torch.pipeline.facade import resolve_device
+
+    device = resolve_device(device)
 
     file = file or sys.stderr
     tmp = root or tempfile.mkdtemp(prefix="tpupose_torch_ingest_")
@@ -199,17 +204,16 @@ def report(num_frames=32, num_views=5, width=1280, height=720,
             print(f"ingest: Pillow sequential baseline: {dec['pil']:7.1f} imgs/s", file=file)
         results = {"decode": dec, "disk_to_device": {}}
         best_th = max(dec["pillow"], key=dec["pillow"].get)
-        target = device if device is not None else "cpu"
         routes = [("pillow", None)]
         card_rates = {b: r for b, r in dec["nvjpeg"].items() if not isinstance(r, str)}
         if card_rates:
             routes.append(("nvjpeg", max(card_rates, key=card_rates.get)))
         for route, backend in routes:
-            d2d = bench_disk_to_device(paths, threads=best_th, device=target,
+            d2d = bench_disk_to_device(paths, threads=best_th, device=device,
                                        route=route, backend=backend)
             results["disk_to_device"][route] = d2d
             print(f"ingest: disk -> {route}{f' ({backend})' if backend else ''} -> "
-                  f"{target} -> reduce: {d2d['fps']:6.1f} multi-view fps at "
+                  f"{device} -> reduce: {d2d['fps']:6.1f} multi-view fps at "
                   f"{d2d['gbps']:.2f} GB/s of RGB", file=file)
         return results
     finally:

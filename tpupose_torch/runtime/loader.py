@@ -96,13 +96,17 @@ def _library():
 
 
 class NvJpegDecoder:
-    """An nvJPEG handle for one backend, with one decoder state a worker
-    thread (made on its first decode) and a stream of its own."""
+    """An nvJPEG handle for one backend and frames of `views` images, with
+    one decoder state for each worker thread (made on its first decode,
+    set up for `views` images) and a stream of its own."""
 
-    def __init__(self, device, backend=DEFAULT_BACKEND):
+    def __init__(self, device, backend=DEFAULT_BACKEND, views=1):
         if backend not in BACKENDS:
             raise ValueError(f"unknown nvJPEG backend {backend!r}; one of {sorted(BACKENDS)}")
+        if not 1 <= views <= MAX_VIEWS:
+            raise ValueError(f"{views} views; the card route takes 1 to {MAX_VIEWS}")
         self.device = torch.device(device)
+        self.views = int(views)
         self._lib = _library()
         handle = ctypes.c_void_p()
         with torch.cuda.device(self.device):
@@ -122,15 +126,16 @@ class NvJpegDecoder:
                 rc, f"nvjpegStatus_t {rc}")
             raise RuntimeError(f"nvJPEG: {what} failed ({kind})")
 
-    def _state(self, batch):
+    def _state(self):
         state = getattr(self._local, "state", None)
-        if state is None or self._local.batch != batch:
+        if state is None:
             state = ctypes.c_void_p()
-            self._check(self._lib.tpj_state_create(self._handle, batch, ctypes.byref(state)),
-                        f"creating a decoder state for {batch} images")
+            self._check(self._lib.tpj_state_create(self._handle, self.views,
+                                                   ctypes.byref(state)),
+                        f"creating a decoder state for {self.views} images")
             with self._states_lock:
                 self._states.append(state)
-            self._local.state, self._local.batch = state, batch
+            self._local.state = state
         return state
 
     def decode(self, blobs, names):
@@ -139,8 +144,8 @@ class NvJpegDecoder:
         tensor and an event recorded after the decode."""
         global nvjpeg_images
         n = len(blobs)
-        if not 1 <= n <= MAX_VIEWS:
-            raise ValueError(f"{n} views; the card route takes 1 to {MAX_VIEWS}")
+        if n != self.views:
+            raise ValueError(f"{n} views, the decoder was set up for {self.views}")
         sizes = []
         for blob, name in zip(blobs, names):
             w, h = ctypes.c_int(), ctypes.c_int()
@@ -155,7 +160,7 @@ class NvJpegDecoder:
         width, height = sizes[0]
         data = (ctypes.c_char_p * n)(*blobs)
         lengths = (ctypes.c_size_t * n)(*(len(b) for b in blobs))
-        state = self._state(n)
+        state = self._state()
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             out = torch.empty((n, height, width, 3), dtype=torch.uint8, device=self.device)
             self._check(self._lib.tpj_decode(self._handle, state, data, lengths, n,
@@ -179,6 +184,19 @@ class NvJpegDecoder:
         self._handle = None
 
 
+def accepted_backends(device="cuda", backends=tuple(BACKENDS)):
+    """The nvJPEG backends of `backends` that the card of `device` accepts,
+    in order, and {backend: error} for those it refuses."""
+    accepted, refused = [], {}
+    for backend in backends:
+        try:
+            NvJpegDecoder(device, backend).close()
+            accepted.append(backend)
+        except RuntimeError as e:
+            refused[backend] = str(e)
+    return accepted, refused
+
+
 class _Failed:
     def __init__(self, error):
         self.error = error
@@ -192,7 +210,10 @@ class FrameLoader:
     worker threads decode at most `prefetch` frames ahead of the consumer.
     `device` None or the CPU: the Pillow plain version, numpy frames; a
     CUDA device: nvJPEG with `backend`, CUDA tensors, each ready on the
-    stream that is current when the consumer takes it.
+    stream that is current when the consumer takes it. None is the host
+    here, as in the JAX loader; the entry points above it
+    (`cli.common.dataset_frame_source`, `ingest_bench.report`) take None
+    to mean CUDA, as `Pipeline` does, and pass the loader a device.
     """
 
     def __init__(self, frame_paths, prefetch=4, threads=2, device=None,
@@ -205,9 +226,10 @@ class FrameLoader:
         self._decoder = None
         if self.device is not None and self.device.type == "cuda":
             if not torch.cuda.is_available():
-                raise RuntimeError("FrameLoader: CUDA is not available; pass device=None "
+                raise RuntimeError("FrameLoader: CUDA is not available; pass device='cpu' "
                                    "to decode on the host")
-            self._decoder = NvJpegDecoder(self.device, backend)
+            views = len(self._paths[0]) if self._paths else 1
+            self._decoder = NvJpegDecoder(self.device, backend, views)
         elif self.device is not None and self.device.type != "cpu":
             raise ValueError(f"FrameLoader decodes on the host or a CUDA device, "
                              f"not {self.device}")
