@@ -5,6 +5,7 @@
     python3 chip_smoke.py --learned-seeds 0 1 2   # phase 13 (e) per seed, no gates
     python3 chip_smoke.py --only k2 k3            # phases 4 and 15 (a) alone
     python3 chip_smoke.py --only ingest           # phase 17 alone
+    python3 chip_smoke.py --only parallel         # phase 18 alone, one rank per card
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
 memory holds none of phase 5's models, 16 in two parts, (c) after 8
@@ -210,18 +211,44 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      detections of every call and the harvested poses torch.equal between
      the two; ms per clip, decode_wait per frame after the first clip,
      decode_work, both loops' totals beside phase 10's.
+ 18. parallel across cards (`parallel`, `tpupose_torch.parallel.{mesh,
+     multihost}`), after 14: the kernels built here, one spawned process
+     per visible card (`multihost.initialize` over a `file://`
+     rendezvous, NCCL; on one card a one-rank group of real NCCL calls);
+     any rank's failure or PAR_TIMEOUT_S fails the run. (a)
+     `make_sharded_train_step` on HRNet-W48 384x288 from a seed, phase 13
+     (b)'s recipe (Adam 1e-3, f32, train-mode BN synchronized over 'data',
+     targets x 10), cuDNN deterministic, PAR_TRAIN_BATCH crops per data
+     rank, PAR_TRAIN_STEPS steps, at (data, model) = (2, 2) on four cards
+     and (world, 1) otherwise: every split tensor and its Adam moments hold
+     1 / model of the rows; the losses and the gathered parameters are held
+     against rank 0's unsharded `make_train_step` on the whole global
+     batch (PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL_LR); ms per step
+     per rank (and rank 0's unsharded step's), peak memory, parameter and
+     Adam bytes held per rank, collectives per step. (b) the multi-stream
+     clip at (world, 1): YOLOv3-416 (max_candidates=4) and HRNet-W48 folded
+     to bf16, PAR_STREAMS_PER_CARD streams a card of PAR_FRAMES frames of 5
+     random 720x1280 views, each stream's clip from its own seed; each rank
+     makes only its own streams (`process_stream_slice`, `shard_streams`,
+     `global_streams`), runs `make_multistream_clip_fn` once to warm up and
+     once timed after a barrier, K1 and K3 counted from 0 (2 and 192 a
+     rank), each stream's stage B equal to `track_clip` on its own stage-A
+     detections; fps per rank and over all cards, the stage A / B split;
+     `all_hosts_metric` of the active tracks equal on every rank and to the
+     sum of the ranks' own counts.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
 the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
 `--only ingest`, phase 17, its checkpoint files written anew from phase
-10's seed.
+10's seed; with `--only parallel`, phase 18.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
 K2a's in phase 13 (e) as `learned_int8_launches`, K2's in phase 16 (b)'s
 bundle loop as `bundle_launches`, K1's and K3's in phase 17 (d)'s loop
-from disk as `ingest_launches`; K2's `packed_branch0` holds phase 4's
+from disk as `ingest_launches`, K1's and K3's per rank in phase 18 (b) as
+`parallel_launches_per_rank`; K2's `packed_branch0` holds phase 4's
 times and bounds at the packed branch-0 shape beside the unpacked one's
 and phase 16 (c)'s K2 launches at that shape a packed clip; the stem kernel's row
 times HRNet's stem and, under `yolo_stem`, YOLO's; K3's `launches` are
@@ -238,6 +265,7 @@ f32 fake-quant convolutions and phase 13's f32 training, but for the
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import statistics
@@ -3102,16 +3130,415 @@ def phase_multistream(torch, card, gen, float_models):
             "clip": clip, "seconds": time.perf_counter() - t_phase}
 
 
+PAR_TRAIN_BATCH, PAR_TRAIN_STEPS, PAR_TRAIN_LR = 8, 2, 1e-3  # (a): crops per data rank
+PAR_STREAMS_PER_CARD, PAR_FRAMES = 2, 32                     # (b)
+ALL_REDUCE_WARMUP, ALL_REDUCE_CALLS = 20, 200  # (a): one small all-reduce's cost
+PAR_TIMEOUT_S = 420  # every rank's whole run, the spawn included
+#: (a)'s gates against rank 0's unsharded step. With one data rank the
+#: sharded step computes what the unsharded one does, op for op (the
+#: synchronized BN scales local means by a share of 1): losses, gradients
+#: and parameters equal bit for bit. With more, the batch is summed in
+#: parts, and train-mode BN's gradients are ill-conditioned where a
+#: channel's mean dwarfs its spread (a last-bit change moves a tensor's
+#: gradient by up to 1e-2), so the sharded and the unsharded f32 gradients
+#: are each held to the same gradient in f64: the first loss within
+#: PAR_LOSS_RTOL, the sharded gradient's relative norm from the f64 one
+#: within PAR_GRAD_F64_RATIO x the unsharded one's, and every parameter
+#: within Adam's bound of 2 x lr a step (Adam's first steps move an entry
+#: by at most about lr whatever its gradient) plus PAR_F32_SLACK, the f32
+#: rounding of parameters of magnitude up to 8; the share of entries outside
+#: PAR_PARAM_RTOL plus PAR_PARAM_ATOL_LR x lr is reported, not gated.
+PAR_LOSS_RTOL, PAR_GRAD_F64_RATIO, PAR_F32_SLACK = 1e-5, 2.0, 1e-6
+PAR_PARAM_RTOL, PAR_PARAM_ATOL_LR = 1e-5, 1e-2
+
+
+def held_entries(t, mesh, spec):
+    """The rows of a whole tensor that this rank holds under `spec`."""
+    if not spec:
+        return t
+    k = t.shape[0] // mesh.shape["model"]
+    return t[mesh.model_index * k:(mesh.model_index + 1) * k]
+
+
+def rel_norm(torch, got, ref):
+    """||got - ref|| / ||ref|| over every entry of two {name: tensor} sets."""
+    err = sum(float(torch.linalg.vector_norm(got[n] - r)) ** 2 for n, r in ref.items())
+    den = sum(float(torch.linalg.vector_norm(r)) ** 2 for r in ref.values())
+    return (err / den) ** 0.5
+
+
+@contextlib.contextmanager
+def f64_batch_statistics(torch):
+    """Train-mode BN statistics in the input's own dtype (f64 for an f64
+    model) inside the block, as tests/test_torch_train.py's f64 reference."""
+    from tpupose_torch.models import layers
+
+    def observe(self, bn, x):
+        m = x.mean(dim=(0, 2, 3))
+        v = torch.square(x - m[:, None, None]).mean(dim=(0, 2, 3))
+        self.taps.append((bn, m, v))
+        return m, v
+
+    inner, layers.BNStatRecorder.observe = layers.BNStatRecorder.observe, observe
+    try:
+        yield
+    finally:
+        layers.BNStatRecorder.observe = inner
+
+
+def param_agreement(torch, got, ref, lr):
+    """Entry-wise agreement of two {name: tensor} parameter sets: the
+    entries outside PAR_PARAM_RTOL, and outside it plus PAR_PARAM_ATOL_LR x
+    lr, the largest differences, and whether they are equal."""
+    atol = PAR_PARAM_ATOL_LR * lr
+    worst_abs = worst_rel = 0.0
+    outside = outside_rtol = entries = 0
+    equal = True
+    for name, r in ref.items():
+        equal = equal and torch.equal(got[name], r)
+        diff = (got[name] - r).abs()
+        entries += r.numel()
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_rel = max(worst_rel, float((diff / r.abs().clamp_min(1e-30)).max()))
+        outside_rtol += int((diff > PAR_PARAM_RTOL * r.abs()).sum())
+        outside += int((diff > PAR_PARAM_RTOL * r.abs() + atol).sum())
+    return {"entries": entries, "outside_rtol": outside_rtol, "outside_rtol_atol": outside,
+            "max_abs_diff": worst_abs, "max_rel_diff": worst_rel, "equal": equal}
+
+
+def parallel_train(torch, mesh):
+    """(a): `make_sharded_train_step` on HRNet-W48 384x288, phase 13 (b)'s
+    recipe, held against rank 0's unsharded `make_train_step` on the whole
+    global batch."""
+    import numpy as np
+
+    from tpupose_torch.models import train as tt
+    from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
+    from tpupose_torch.parallel import mesh as mesh_mod
+    from tpupose_torch.parallel import shard_batch
+
+    cfg = hrnet_w48_config()
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    model = hrnet_init(cfg, torch.Generator().manual_seed(23)).cuda()
+    batches = blob_batches(tt, np.random.default_rng(1), cfg, PAR_TRAIN_BATCH * d, scale=10.0)
+    global_batches = [next(batches) for _ in range(PAR_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step, shardings_for = tt.make_sharded_train_step(
+        model, lambda ts: torch.optim.Adam(ts, lr=PAR_TRAIN_LR), mesh, torch.float32,
+        train_bn=True)
+    specs = step.specs
+    mesh_mod.all_reduces = 0
+    losses, ms, gathered = [], [], []
+    for i, batch in enumerate(global_batches):
+        local = shard_batch(mesh, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(*local)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        all_reduces = mesh_mod.all_reduces
+        if i == 0:
+            grads = {n: t.grad.cpu() for n, t in step.tensors.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        gathered.append({n: t.cpu() for n, t in step.gather().items()})
+    # one collective's cost: a 48-float all-reduce over 'data', back to back
+    x = torch.zeros(48, device=mesh.device)
+    for k in range(ALL_REDUCE_WARMUP + ALL_REDUCE_CALLS):
+        if k == ALL_REDUCE_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        torch.distributed.all_reduce(x, group=mesh.data_group)
+    torch.cuda.synchronize()
+    all_reduce_us = (time.perf_counter() - t0) * 1e6 / ALL_REDUCE_CALLS
+    held = sum(t.numel() * t.element_size() for t in step.tensors.values())
+    adam = sum(v.numel() * v.element_size() for st in step.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v))
+    full = dict(tt.named_trained_tensors(model))
+    full_bytes = sum(t.numel() * t.element_size() for t in full.values())
+    split = [n for n, spec in shardings_for(model).items() if spec]
+    for name in split:
+        t = step.tensors[name]
+        st = step.optimizer.state[t]
+        if not (t.shape[0] * m == st["exp_avg"].shape[0] * m == st["exp_avg_sq"].shape[0] * m
+                == full[name].shape[0]):
+            fail(f"sharded training: {name} holds {t.shape[0]} of {full[name].shape[0]} rows "
+                 f"at model={m}")
+    out = {"mesh": mesh.shape, "global_batch": PAR_TRAIN_BATCH * d, "losses": losses,
+           "step_ms": ms, "peak_mem_gib_first_step": peak, "param_bytes_held": held,
+           "adam_bytes_held": adam, "param_bytes_full": full_bytes,
+           "split_tensors": len(split), "trained_tensors": len(step.tensors),
+           "collectives_per_step": step.collectives,
+           "all_reduces_per_step": all_reduces / PAR_TRAIN_STEPS,
+           "all_reduce_us": all_reduce_us}
+    del step
+    if mesh.data_index == 0 and mesh.model_index == 0:
+        def held_grads(named):  # this rank's entries of each gradient, f64, zeros for none
+            return {n: torch.zeros(grads[n].shape, dtype=torch.float64) if t.grad is None
+                    else held_entries(t.grad.detach().double().cpu(), mesh, specs[n])
+                    for n, t in named}
+
+        exact = copy.deepcopy(model).double()
+        with f64_batch_statistics(torch):
+            tt.heatmap_loss(exact, *(t.double() for t in global_batches[0]), torch.float64,
+                            train_bn=True).backward()
+        grads_f64 = held_grads(tt.named_trained_tensors(exact))
+        del exact
+        torch.cuda.empty_cache()
+        ref_opt = torch.optim.Adam(tt.trained_tensors(model), lr=PAR_TRAIN_LR)
+        ref_step = tt.make_train_step(model, ref_opt, torch.float32, train_bn=True)
+        ref = {"losses": [], "step_ms": [], "steps": []}
+        for i, batch in enumerate(global_batches):
+            loss, ms_i = train_steps(torch, ref_step, iter([batch]), 1)
+            ref["losses"] += loss
+            ref["step_ms"] += ms_i
+            named = {n: t.detach().cpu() for n, t in tt.named_trained_tensors(model)}
+            agree = param_agreement(torch, gathered[i], named, PAR_TRAIN_LR)
+            agree["loss_rtol"] = abs(losses[i] - loss[0]) / abs(loss[0])
+            if i == 0:
+                grads_ref = held_grads(tt.named_trained_tensors(model))
+                sharded = {n: g.double() for n, g in grads.items()}
+                agree.update(
+                    grads_equal=all(torch.equal(grads[n], grads_ref[n].float()) for n in grads),
+                    grad_rel_norm=rel_norm(torch, sharded, grads_ref),
+                    grad_rel_norm_to_f64=rel_norm(torch, sharded, grads_f64),
+                    unsharded_grad_rel_norm_to_f64=rel_norm(torch, grads_ref, grads_f64))
+            ref["steps"].append(agree)
+        ref["limits"] = {"one_data_rank": "losses, gradients, parameters equal",
+                         "loss_rtol_first_step": PAR_LOSS_RTOL,
+                         "grad_rel_norm_to_f64": f"{PAR_GRAD_F64_RATIO} x the unsharded step's",
+                         "param_max_abs_diff": [2 * PAR_TRAIN_LR * (i + 1) + PAR_F32_SLACK
+                                                for i in range(PAR_TRAIN_STEPS)],
+                         "reported": {"param_rtol": PAR_PARAM_RTOL,
+                                      "param_atol": PAR_PARAM_ATOL_LR * PAR_TRAIN_LR}}
+        out["reference"] = ref
+        steps = ref["steps"]
+        if d == 1:
+            ok = (losses == ref["losses"] and steps[0]["grads_equal"]
+                  and all(st["equal"] for st in steps))
+        else:
+            ok = (steps[0]["loss_rtol"] <= PAR_LOSS_RTOL
+                  and steps[0]["grad_rel_norm_to_f64"]
+                  <= PAR_GRAD_F64_RATIO * steps[0]["unsharded_grad_rel_norm_to_f64"]
+                  and all(st["max_abs_diff"] <= 2 * PAR_TRAIN_LR * (i + 1) + PAR_F32_SLACK
+                          for i, st in enumerate(steps)))
+        if not ok:
+            fail(f"sharded training against the unsharded step: {json.dumps(ref)}")
+    del model, gathered
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_streams(torch, mesh):
+    """(b): the multi-stream clip at full width over the 'data' ranks, each
+    rank's streams held against their own single-stream stage B."""
+    import numpy as np
+
+    from tpupose_torch.data.synthetic import make_scene
+    from tpupose_torch.geometry import make_camera_set
+    from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
+    from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.models.yolov3 import YoloConfig, yolov3_init
+    from tpupose_torch.ops import heatmap as th
+    from tpupose_torch.ops import lap
+    from tpupose_torch.parallel import (
+        broadcast_cameras,
+        init_multistream_state,
+        make_multistream_clip_fn,
+        multihost,
+        multistream_step,
+        shard_streams,
+        throughput,
+    )
+    from tpupose_torch.tracking.tracker import TrackerConfig, init_state, track_clip
+
+    views, (height, width), f = 5, CLIP_HW, PAR_FRAMES
+    total = PAR_STREAMS_PER_CARD * mesh.shape["data"]
+    start, end = multihost.process_stream_slice(total, mesh)
+    s = end - start
+    det_cfg, pose_cfg = YoloConfig(max_candidates=4), hrnet_w48_config()
+    tcfg = TrackerConfig(num_cameras=views, max_dets=4, max_tracks=12, max_hyp=24)
+    cpu_gen = torch.Generator().manual_seed(0)
+    detector = fold_batchnorm(yolov3_init(det_cfg, cpu_gen), dtype=torch.bfloat16).cuda()
+    pose = fold_batchnorm(hrnet_init(pose_cfg, cpu_gen), dtype=torch.bfloat16).cuda()
+    scene = make_scene(num_frames=1, num_cameras=views, num_actors=3, seed=0)
+    cams = make_camera_set(scene.P, scene.K, scene.RT, width, height, device="cuda")
+    cams_s = shard_streams(mesh, broadcast_cameras(cams, total))
+    clip = torch.stack([torch.randint(
+        0, 256, (f, views, height, width, 3), device="cuda", dtype=torch.uint8,
+        generator=torch.Generator(device="cuda").manual_seed(1000 + i))
+        for i in range(start, end)])
+    fids = multihost.global_streams(
+        mesh, np.arange(total * f, dtype=np.int32).reshape(total, f)[start:end])
+    fn = make_multistream_clip_fn(det_cfg, pose_cfg, tcfg)
+    fn(detector, pose, cams_s, shard_streams(mesh, init_multistream_state(tcfg, total)), clip,
+       fids)  # warm-up
+    chunk = throughput._auto_chunk(s, f, views)
+    expect = {"k1": f // chunk * STEP_LAUNCHES["bf16"]["heatmap.launches"],
+              "k3": f * (1 + views)}
+    stage_a, inner = [], throughput._clip_detections
+
+    def recording(*args):
+        stage_a.append(inner(*args))
+        return stage_a[-1]
+
+    states = shard_streams(mesh, init_multistream_state(tcfg, total))
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    throughput._clip_detections = recording
+    try:
+        th.launches = lap.launches = 0
+        t0 = time.perf_counter()
+        states, outs = fn(detector, pose, cams_s, states, clip, fids)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"k1": th.launches, "k3": lap.launches}
+    finally:
+        throughput._clip_detections = inner
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != expect:
+        fail(f"sharded multistream clip launched {launches}, expected {expect}")
+    dets = torch.cat([dd.reshape(s, -1, views, 4, 17, 3) for dd, _ in stage_a], dim=1)
+    mask = torch.cat([mm.reshape(s, -1, views, 4) for _, mm in stage_a], dim=1)
+    if tuple(outs.pose3d.shape) != (s, f, 12, 17, 3) or not (
+            torch.isfinite(dets).all() and torch.isfinite(outs.pose3d).all()):
+        fail(f"sharded multistream clip: shapes {tuple(outs.pose3d.shape)} or non-finite")
+    # the split, each stage alone to a sync
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for k in range(0, f, chunk):
+            inner(det_cfg, pose_cfg, tcfg, detector, pose,
+                  clip[:, k:k + chunk].reshape(-1, height, width, 3))
+    torch.cuda.synchronize()
+    stage_a_s = time.perf_counter() - t0
+    state = shard_streams(mesh, init_multistream_state(tcfg, total))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for t in range(f):
+            state, _ = multistream_step(tcfg, cams_s, state, dets[:, t], mask[:, t], fids[:, t])
+    torch.cuda.synchronize()
+    stage_b_s = time.perf_counter() - t0
+    # each stream against its own single-stream stage B (phase 15 (c)'s check)
+    with torch.inference_mode():
+        for i in range(s):
+            _, ref = track_clip(tcfg, cams, init_state(tcfg), dets[i], mask[i], fids[i])
+            for field in ("track_id", "valid", "n_views", "pose2d_now"):
+                if not torch.equal(getattr(outs, field)[i], getattr(ref, field)):
+                    fail(f"sharded multistream clip, stream {start + i}: {field} differs "
+                         f"from track_clip on its stage-A detections")
+    own, own_dets = int(states.active.sum()), int(mask.sum())
+    metric = multihost.all_hosts_metric(mesh, lambda st: st.active.sum())(states)
+    metric_dets = multihost.all_hosts_metric(mesh, lambda m: m.sum())(mask)
+    return {"mesh": mesh.shape, "streams": [start, end], "frames": f, "seconds": seconds,
+            "fps": s * f / seconds, "stage_a_s": stage_a_s, "stage_b_s": stage_b_s,
+            "stage_b_ms_per_step": stage_b_s * 1e3 / f, "launches": launches,
+            "chunk_frames": chunk, "peak_mem_gib": peak,
+            "detections_valid": own_dets, "all_hosts_detections_valid": int(metric_dets),
+            "active_tracks": own, "all_hosts_active_tracks": int(metric)}
+
+
+def parallel_rank(rank, world, tmp):
+    """One rank of phase 18 (a spawned process per card, NCCL): (a) then
+    (b); its report goes to tmp/rank<rank>.json. Any failure exits
+    non-zero."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tpupose_torch.parallel import make_mesh, multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    multihost.initialize("file://" + os.path.join(tmp, "rendezvous"), world, rank)
+    try:  # a failure exits at once: a peer may be waiting in a collective
+        model = 2 if world % 2 == 0 and world >= 4 else 1
+        train = parallel_train(torch, make_mesh(data=world // model, model=model))
+        streams = parallel_streams(torch, make_mesh(data=world, model=1))
+        report = {"rank": rank, "cuda_device": torch.cuda.current_device(),
+                  "backend": torch.distributed.get_backend(), "train": train,
+                  "streams": streams}
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    torch.distributed.destroy_process_group()
+
+
+def phase_parallel(torch, card):
+    """Phase 18: one spawned process per visible card over NCCL, each
+    running (a) and (b); any rank's failure or the timeout fails the run."""
+    import multiprocessing
+    import tempfile
+
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=parallel_rank, args=(r, world, tmp)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PAR_TIMEOUT_S
+        try:
+            while any(p.exitcode is None for p in procs):
+                bad = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                if bad or time.monotonic() > deadline:
+                    fail(f"phase 18: rank(s) {bad or 'all'} "
+                         f"{'failed' if bad else f'ran past {PAR_TIMEOUT_S} s'}")
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.exitcode is None:
+                    p.terminate()
+                p.join(30)
+        bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if bad:
+            fail(f"phase 18: rank(s) {bad} exited with {[procs[r].exitcode for r in bad]}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    if {r["backend"] for r in ranks} != {"nccl"} or sorted(
+            r["cuda_device"] for r in ranks) != list(range(world)):
+        fail(f"phase 18: ranks on {[(r['backend'], r['cuda_device']) for r in ranks]}")
+    losses = {tuple(r["train"]["losses"]) for r in ranks}
+    if len(losses) != 1:
+        fail(f"phase 18: the ranks' global losses differ: {losses}")
+    for what in ("active_tracks", "detections_valid"):
+        own = sum(r["streams"][what] for r in ranks)
+        metrics = {r["streams"]["all_hosts_" + what] for r in ranks}
+        if metrics != {own}:
+            fail(f"phase 18: all_hosts_metric of {what} gave {metrics}, the ranks' own "
+                 f"counts sum to {own}")
+    frames = sum(r["streams"]["frames"] * (r["streams"]["streams"][1] - r["streams"]["streams"][0])
+                 for r in ranks)
+    return {"card": card, "world": world, "ranks": ranks,
+            "streams_fps_all_cards": frames / max(r["streams"]["seconds"] for r in ranks),
+            "streams_fps_sum_of_ranks": sum(r["streams"]["fps"] for r in ranks),
+            "active_tracks": sum(r["streams"]["active_tracks"] for r in ranks),
+            "detections_valid": sum(r["streams"]["detections_valid"] for r in ranks),
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main():
     args = sys.argv[1:]
     seeds = only = None
     if args:
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
-        elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {"k2", "k3", "ingest"}:
+        elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {
+                "k2", "k3", "ingest", "parallel"}:
             only = set(args[1:])
         else:
-            fail("usage: chip_smoke.py [--learned-seeds SEED ... | --only k2|k3|ingest ...]", 2)
+            fail("usage: chip_smoke.py [--learned-seeds SEED ... | "
+                 "--only k2|k3|ingest|parallel ...]", 2)
     try:
         import torch
     except ImportError:
@@ -3152,6 +3579,8 @@ def main():
             emit("multistream_k3", card=card, **k3_against_plain(torch, gen))
         if "ingest" in only:
             emit("ingest", **standalone_ingest(torch, card))
+        if "parallel" in only:
+            emit("parallel", **phase_parallel(torch, card))
         return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
@@ -3199,6 +3628,10 @@ def main():
     emit("e2e", **e2e)
     del w48, tiny
 
+    parallel = phase_parallel(torch, card)
+    emit("parallel", **parallel)
+    par_launches = [r["streams"]["launches"] for r in parallel["ranks"]]
+
     quarter = k1["modes"]["quarter"]
     conv, packed = k2["timed"]["hrnet_branch0_3x3_48"], k2["timed"]["hrnet_branch0_packed_3x3_96"]
     stem, yolo_stem = k2["timed"]["hrnet_stem_3x3_s2_3_64"], k2["timed"]["yolo_stem_3x3_3_32"]
@@ -3218,6 +3651,7 @@ def main():
         "ingest_launches": ingest["d"]["disk"]["launches"]["heatmap.launches"],
         "e2e_launches": e2e["k1_launches"],
         "multistream_launches": {m: c["k1"] for m, c in ms_launches.items()},
+        "parallel_launches_per_rank": [c["k1"] for c in par_launches],
     }, {
         "name": "int8_conv", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -3287,6 +3721,7 @@ def main():
             m: cli_path[m]["k3_launches"] for m in ("bf16", "int8")},
         "ingest_launches": ingest["d"]["disk"]["k3_launches"],
         "multistream_launches": {m: c["k3"] for m, c in ms_launches.items()},
+        "parallel_launches_per_rank": [c["k3"] for c in par_launches],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -71,6 +71,10 @@ def test_masked_lap_matches_jax(shape, maximize):
             assert abs(got_sum - block[r, c].sum()) < 1e-4
 
 
+def test_pad_cost_equals_jax():
+    assert tops.PAD_COST == jops.PAD_COST == tlap.PAD_COST == 1e6
+
+
 def test_lap_counts_host_reads():
     before = tlap.host_syncs
     tops.solve_lap(_t(np.random.default_rng(0).uniform(size=(3, 5)).astype(np.float32)))

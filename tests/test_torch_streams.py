@@ -29,7 +29,9 @@ from tpupose_torch.parallel import (
     init_multistream_state,
     make_multistream_step_fn,
     multistream_step,
+    shard_streams,
 )
+from tpupose_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
 S, C, D, FRAMES = 4, 4, 4, 12
@@ -123,10 +125,33 @@ def test_broadcast_and_init_give_every_stream_its_own_copy():
 
 
 def test_step_fn_refuses_a_mesh_and_state_defaults_to_cuda():
+    """With a mesh, the step runs this rank's shard of the streams (here
+    the second of two 'data' ranks, a mesh built without a process group)
+    and refuses inputs that are not that shard, or a mesh without the
+    global stream count."""
     cfg = tt.TrackerConfig(**CAPS)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_multistream_step_fn(cfg, mesh=object())
     assert make_multistream_step_fn(cfg).func is multistream_step
+    mesh = Mesh(None, {"data": 2, "model": 1}, None, None, 1, 0, torch.device("cpu"))
+    with pytest.raises(TypeError, match="num_streams"):
+        make_multistream_step_fn(cfg, mesh)
+    scenes = [SCENES["smooth"][0](s) for s in range(S)]
+    cams = CameraSet(*(torch.stack(x) for x in zip(*(
+        make_camera_set(sc.P, sc.K, sc.RT, sc.width, sc.height) for sc in scenes))))
+    frames = [_padded(sc, 0) for sc in scenes]
+    inputs = (cams, init_multistream_state(cfg, S, "cpu"),
+              torch.as_tensor(np.stack([d for d, _ in frames])),
+              torch.as_tensor(np.stack([m for _, m in frames])), torch.zeros(S, dtype=torch.int32))
+    step = make_multistream_step_fn(cfg, mesh, num_streams=S)
+    local_state, local_out = step(*shard_streams(mesh, inputs))
+    whole_state, whole_out = multistream_step(cfg, *inputs)
+    for got, ref in zip(tuple(local_state) + tuple(local_out),
+                        tuple(whole_state) + tuple(whole_out)):
+        torch.testing.assert_close(got, ref[S // 2:], rtol=0, atol=1e-5)
+    assert local_state.active.shape == (S // 2, CAPS["max_tracks"])
+    with pytest.raises(ValueError, match=r"cams\.P has leading size \(4,\)"):
+        step(*inputs)
+    with pytest.raises(ValueError, match="frame_ids has leading size"):
+        step(*shard_streams(mesh, inputs[:4]), torch.zeros(S, dtype=torch.int32))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             init_multistream_state(cfg, 2)

@@ -21,6 +21,7 @@ import torch
 
 from tpupose.data.synthetic import make_continuous_adversarial_scene, make_scene
 from tpupose.geometry import make_camera_set
+import tpupose.tracking.tracker as jtr
 from tpupose.tracking.tracker import TrackerConfig as JConfig
 from tpupose.tracking.tracker import init_state as j_init
 from tpupose.tracking.tracker import make_step_fn
@@ -105,12 +106,12 @@ def test_track_clip_equals_steps_and_port_scene_equals_jax_scene():
     cfg = tt.TrackerConfig(num_cameras=3, max_dets=2, max_tracks=6, max_hyp=8)
     cams = _cams_from_jax(make_camera_set(scene.P, scene.K, scene.RT, 1280, 720))
     frames = [_padded(scene, t, 2) for t in range(12)]
-    state, outs = tt.init_state(cfg), []
+    state, outs = tt.init_state(cfg, "cpu"), []
     for t, (d, m) in enumerate(frames):
         state, o = tt.tracker_step(cfg, cams, state, torch.as_tensor(d), torch.as_tensor(m), t)
         outs.append(o)
     final, stacked = tt.track_clip(
-        cfg, cams, tt.init_state(cfg),
+        cfg, cams, tt.init_state(cfg, "cpu"),
         torch.as_tensor(np.stack([d for d, _ in frames])),
         torch.as_tensor(np.stack([m for _, m in frames])),
         torch.arange(12, dtype=torch.int32))
@@ -118,3 +119,12 @@ def test_track_clip_equals_steps_and_port_scene_equals_jax_scene():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     torch.testing.assert_close(final.hist_pose, state.hist_pose, rtol=0, atol=0)
     assert stacked.valid[-1].sum() == 2
+
+
+def test_init_state_defaults_to_cuda_and_gates_equal_jax():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tt.init_state(tt.TrackerConfig(num_cameras=3))
+    assert (tt.REFERENCE_JOINT_GATE, tt.CAMPUS_JOINT_GATE) == (
+        jtr.REFERENCE_JOINT_GATE, jtr.CAMPUS_JOINT_GATE) == (10, 14)
+    assert tt.TrackerConfig(num_cameras=3).joint_gate == JConfig(num_cameras=3).joint_gate

@@ -18,7 +18,8 @@ names follow torch state_dict conventions (`weight`, `bias`,
   dict: `weight`, `bias`, `fq_x_scale`), whose forward is
   `quantize.fake_quant_conv_apply`.
 * While a `BNStatRecorder` is active, `bn_apply` normalizes by the batch
-  statistics of its input and records them (`quantize.calibrate_bn_stats`).
+  statistics of its input and records them (`quantize.calibrate_bn_stats`);
+  a `SyncBNStatRecorder` takes them over a process group's whole batch.
 """
 from __future__ import annotations
 
@@ -58,6 +59,45 @@ class BNStatRecorder:
         xf = x.to(torch.float32)
         m = xf.mean(dim=(0, 2, 3))
         v = torch.square(xf - m[:, None, None]).mean(dim=(0, 2, 3))  # as jnp.var
+        self.taps.append((bn, m, v))
+        return m, v
+
+
+class SyncBNStatRecorder(BNStatRecorder):
+    """A `BNStatRecorder` whose statistics are those of the whole batch
+    over the ranks of a process group (synchronized train-mode BN), as the
+    JAX package's `jnp.mean` / `jnp.var` over a data-sharded batch, which
+    XLA turns into psums. The ranks' inputs share (C, H, W).
+
+    At its first BN the recorder all-reduces the ranks' batch sizes, which
+    gives this rank's share of the batch, n / N. Each BN then takes two
+    passes, as `jnp.var`: the mean as a differentiable all-reduce of the
+    local f32 means over (N, H, W) times that share, then the population
+    variance as a second one of the local means of the squared deviations
+    from it (`parallel.mesh.all_reduce_sum`). So a forward costs one
+    all-reduce, and each BN two in the forward and two in the backward.
+    Local means scaled by the share, and not sums divided by a count, so
+    that one rank alone computes exactly what `BNStatRecorder` does: the
+    statistics of train-mode BN are ill-conditioned where a channel's mean
+    dwarfs its spread, and a last-bit change there moves its gradients by
+    up to 1e-2.
+    """
+
+    def __init__(self, group):
+        super().__init__()
+        self.group = group
+        self.share = None
+
+    def observe(self, bn, x):
+        from tpupose_torch.parallel.mesh import all_reduce_sum, all_reduce_sum_
+
+        xf = x.to(torch.float32)
+        if self.share is None:
+            n = xf.new_tensor([xf.shape[0]])
+            self.share = n / all_reduce_sum_(n.clone(), self.group)
+        m = all_reduce_sum(xf.mean(dim=(0, 2, 3)) * self.share, self.group)
+        sq = torch.square(xf - m[:, None, None]).mean(dim=(0, 2, 3))
+        v = all_reduce_sum(sq * self.share, self.group)
         self.taps.append((bn, m, v))
         return m, v
 

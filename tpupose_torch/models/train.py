@@ -15,16 +15,21 @@ statistics take no part in the forward; the step gives them zero gradients,
 as JAX does, so AdamW's decoupled decay still moves them. Re-estimate them
 with `quantize.calibrate_bn_stats` before folding.
 
-The JAX package's `make_sharded_train_step` needs a device mesh and is not
-defined here.
+`make_sharded_train_step` trains over a ('data', 'model') mesh of ranks
+(`parallel.mesh.make_mesh`): the batch split over 'data' with train-mode
+BN synchronized over the whole of it, and the conv parameters with their
+optimizer state split over 'model' by output channel.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from tpupose_torch.models.layers import BNStatRecorder
+from tpupose_torch.models.layers import BNStatRecorder, SyncBNStatRecorder
 
 #: 17 visually distinct RGB colors, one per joint: joint identity is
 #: learnable from color alone in the blob-localization task.
@@ -86,7 +91,7 @@ def gaussian_target_heatmaps(cfg, keypoints_crop, sigma=2.0):
 
 
 def heatmap_loss(model, images, targets, weights, compute_dtype=torch.bfloat16,
-                 train_bn=False):
+                 train_bn=False, bn_group=None):
     """Joint-weighted MSE (standard JointsMSELoss) of `model(images)`.
 
     `train_bn` runs the BNs in train mode for this forward (each normalizes
@@ -95,9 +100,12 @@ def heatmap_loss(model, images, targets, weights, compute_dtype=torch.bfloat16,
     Needed when training at real depth: inference-mode BN with raw init
     statistics lets the residual stacks double the activation variance per
     block, and with pre-calibrated statistics scales the gradients by tiny
-    1 / sqrt(running_var) factors."""
+    1 / sqrt(running_var) factors. With a process group `bn_group`, the
+    statistics are those of the whole batch over its ranks
+    (`layers.SyncBNStatRecorder`)."""
     if train_bn:
-        prev, BNStatRecorder.active = BNStatRecorder.active, BNStatRecorder()
+        recorder = BNStatRecorder() if bn_group is None else SyncBNStatRecorder(bn_group)
+        prev, BNStatRecorder.active = BNStatRecorder.active, recorder
         try:
             pred = model(images, compute_dtype)
         finally:
@@ -124,6 +132,14 @@ def trained_tensors(model: nn.Module):
                 t = m._buffers[name] = t.detach()
             stats.append(t.requires_grad_(True))
     return list(model.parameters()) + stats
+
+
+def named_trained_tensors(model: nn.Module):
+    """(name, tensor) pairs of `trained_tensors(model)`, in its order (the
+    BN statistics by their state_dict names), leaving the module as it is."""
+    stats = [(f"{name}.{b}", m._buffers[b]) for name, m in model.named_modules()
+             if isinstance(m, nn.BatchNorm2d) for b in ("running_mean", "running_var")]
+    return list(model.named_parameters()) + stats
 
 
 def make_optimizer(params, lr=1e-3, weight_decay=1e-4):
@@ -156,3 +172,133 @@ def make_train_step(model, optimizer, compute_dtype=torch.bfloat16, train_bn=Fal
         return loss.detach()
 
     return step
+
+
+class ShardedTrainStep:
+    """step(images, targets, weights) -> the global batch's loss, over a
+    ('data', 'model') mesh; see `make_sharded_train_step`.
+
+    `tensors` holds this rank's trained tensors by name: the dim-0 slice of
+    its 'model' index for each that `specs` splits, the whole tensor
+    otherwise; `optimizer` holds them (its moments are slices too);
+    `gather()` gives them whole; `collectives` counts the last step's."""
+
+    def __init__(self, model, optimizer_factory, mesh, compute_dtype, train_bn):
+        from tpupose_torch.parallel.mesh import conv_param_sharding
+
+        self.model, self.mesh = model, mesh
+        self.compute_dtype, self.train_bn = compute_dtype, train_bn
+        named = named_trained_tensors(model)
+        self.specs = conv_param_sharding(mesh, named)
+        m, i = mesh.shape["model"], mesh.model_index
+        self.tensors = {}
+        for name, t in named:
+            t = t.detach()
+            if self.specs[name]:
+                k = t.shape[0] // m
+                t = t[i * k:(i + 1) * k]
+            self.tensors[name] = t.to(mesh.device, copy=True).requires_grad_(True)
+        self.split = [name for name in self.tensors if self.specs[name]]
+        self.optimizer = optimizer_factory(list(self.tensors.values()))
+        self.collectives = {}
+
+    def _gather_split(self):
+        """The split tensors whole: their slices in one flat buffer, one
+        all-gather over 'model', each cut back out (row r of the gathered
+        buffer is rank r's slices)."""
+        m = self.mesh.shape["model"]
+        flat = torch.cat([self.tensors[name].detach().reshape(-1) for name in self.split])
+        rows = flat.new_empty(m * flat.numel())
+        dist.all_gather_into_tensor(rows, flat, group=self.mesh.model_group)
+        rows = rows.view(m, -1)
+        full, off = {}, 0
+        for name in self.split:
+            t = self.tensors[name]
+            full[name] = rows[:, off:off + t.numel()].reshape((m * t.shape[0],) + t.shape[1:])
+            off += t.numel()
+        return full
+
+    def gather(self):
+        """Every trained tensor whole, by name (copies)."""
+        full = self._gather_split()
+        return {name: full.get(name, t.detach().clone()) for name, t in self.tensors.items()}
+
+    def __call__(self, images, targets, weights):
+        from torch.func import functional_call
+
+        from tpupose_torch.parallel import mesh as mesh_mod
+
+        mesh, d = self.mesh, self.mesh.shape["data"]
+        bn_before = mesh_mod.all_reduces
+        n = torch.tensor([images.shape[0]], device=mesh.device)
+        sizes = n.new_empty(d)
+        dist.all_gather_into_tensor(sizes, n, group=mesh.data_group)
+        sizes = sizes.tolist()
+        if len(set(sizes)) > 1:
+            raise ValueError(f"the local batches differ over 'data' ({sizes} crops): "
+                             f"the global loss is the mean of equal local batches")
+        self.optimizer.zero_grad(set_to_none=True)
+        full = {name: t.requires_grad_(True) for name, t in self._gather_split().items()}
+        tensors = {name: full.get(name, t) for name, t in self.tensors.items()}
+
+        def forward(x, dtype):
+            return functional_call(self.model, tensors, (x, dtype))
+
+        with torch.enable_grad():
+            loss = heatmap_loss(forward, images, targets, weights, self.compute_dtype,
+                                self.train_bn, bn_group=mesh.data_group)
+            loss.backward()
+        i, grads = mesh.model_index, []
+        for name, t in self.tensors.items():
+            g = tensors[name].grad
+            if g is None:  # took no part in the forward: zero, as jax.grad gives
+                g = torch.zeros_like(t)
+            elif name in full:
+                g = g[i * t.shape[0]:(i + 1) * t.shape[0]]
+            grads.append(g.reshape(-1))
+        bucket = torch.cat(grads + [loss.detach().reshape(1)])
+        dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=mesh.data_group)
+        bucket /= d
+        off = 0
+        for t in self.tensors.values():
+            t.grad = bucket[off:off + t.numel()].view_as(t)
+            off += t.numel()
+        self.optimizer.step()
+        self.collectives = {"batch_size_all_gather": 1, "param_all_gather": 1,
+                            "grad_all_reduce": 1,
+                            "bn_all_reduces": mesh_mod.all_reduces - bn_before}
+        return bucket[-1]
+
+
+def make_sharded_train_step(model, optimizer_factory, mesh, compute_dtype=torch.float32,
+                            train_bn=False):
+    """The training step over a ('data', 'model') mesh
+    (`parallel.mesh.make_mesh`); every rank of the mesh calls it with its
+    own local batch. Returns (step, shardings_for), as the JAX package.
+
+    * Placement: each trained tensor (`named_trained_tensors(model)`) that
+      `parallel.mesh.conv_param_sharding` splits lives on a rank as its
+      dim-0 slice for the rank's 'model' index, and so do its optimizer
+      moments and its update (AdamW and Adam are elementwise, so updating a
+      slice equals slicing the full update); the others are replicated.
+      `optimizer_factory(tensors)` builds the optimizer over the local
+      tensors (`make_optimizer`, or e.g. `partial(torch.optim.Adam,
+      lr=1e-3)`).
+    * A step: the split tensors are all-gathered whole over 'model' (one
+      collective, their slices in one buffer), the forward runs through
+      them (`torch.func.functional_call`) on the local batch, with
+      synchronized train-mode BN under `train_bn`; after the backward the
+      gradients, each split tensor's own slice of its gradient, and the
+      loss are averaged over 'data' in one all-reduce; tensors that took
+      no part get zeros, as in `make_train_step`; then the optimizer steps.
+    * The returned loss is the global batch's: the mean over 'data' of
+      equal local batches (unequal ones raise, on every rank).
+
+    The model's conv compute is not split over 'model': every rank of a
+    'model' group runs the same forward on the same batch. `compute_dtype`
+    defaults to f32, as the JAX package's sharded step. `shardings_for(
+    model_or_named_tensors)` gives the specs."""
+    from tpupose_torch.parallel.mesh import conv_param_sharding
+
+    return (ShardedTrainStep(model, optimizer_factory, mesh, compute_dtype, train_bn),
+            partial(conv_param_sharding, mesh))

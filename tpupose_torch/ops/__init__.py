@@ -15,7 +15,7 @@ from tpupose_torch.ops.heatmap import (
     expand_box_to_aspect,
 )
 from tpupose_torch.ops.image import crop_and_resize, letterbox_resize, resize_bilinear
-from tpupose_torch.ops.lap import masked_lap, solve_lap
+from tpupose_torch.ops.lap import PAD_COST, masked_lap, solve_lap
 from tpupose_torch.ops.matchmat import proj2dpam, proj2pav, transform_closure
 from tpupose_torch.ops.nms import iou_matrix, nms
 from tpupose_torch.ops.packing import (
@@ -39,6 +39,7 @@ __all__ = [
     "crop_and_resize",
     "letterbox_resize",
     "resize_bilinear",
+    "PAD_COST",
     "masked_lap",
     "solve_lap",
     "proj2dpam",

@@ -6,7 +6,9 @@ streams at once: tracker state, cameras and detections get a leading
 stream axis and `torch.func.vmap` runs `tracker_step` over it. The step
 reads nothing on the host, so one batched step costs about the launches of
 one stream's step, and the LAPs of all streams go to one launch of K3 per
-call site (`ops.lap.masked_lap`'s vmap rule).
+call site (`ops.lap.masked_lap`'s vmap rule). Over several cards the
+stream axis is split over the mesh's 'data' ranks (`shard_streams`), and
+each rank advances its own streams.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from functools import partial
 import torch
 
 from tpupose_torch.geometry import CameraSet
+from tpupose_torch.parallel.mesh import shard_batch
 from tpupose_torch.pipeline.facade import resolve_device
 from tpupose_torch.tracking.tracker import (
     TrackerConfig,
@@ -58,13 +61,44 @@ def multistream_step(cfg: TrackerConfig, cams: CameraSet, state, dets, mask,
                                                        frame_ids)
 
 
-def make_multistream_step_fn(cfg: TrackerConfig, mesh=None):
+def shard_streams(mesh, tree):
+    """This rank's rows of the leading stream axis of every tensor in a
+    stream-major tree (CameraSet, TrackerState, detections), on its
+    device: its share of 'data' (`parallel.mesh.shard_batch`)."""
+    return shard_batch(mesh, tree)
+
+
+def make_multistream_step_fn(cfg: TrackerConfig, mesh=None, num_streams=None):
     """The multistream step for `cfg`: fn(cams, state, dets, mask,
-    frame_ids). The JAX package jits it and, with a mesh, shards the stream
-    axis over devices; PyTorch runs eagerly, and streams sharded over cards
-    are not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "streams sharded over a device mesh are not ported to "
-            "tpupose_torch yet (ROADMAP.md, Queue 1 item 6)")
-    return partial(multistream_step, cfg)
+    frame_ids). The JAX package jits it and, with a mesh, pins the stream
+    axis to 'data'; PyTorch runs eagerly.
+
+    With a mesh each rank calls the step on its own streams (`shard_streams`
+    of the global ones, or `multihost.global_streams` of its own), and
+    nothing crosses cards. `num_streams`, the streams over all ranks, is
+    then required: every input's leading size must be num_streams / data,
+    and a mismatch raises naming the input, so that no rank silently runs
+    the whole stream axis."""
+    step = partial(multistream_step, cfg)
+    if mesh is None:
+        return step
+    if num_streams is None:
+        raise TypeError("a step over a mesh needs num_streams, the streams over all ranks")
+    d = mesh.shape["data"]
+    if num_streams % d:
+        raise ValueError(f"{num_streams} streams not divisible by {d} data ranks")
+    local = num_streams // d
+
+    def sharded(cams, state, dets, mask, frame_ids):
+        leaves = ([(f"cams.{k}", v) for k, v in cams._asdict().items()]
+                  + [(f"state.{k}", v) for k, v in state._asdict().items()]
+                  + [("dets", dets), ("mask", mask), ("frame_ids", frame_ids)])
+        for name, x in leaves:
+            if x.dim() == 0 or x.shape[0] != local:
+                raise ValueError(
+                    f"{name} has leading size {tuple(x.shape[:1])}, not this rank's "
+                    f"{local} of {num_streams} streams over {d} data ranks "
+                    f"(shard the inputs with shard_streams)")
+        return step(cams, state, dets, mask, frame_ids)
+
+    return sharded

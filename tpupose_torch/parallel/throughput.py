@@ -6,6 +6,9 @@ clip pipeline. Stage A is the facade's own `_clip_detections` (bf16
 preprocessing, bf16 or int8 networks, the K1 decode) over chunks of frames
 of every stream at once; stage B advances the S trackers together, one
 vmapped `tracker_step` per frame (`parallel.streams.multistream_step`).
+Over several cards each rank calls the clip function on its own streams
+(`parallel.shard_streams` or `multihost.global_streams`); it needs nothing
+else, since no stream's frames or state cross cards.
 """
 from __future__ import annotations
 

@@ -37,6 +37,12 @@ from tpupose_torch.ops.smoothing import smooth_last_pose
 
 NEVER = -(10**8)  # "no 2D pose stored" timestamp sentinel
 
+#: The reference hardcodes the association joint gate to 10 for every
+#: dataset although its own comment says Campus should use 14; the default
+#: is the shipped value, and configs select Campus's by the JOINT_GATE key.
+REFERENCE_JOINT_GATE = 10
+CAMPUS_JOINT_GATE = 14
+
 
 @dataclasses.dataclass(frozen=True)
 class TrackerConfig:
@@ -60,7 +66,7 @@ class TrackerConfig:
     lambda_t: float = 5.0
     sigma: float = 0.6
     arm_sigma: float = 0.8
-    joint_gate: int = 10
+    joint_gate: int = REFERENCE_JOINT_GATE
     update_window: int = 3
     arm_joints: tuple = (9, 10)
     resurrect_window: int = 0
@@ -109,6 +115,10 @@ class FrameOutput(NamedTuple):
 
 
 def init_state(cfg: TrackerConfig, device=None) -> TrackerState:
+    """A fresh tracker state, on CUDA unless `device` says otherwise."""
+    from tpupose_torch.pipeline.facade import resolve_device
+
+    device = resolve_device(device)
     T, C, J, H = cfg.max_tracks, cfg.num_cameras, cfg.num_joints, cfg.hist_len
     i32, f32 = torch.int32, torch.float32
 
