@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only k2 k3            # phases 4 and 15 (a) alone
     python3 chip_smoke.py --only ingest           # phase 17 alone
     python3 chip_smoke.py --only parallel         # phase 18 alone, one rank per card
+    python3 chip_smoke.py --only graphs           # phase 19 alone
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
 memory holds none of phase 5's models, 16 in two parts, (c) after 8
@@ -13,7 +14,12 @@ and (a), (b) inside 10, and 17 inside 10, after 16 (a), (b), on phase 10's
 checkpoint files); the first that fails ends the run
 with a non-zero exit. "Host syncs" are the host's waits on the card inside
 the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
-(`counted_syncs`); K3 launches are counted where the tracker runs:
+(`counted_syncs`); K3 launches are counted where the tracker runs. The
+tracker step runs as a captured CUDA graph wherever the pipeline runs it
+(`runtime.graphs`): its replays on the card are counted in phases 5, 6,
+8, 9, 10, 12 and 18 (b), each as many as the frames it tracked, and a
+graph first captured inside a counted window adds its warm-up's K3
+launches (`graph_k3_warmups`), which ran:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of `tpupose_torch/csrc` with nvcc for sm_90a, one
      process per source, all at once;
@@ -235,13 +241,38 @@ the pipeline's calls, counted under torch.cuda.set_sync_debug_mode("warn")
      rank), each stream's stage B equal to `track_clip` on its own stage-A
      detections; fps per rank and over all cards, the stage A / B split;
      `all_hosts_metric` of the active tracks equal on every rank and to the
-     sum of the ranks' own counts.
+     sum of the ranks' own counts; then the stage B alone through
+     `make_multistream_step_fn(tcfg, mesh, num_streams)`, this rank's
+     graph, to the clip function's final state.
+ 19. the tracker step as a captured CUDA graph (`graphs`,
+     `runtime.graphs`), last, since its profiles leave CUPTI attached:
+     (a) at 4 / 12 / 24 and 16 / 16 / 40, GRAPH_FRAMES frames of a
+     5-view adversarial scene with a false positive a view and drops:
+     `make_step_fn` frame by frame (frame ids as device tensors and as
+     ints) and `track_clip` against the eager `tracker_step`,
+     torch.equal on every state and output field of every frame (if not,
+     the mismatches are reported and the discrete fields must still be
+     equal, the poses within GRAPH_POSE_TOL); stage B ms per frame eager
+     and graphed in turns (GRAPH_TIMED_ORDER, host clock to a sync), the
+     graphed clip's device ms per frame behind a sleep, the host µs of a
+     clip frame, of a `make_step_fn` call and of a bare replay; the
+     eager step's device events of one frame and the graph's of one
+     replay under torch.profiler, each clip's over GRAPH_PROFILED_FRAMES
+     frames with the device's idle share (also against the unprofiled
+     frame time), after every timing of the phase; the graph's nodes by
+     type (`cuGraphGetNodes`), capture seconds and pool bytes; (b)
+     `make_multistream_step_fn` against the eager vmapped step at S = 1,
+     8, 32 streams of different scenes and both capacity sets,
+     GRAPH_MS_FRAMES frames twice (the first runs pay functorch's set-up
+     and the capture), torch.equal on every field, ms per step of each.
+     Last, every graph the run captured, with its replays
+     (`graphs_captured`).
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
 the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
 `--only ingest`, phase 17, its checkpoint files written anew from phase
-10's seed; with `--only parallel`, phase 18.
+10's seed; with `--only parallel`, phase 18; with `--only graphs`, phase 19.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
@@ -256,11 +287,13 @@ phase 15 (d)'s int8 run's, and its times those of (a) at (d)'s
 association shape, with `device_us`, `host_us` and `op_host_us`; its
 `bound_ms` is the latency bound, `bound_by` "latency", and the
 bytes-or-operations bound of the other rows stands beside it as
-`rate_bound_ms`), the nvidia-smi line, and last `{"ok": true, "device": {...}}`. It needs a CUDA
-card and the repository around it; without either it exits non-zero and
-prints no result. The f32 comparisons run with TF32 off (so do phase 11's
-f32 fake-quant convolutions and phase 13's f32 training, but for the
-6 steps that say so).
+`rate_bound_ms`; `in_graphs` its launches held per replay and replayed
+in this process's graphs), the nvidia-smi line, and last `{"ok": true,
+"device": {...}}`. It needs a CUDA card and the repository around it;
+without either it exits non-zero and prints no result. The f32
+comparisons run with TF32 off (so do phase 11's f32 fake-quant
+convolutions and phase 13's f32 training, but for the 6 steps that say
+so).
 """
 from __future__ import annotations
 
@@ -763,11 +796,17 @@ def phase_main_path(torch, gen, card):
         track_clip(tcfg, pipe.cams, pipe.state, dets, mask, frame_ids.cuda())
     torch.cuda.synchronize()
     stage_b_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        eager_clip(torch, tcfg, pipe.cams, pipe.state, dets, mask, frame_ids.cuda())
+    torch.cuda.synchronize()
+    stage_b_eager_ms = (time.perf_counter() - t0) * 1e3
 
     # the main path: counts from 0, two clips, counts read right after
     torch.cuda.reset_peak_memory_stats()
     th.launches = 0
     lap.launches = 0
+    replays = card_replays()
     clip_ms, syncs = [], 0
     for _ in range(2):
         t0 = time.perf_counter()
@@ -777,9 +816,12 @@ def phase_main_path(torch, gen, card):
         clip_ms.append((time.perf_counter() - t0) * 1e3)
         syncs += counted["syncs"]
     launches, k3_launches = th.launches, lap.launches
+    replays = card_replays() - replays
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches < 1:
         fail("the main path never launched the heatmap decode kernel")
+    if replays != 2 * frames:
+        fail(f"two clips replayed the tracker's graph {replays} times, expected {2 * frames}")
     if k3_launches != 2 * frames * (1 + views):
         fail(f"two clips launched K3 {k3_launches} times, expected "
              f"{2 * frames * (1 + views)} (one association and {views} init LAPs a frame)")
@@ -792,8 +834,9 @@ def phase_main_path(torch, gen, card):
         "card": card, "first_clip_s": first_s, "clip_ms": clip_ms,
         "ms_per_clip": ms, "fps": frames * 1e3 / ms,
         "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
-        "stage_b_ms_per_frame": stage_b_ms / frames,
+        "stage_b_ms_per_frame": stage_b_ms / frames, "stage_b_eager_ms": stage_b_eager_ms,
         "decode_launches": launches, "k3_launches": k3_launches, "clips": 2,
+        "graph_replays": replays,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "peak_mem_gib": peak_gib,
     }, (pipe, clip, frame_ids, dets, mask)
@@ -861,6 +904,7 @@ def phase_int8_path(torch, card, main):
     k2.quantize_launches = 0
     k2.stem_launches = 0
     lap.launches = 0
+    replays = card_replays()
     clip_ms, syncs = [], 0
     for _ in range(2):
         t0 = time.perf_counter()
@@ -871,7 +915,11 @@ def phase_int8_path(torch, card, main):
         syncs += counted["syncs"]
     k1_launches, k2_launches, k3_launches = th.launches, k2.launches, lap.launches
     k2a_launches, stem_launches = k2.quantize_launches, k2.stem_launches
+    replays = card_replays() - replays
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if (k3_launches, replays) != (2 * frames * (1 + views), 2 * frames):
+        fail(f"two int8 clips launched K3 {k3_launches} times in {replays} graph replays, "
+             f"expected {2 * frames * (1 + views)} in {2 * frames}")
     if k1_launches < 1 or (k2_launches, k2a_launches, stem_launches) != (2 * 364, 2 * 362, 2 * 2):
         fail(f"two int8 clips launched K1 {k1_launches}, K2 {k2_launches}, K2a "
              f"{k2a_launches} and the stem kernel {stem_launches} times, expected >= 1, "
@@ -891,7 +939,7 @@ def phase_int8_path(torch, card, main):
         "quantize_launches": k2a_launches, "quantize_launches_per_clip": k2a_launches / 2,
         "stem_launches": stem_launches,
         "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
-        "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
+        "graph_replays": replays, "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "masks_equal_bf16": bool(torch.equal(mask, mask_bf16)),
         "kps_shift_vs_bf16_px": {"median": float(shift.median()), "p95": float(shift.quantile(0.95)),
@@ -1001,7 +1049,7 @@ def phase_staged(torch, card, pipe, clip, frame_ids):
     pipe.track_restart()
     outs_c, dets_c, mask_c = pipe.process_clip(frame_ids[:n], clip[:n])
     pipe.track_restart()
-    worst = 0.0
+    worst, replays = 0.0, card_replays()
     for t in range(n):
         out, dets, mask = pipe.process_frame(t, clip[t])
         if not torch.equal(mask, mask_c[t]):
@@ -1013,7 +1061,11 @@ def phase_staged(torch, card, pipe, clip, frame_ids):
             fail(f"process_frame {t}: detections differ from process_clip by up to "
                  f"{float(err.max())}")
         worst = max(worst, float(err.max()))
-    return {"card": card, "frames": n, "masks_equal": True, "dets_max_abs_diff": worst}
+    replays = card_replays() - replays
+    if replays != n:
+        fail(f"process_frame over {n} frames replayed the tracker's graph {replays} times")
+    return {"card": card, "frames": n, "masks_equal": True, "dets_max_abs_diff": worst,
+            "graph_replays": replays}
 
 
 PACK_TIMED_ORDER = "UPPUUP"  # phase 16 (c): stage A unpacked (U) and packed (P) in turns
@@ -1189,6 +1241,7 @@ def phase_tracker(torch, card):
 
     step_s, syncs, err, oracle_err = 0.0, 0, 0.0, 0.0
     lap.launches = 0
+    replays, before = card_replays(), set(card_steps())
     for t in range(frames):
         dets = torch.zeros((views, D, 17, 3))
         mask = torch.zeros((views, D), dtype=torch.bool)
@@ -1227,9 +1280,14 @@ def phase_tracker(torch, card):
     confirmed = int(out_g.valid.sum())
     if confirmed != 3:
         fail(f"the tracker confirmed {confirmed} tracks on a 3-person scene")
+    replays = card_replays() - replays
+    k3 = lap.launches - graph_k3_warmups(before)
+    if (replays, k3) != (frames, frames * (1 + views)):
+        fail(f"person_track over {frames} frames: {replays} graph replays and {k3} K3 "
+             f"launches, expected {frames} and {frames * (1 + views)}")
     return {"card": card, "frames": frames, "confirmed": confirmed,
-            "ms_per_frame": step_s * 1e3 / frames,
-            "k3_launches_per_frame": lap.launches / frames,
+            "ms_per_frame": step_s * 1e3 / frames, "graph_replays": replays,
+            "k3_launches_per_frame": k3 / frames,
             "host_syncs_per_frame": syncs / frames, "pose3d_max_abs_diff_m": err,
             "oracle_pose3d_max_abs_diff_m": oracle_err}
 
@@ -1337,6 +1395,7 @@ def cli_loop(torch, cfg, pipe, frames, card, counters, source=None, timer=None):
     for module, attr in counters:
         setattr(module, attr, 0)
     lap.launches = 0
+    replays, before = card_replays(), set(card_steps())
     t0 = time.perf_counter()
     try:
         multi_poses3d, annotations = cli.run_eval_loop(
@@ -1355,8 +1414,11 @@ def cli_loop(torch, cfg, pipe, frames, card, counters, source=None, timer=None):
     if sorted(multi_poses3d) != list(range(n)):
         fail("the CLI loop did not harvest every frame")
     views = len(cfg.dataset.folders_order)
-    if lap.launches != n * (1 + views):
-        fail(f"the CLI loop launched K3 {lap.launches} times, expected {n * (1 + views)}")
+    replays = card_replays() - replays
+    k3_launches = lap.launches - graph_k3_warmups(before)  # a capture's warm-up ran too
+    if (k3_launches, replays) != (n * (1 + views), n):
+        fail(f"the CLI loop launched K3 {k3_launches} times in {replays} graph replays, "
+             f"expected {n * (1 + views)} in {n}")
     return {
         "card": card, "loop_s": loop_s, "clip_ms": calls["process_clip"],
         "ms_per_clip": statistics.median(calls["process_clip"]),
@@ -1364,7 +1426,8 @@ def cli_loop(torch, cfg, pipe, frames, card, counters, source=None, timer=None):
         "frame_ms": calls["process_frame"],
         "ms_per_trailing_frame": statistics.median(calls["process_frame"]),
         "timer_report": timer.report(num_views=len(cfg.dataset.folders_order)).splitlines(),
-        "launches": launches, "k3_launches": lap.launches,
+        "launches": launches, "k3_launches": k3_launches, "graph_replays": replays,
+        "captured_here": len(set(card_steps()) - before),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "host_syncs_per_frame": syncs[0] / n,
         "confirmed_track_frames": sum(len(p) for p in multi_poses3d.values()),
@@ -2163,6 +2226,7 @@ def phase_cli_tracks(torch, card):
         for device in ("cuda", "cpu"):
             pipe = Pipeline(cams, tcfg, device=device)
             lap.launches = 0
+            replays, before = card_replays(), set(card_steps())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with (counted_syncs() if device == "cuda" else contextlib.nullcontext({})) as counted:
@@ -2178,7 +2242,8 @@ def phase_cli_tracks(torch, card):
                     jsons[fname] = f.read()
             ids = [(a["timestamp"], a["cid"], a["pid"]) for a in annotations]
             runs[device] = (multi_poses3d, ids, jsons, seconds,
-                            (counted.get("syncs"), lap.launches))
+                            (counted.get("syncs"), lap.launches - graph_k3_warmups(before),
+                             card_replays() - replays))
     (p_card, ids_card, js_card, s_card, counts), (p_cpu, ids_cpu, js_cpu, s_cpu, _) = (
         runs["cuda"], runs["cpu"])
     if ids_card != ids_cpu:
@@ -2195,6 +2260,8 @@ def phase_cli_tracks(torch, card):
     confirmed = sum(len(p) for p in p_card.values())
     if confirmed < 1:
         fail("CLI tracks: no confirmed track on a 3-person scene")
+    if counts[2] != CLI_TRACK_FRAMES:
+        fail(f"CLI tracks: {counts[2]} graph replays on the card over {CLI_TRACK_FRAMES} frames")
     return {"card": card, "frames": CLI_TRACK_FRAMES,
             "capacities": [tcfg.max_dets, tcfg.max_tracks, tcfg.max_hyp],
             "track_ids": len({pid for _, _, pid in ids_card}),
@@ -2203,7 +2270,8 @@ def phase_cli_tracks(torch, card):
             "pose3d_max_abs_diff_m": worst, "card_ms_per_frame": s_card * 1e3 / CLI_TRACK_FRAMES,
             "cpu_ms_per_frame": s_cpu * 1e3 / CLI_TRACK_FRAMES,
             "card_host_syncs_per_frame": counts[0] / CLI_TRACK_FRAMES,
-            "card_k3_launches_per_frame": counts[1] / CLI_TRACK_FRAMES}
+            "card_k3_launches_per_frame": counts[1] / CLI_TRACK_FRAMES,
+            "card_graph_replays": counts[2]}
 
 
 TRAIN_BATCH, TRAIN_STEPS, RESUME_AT = 8, 20, 10  # phase 13 (a), (b), (d)
@@ -2925,10 +2993,15 @@ def sync_free_tracker(torch, cpu_refs):
 
 
 def multistream_tracker(torch):
-    """(c): S streams of different scenes through `multistream_step`, every
-    stream held to its own single-stream `track_clip` on the card."""
+    """(c): S streams of different scenes through the (graphed) multistream
+    step, every stream held to its own single-stream `track_clip` on the
+    card."""
     from tpupose_torch.ops import lap
-    from tpupose_torch.parallel import broadcast_cameras, init_multistream_state, multistream_step
+    from tpupose_torch.parallel import (
+        broadcast_cameras,
+        init_multistream_state,
+        make_multistream_step_fn,
+    )
     from tpupose_torch.tracking.tracker import init_state, track_clip
 
     scenes = [stream_scene(MS_FRAMES, seed) for seed in range(1, max(MS_STREAMS) + 1)]
@@ -2947,11 +3020,12 @@ def multistream_tracker(torch):
         torch.cuda.synchronize()
         single_ms = (time.perf_counter() - t0) * 1e3 / (len(inputs) * MS_FRAMES)
         runs = {}
+        step = make_multistream_step_fn(cfg)
         for s in MS_STREAMS:
             cams_s = broadcast_cameras(cams, s)
-            with torch.inference_mode():  # warm-up, outside the timing
-                multistream_step(cfg, cams_s, init_multistream_state(cfg, s), dets[:s, 0],
-                                 mask[:s, 0], fids[0].expand(s))
+            with torch.inference_mode():  # warm-up and capture, outside the timing
+                step(cams_s, init_multistream_state(cfg, s), dets[:s, 0], mask[:s, 0],
+                     fids[0].expand(s))
             state = init_multistream_state(cfg, s)
             lap.launches = 0
             torch.cuda.synchronize()
@@ -2959,8 +3033,7 @@ def multistream_tracker(torch):
             outs = []
             with torch.inference_mode(), no_syncs(torch):
                 for t in range(MS_FRAMES):
-                    state, o = multistream_step(cfg, cams_s, state, dets[:s, t], mask[:s, t],
-                                                fids[t].expand(s))
+                    state, o = step(cams_s, state, dets[:s, t], mask[:s, t], fids[t].expand(s))
                     outs.append(o)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / MS_FRAMES
@@ -2995,7 +3068,7 @@ def multistream_clip(torch, float_models):
         broadcast_cameras,
         init_multistream_state,
         make_multistream_clip_fn,
-        multistream_step,
+        make_multistream_step_fn,
     )
     from tpupose_torch.parallel import throughput
     from tpupose_torch.pipeline import Pipeline
@@ -3043,6 +3116,7 @@ def multistream_clip(torch, float_models):
             torch.cuda.reset_peak_memory_stats()
             th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
             lap.launches = 0
+            before = set(card_steps())
             t0 = time.perf_counter()
             with counted_syncs() as counted:
                 states, outs = fn(det_m, pose_m, broadcast_cameras(cams, s),
@@ -3054,8 +3128,11 @@ def multistream_clip(torch, float_models):
         launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
                     "k2_stem": k2.stem_launches, "k3": lap.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
-        if launches != expect[mode]:
-            fail(f"multistream clip ({mode}) launched {launches}, expected {expect[mode]}")
+        # a graph captured in this run ran its warm-up's K3 launches too
+        warmup = graph_k3_warmups(before)
+        if launches != {**expect[mode], "k3": expect[mode]["k3"] + warmup}:
+            fail(f"multistream clip ({mode}) launched {launches}, expected {expect[mode]} "
+                 f"and {warmup} K3 launches of a capture's warm-up")
         dets = torch.cat([d.reshape(s, -1, views, 4, 17, 3) for d, _ in stage_a], dim=1)
         mask = torch.cat([m.reshape(s, -1, views, 4) for _, m in stage_a], dim=1)
         if tuple(outs.pose3d.shape) != (s, f, 12, 17, 3) or not (
@@ -3072,10 +3149,11 @@ def multistream_clip(torch, float_models):
         stage_a_s = time.perf_counter() - t0
         state = init_multistream_state(tcfg, s)
         cams_s = broadcast_cameras(cams, s)
+        step = make_multistream_step_fn(tcfg)
         t0 = time.perf_counter()
         with torch.inference_mode():
             for t in range(f):
-                state, _ = multistream_step(tcfg, cams_s, state, dets[:, t], mask[:, t], fids[:, t])
+                state, _ = step(cams_s, state, dets[:, t], mask[:, t], fids[:, t])
         torch.cuda.synchronize()
         stage_b_s = time.perf_counter() - t0
         # each stream's stage B against track_clip fed its own detections
@@ -3088,7 +3166,7 @@ def multistream_clip(torch, float_models):
                              f"track_clip on its stage-A detections")
         run = {"seconds": seconds, "fps": s * f / seconds, "stage_a_s": stage_a_s,
                "stage_b_s": stage_b_s, "stage_b_ms_per_step": stage_b_s * 1e3 / f,
-               "launches": launches, "peak_mem_gib": peak,
+               "launches": launches, "k3_warmup_launches": warmup, "peak_mem_gib": peak,
                "host_syncs": counted["syncs"], "detections_valid": int(mask.sum())}
         if mode == "bf16":  # information: process_clip's stage A on the same frames
             pipe = Pipeline(cams, tcfg, det_cfg, det_m, pose_cfg, pose_m)
@@ -3128,6 +3206,334 @@ def phase_multistream(torch, card, gen, float_models):
     clip = multistream_clip(torch, float_models)
     return {"card": card, "k3": k3, "sync_free": sync_free, "tracker": tracker,
             "clip": clip, "seconds": time.perf_counter() - t_phase}
+
+
+GRAPH_FRAMES = 64        # (a): frames of the single step, graphed against eager
+GRAPH_MS_FRAMES = 32     # (b): frames of the multistream step at each S
+GRAPH_TIMED_ORDER = "EGGE"  # (a): stage B eager (E) and graphed (G) in turns
+GRAPH_HOST_CALLS = 50    # (a): calls timed on the host behind one sleep
+GRAPH_PROFILED_FRAMES = 16  # (a): graphed frames under the profiler
+GRAPH_POSE_TOL = 5e-3    # metres, tests/test_tracker_parity.py's band, if not bit-equal
+
+
+def graph_scene(num_frames, seed):
+    """The continuous adversarial stream with a false positive a view and
+    drops: the step's matching, update and init paths on every frame."""
+    from tpupose_torch.data.synthetic import make_continuous_adversarial_scene
+
+    return make_continuous_adversarial_scene(num_frames=num_frames, num_cameras=5,
+                                             num_actors=3, noise_px=1.5, fp_per_view=1,
+                                             drop_prob=0.2, seed=seed)
+
+
+def card_steps():
+    """{key: CapturedStep} of the steps captured on a card."""
+    from tpupose_torch.runtime import graphs
+
+    return {k: s for k, s in graphs.steps().items() if s.device.type == "cuda"}
+
+
+def card_replays():
+    """Replays of every graph on a card so far."""
+    return sum(s.replays for s in card_steps().values())
+
+
+def card_step(tag, cfg, dets_shape):
+    """The card's CapturedStep of `tag` ("tracker_step" or
+    "multistream_step") at `cfg` whose detections have `dets_shape`."""
+    found = [s for ((t, c), _, signature, _), s in card_steps().items()
+             if t == tag and c == cfg and tuple(signature[-2][0]) == tuple(dets_shape)]
+    if len(found) != 1:
+        fail(f"{len(found)} graphs of {tag} at detections {tuple(dets_shape)}, expected 1")
+    return found[0]
+
+
+def graph_k3_warmups(before):
+    """K3 launches of the warm-ups of the graphs captured since `before`
+    (a set of keys): real launches inside a counted window."""
+    return sum(s.warmup_launches[0] for k, s in card_steps().items() if k not in before)
+
+
+def mismatches(torch, got, ref, what):
+    """[(what.field, max |difference| or "differs")] of two NamedTuples."""
+    out = []
+    for name, a, b in zip(ref._fields, got, ref):
+        if not torch.equal(a, b):
+            diff = (float((a.double() - b.double()).abs().max())
+                    if a.dtype.is_floating_point else "differs")
+            out.append((f"{what}.{name}", diff))
+    return out
+
+
+def gate_mismatches(found, where):
+    """Not bit-equal: the discrete fields must still be equal and the
+    poses within GRAPH_POSE_TOL; returns the report."""
+    discrete = [m for m in found if not isinstance(m[1], float)]
+    worst = max((m[1] for m in found if isinstance(m[1], float)), default=0.0)
+    if discrete or worst > GRAPH_POSE_TOL:
+        fail(f"{where}: the graphed step differs from the eager step: {found[:8]}")
+    return {"bit_equal": False, "first": found[:8], "float_max_abs_diff": worst}
+
+
+def profiled_device_events(torch, fn):
+    """Device events of fn() under torch.profiler: (count, memcpy/memset
+    count, busy µs as the union of their intervals, window µs from the
+    first start to the last end), or the error as a string."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:  # a machine may refuse CUPTI: report, do not gate
+        return f"not measured: {type(e).__name__}: {e}"
+    if not events:
+        return "not measured: the profiler recorded no device events"
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    window = max(e for _, e in spans) - spans[0][0]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in events)
+    return {"device_events": len(events), "memcpy_memset": copies, "busy_us": busy,
+            "window_us": window, "idle_share": 1.0 - busy / window if window > 0 else 0.0}
+
+
+def host_us_behind_sleep(torch, fn, n=GRAPH_HOST_CALLS, sleep_s=0.2):
+    """The host's time for one fn() while the card sleeps (nothing waits on
+    it), in µs, over n calls."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
+    busy = torch.cuda.Event()
+    busy.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    covered = not busy.query()
+    torch.cuda.synchronize()
+    if not covered:
+        fail(f"host time: {n} calls outlasted a {sleep_s} s sleep")
+    return host / n * 1e6
+
+
+def device_ms_behind_sleep(torch, fn, sleep_s=0.2):
+    """The card's time for fn()'s work alone, in ms: events around it,
+    queued behind a sleep longer than its submission."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    covered = not start.query()
+    end.synchronize()
+    if not covered:
+        fail(f"device time: the submission outlasted a {sleep_s} s sleep")
+    return start.elapsed_time(end)
+
+
+def eager_clip(torch, cfg, cams, state, dets, mask, fids):
+    """The eager stage B: `tracker_step` a frame, stacked."""
+    from tpupose_torch.tracking.tracker import stack_outputs, tracker_step
+
+    outs = []
+    for t in range(dets.shape[0]):
+        state, out = tracker_step(cfg, cams, state, dets[t], mask[t], fids[t])
+        outs.append(out)
+    return state, stack_outputs(outs)
+
+
+def graphed_single(torch, caps):
+    """(a) at one capacity set: make_step_fn and track_clip against the
+    eager step, their times, launches and graph."""
+    from tpupose_torch.tracking.tracker import (
+        init_state,
+        make_step_fn,
+        track_clip,
+        tracker_step,
+    )
+
+    dets, mask, fids, cams, cfg = stream_inputs(torch, graph_scene(GRAPH_FRAMES, 1), caps,
+                                                "cuda")
+    frames = GRAPH_FRAMES
+    found, out = [], {}
+    with torch.inference_mode():
+        before = set(card_steps())
+        step = make_step_fn(cfg)
+        e_state = g_state = init_state(cfg, "cuda")
+        t0 = time.perf_counter()
+        g_state, g_out = step(cams, g_state, dets[0], mask[0], fids[0])  # the capture
+        torch.cuda.synchronize()
+        out["first_call_s"] = time.perf_counter() - t0  # the capture if captured here
+        captured = card_step("tracker_step", cfg, dets.shape[1:])
+        out["captured_here"] = len(card_steps()) > len(before)
+        e_state, e_out = tracker_step(cfg, cams, e_state, dets[0], mask[0], fids[0])
+        for t in range(frames):
+            if t:
+                e_state, e_out = tracker_step(cfg, cams, e_state, dets[t], mask[t], fids[t])
+                g_state, g_out = step(cams, g_state, dets[t], mask[t], int(t))
+            found += mismatches(torch, g_state, e_state, f"frame {t} state")
+            found += mismatches(torch, g_out, e_out, f"frame {t} output")
+        confirmed = int(e_out.valid.sum())
+        e_final, e_outs = eager_clip(torch, cfg, cams, init_state(cfg, "cuda"), dets, mask, fids)
+        g_final, g_outs = track_clip(cfg, cams, init_state(cfg, "cuda"), dets, mask, fids)
+        found += mismatches(torch, g_final, e_final, "track_clip final state")
+        found += mismatches(torch, g_outs, e_outs, "track_clip outputs")
+    out["compare"] = ({"bit_equal": True} if not found else
+                      gate_mismatches(found, f"graphs at {caps}"))
+    out["confirmed_tracks_last_frame"] = confirmed
+    if confirmed < 2:
+        fail(f"graphs at {caps}: the scene confirmed {confirmed} tracks")
+
+    # stage B ms per frame, eager and graphed in turns, host clock to a sync
+    runs = {"E": [], "G": []}
+    for kind in GRAPH_TIMED_ORDER:
+        run = eager_clip if kind == "E" else (lambda torch, *a: track_clip(*a))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            run(torch, cfg, cams, init_state(cfg, "cuda"), dets, mask, fids)
+        torch.cuda.synchronize()
+        runs[kind].append((time.perf_counter() - t0) * 1e3 / frames)
+    out["stage_b_ms_per_frame"] = {"eager": runs["E"], "graphed": runs["G"],
+                                   "order": GRAPH_TIMED_ORDER}
+    with torch.inference_mode():
+        state0 = init_state(cfg, "cuda")
+        out["graphed_device_ms_per_frame"] = device_ms_behind_sleep(
+            torch, lambda: track_clip(cfg, cams, state0, dets, mask, fids)) / frames
+        out["host_us_per_clip_frame"] = host_us_behind_sleep(
+            torch, lambda: track_clip(cfg, cams, state0, dets[:8], mask[:8], fids[:8]),
+            n=4) / 8
+        chain = [state0]
+
+        def one_step():
+            chain[0], _ = step(cams, chain[0], dets[5], mask[5], 5)
+
+        out["host_us_per_step_call"] = host_us_behind_sleep(torch, one_step)
+        out["host_us_per_replay"] = host_us_behind_sleep(torch, captured._replay)
+    # the timing replays advanced the static state behind the last returned
+    # one: the next call must copy its state in
+    captured._loaded_state = None
+    out["graph"] = captured.stats()
+
+    def profiles():
+        """The eager step's device events of one frame and the graph's of
+        one replay, each clip's over GRAPH_PROFILED_FRAMES frames. Run after
+        every timing: once the profiler has run, CUPTI stays attached and
+        each later graph launch costs the host ~0.2 ms more (a replay 12.5
+        -> 217 µs on an H100)."""
+        n = GRAPH_PROFILED_FRAMES
+        with torch.inference_mode():
+            state = init_state(cfg, "cuda")
+            state, _ = tracker_step(cfg, cams, state, dets[0], mask[0], fids[0])
+            prof = {"eager_one_frame": profiled_device_events(
+                torch, lambda: tracker_step(cfg, cams, state, dets[1], mask[1], fids[1])),
+                "graphed_one_replay": profiled_device_events(torch, captured._replay),
+                "graphed_clip": profiled_device_events(
+                    torch, lambda: track_clip(cfg, cams, state0, dets[:n], mask[:n], fids[:n])),
+                "eager_clip": profiled_device_events(
+                    torch, lambda: eager_clip(torch, cfg, cams, state0, dets[:n], mask[:n],
+                                              fids[:n])),
+                "frames": n}
+        captured._loaded_state = None
+        # the profiler slows the host (and its kernels a little): the
+        # unprofiled stage B's busy share is about the profiled kernels'
+        # busy time over its frame time (above 1 where it is device-bound)
+        for kind, ms in (("eager", runs["E"]), ("graphed", runs["G"])):
+            clip = prof[f"{kind}_clip"]
+            if isinstance(clip, dict):
+                busy_ms = clip["busy_us"] / n / 1e3
+                prof[f"{kind}_busy_ms_per_frame"] = busy_ms
+                prof[f"{kind}_busy_over_unprofiled_frame"] = busy_ms / statistics.median(ms)
+        return prof
+
+    return out, profiles
+
+
+def graphed_multistream(torch):
+    """(b): make_multistream_step_fn against the eager vmapped step at each
+    S and capacity set, S streams of different scenes."""
+    from tpupose_torch.parallel import (
+        broadcast_cameras,
+        init_multistream_state,
+        make_multistream_step_fn,
+        multistream_step,
+    )
+
+    scenes = [graph_scene(GRAPH_MS_FRAMES, seed) for seed in range(1, max(MS_STREAMS) + 1)]
+    out = {}
+    for name, caps in MS_CAPS.items():
+        inputs = [stream_inputs(torch, sc, caps, "cuda") for sc in scenes]
+        cams, cfg, fids = inputs[0][3], inputs[0][4], inputs[0][2]
+        dets = torch.stack([x[0] for x in inputs])
+        mask = torch.stack([x[1] for x in inputs])
+        step = make_multistream_step_fn(cfg)
+        runs = {}
+        for s in MS_STREAMS:
+            cams_s = broadcast_cameras(cams, s)
+            found, ms = [], {"eager": [], "graphed": []}
+            before = set(card_steps())
+            for rep in range(2):  # the first eager run warms functorch, the first graphed captures
+                e_states, e_outs, g_states, g_outs = [], [], [], []
+                for kind, fn in (("eager", lambda *a: multistream_step(cfg, *a)),
+                                 ("graphed", step)):
+                    state = init_multistream_state(cfg, s)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with torch.inference_mode():
+                        for t in range(GRAPH_MS_FRAMES):
+                            state, o = fn(cams_s, state, dets[:s, t], mask[:s, t],
+                                          fids[t].expand(s))
+                            (e_states if kind == "eager" else g_states).append(state)
+                            (e_outs if kind == "eager" else g_outs).append(o)
+                    torch.cuda.synchronize()
+                    ms[kind].append((time.perf_counter() - t0) * 1e3 / GRAPH_MS_FRAMES)
+                for t in range(GRAPH_MS_FRAMES):
+                    found += mismatches(torch, g_states[t], e_states[t], f"S={s} frame {t} state")
+                    found += mismatches(torch, g_outs[t], e_outs[t], f"S={s} frame {t} output")
+            captured = card_step("multistream_step", cfg, (s,) + tuple(dets.shape[2:]))
+            runs[s] = {"ms_per_step": ms, "captured_here": len(card_steps()) > len(before),
+                       "first_runs_include": "functorch set-up; the capture if captured here",
+                       "compare": ({"bit_equal": True} if not found else
+                                   gate_mismatches(found, f"multistream graphs at {name}, S={s}")),
+                       "graph": captured.stats()}
+        out[name] = runs
+    return out
+
+
+def phase_graphs(torch, card):
+    """Phase 19: the tracker step as a captured CUDA graph (see the module
+    docstring)."""
+    t_phase = time.perf_counter()
+    single, profiles = {}, {}
+    for name, caps in MS_CAPS.items():
+        single[name], profiles[name] = graphed_single(torch, caps)
+    emit("graphs_single", card=card, **single)
+    multistream = graphed_multistream(torch)
+    emit("graphs_multistream", card=card, **multistream)
+    for name in MS_CAPS:  # last: the profiler slows every later launch
+        single[name]["profile"] = profiles[name]()
+    emit("graphs_profile", card=card, **{name: single[name]["profile"] for name in MS_CAPS})
+    return {"card": card, "single": single, "multistream": multistream,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def graphs_summary():
+    """Every graph captured on the card in this run: its step, capacities
+    (max_dets, max_tracks, max_hyp), detections' shape, and its figures."""
+    return [{"fn": tag, "capacities": [cfg.max_dets, cfg.max_tracks, cfg.max_hyp],
+             "dets_shape": list(signature[-2][0]), **s.stats()}
+            for ((tag, cfg), _, signature, _), s in card_steps().items()]
 
 
 PAR_TRAIN_BATCH, PAR_TRAIN_STEPS, PAR_TRAIN_LR = 8, 2, 1e-3  # (a): crops per data rank
@@ -3345,8 +3751,8 @@ def parallel_streams(torch, mesh):
         broadcast_cameras,
         init_multistream_state,
         make_multistream_clip_fn,
+        make_multistream_step_fn,
         multihost,
-        multistream_step,
         shard_streams,
         throughput,
     )
@@ -3414,12 +3820,18 @@ def parallel_streams(torch, mesh):
     torch.cuda.synchronize()
     stage_a_s = time.perf_counter() - t0
     state = shard_streams(mesh, init_multistream_state(tcfg, total))
+    step = make_multistream_step_fn(tcfg, mesh, num_streams=total)  # this rank's graph
+    replays = card_replays()
     t0 = time.perf_counter()
     with torch.inference_mode():
         for t in range(f):
-            state, _ = multistream_step(tcfg, cams_s, state, dets[:, t], mask[:, t], fids[:, t])
+            state, _ = step(cams_s, state, dets[:, t], mask[:, t], fids[:, t])
     torch.cuda.synchronize()
     stage_b_s = time.perf_counter() - t0
+    replays = card_replays() - replays
+    if replays != f or not all(torch.equal(a, b) for a, b in zip(state, states)):
+        fail(f"the mesh step: {replays} graph replays over {f} frames, or a final state "
+             f"other than the clip function's")
     # each stream against its own single-stream stage B (phase 15 (c)'s check)
     with torch.inference_mode():
         for i in range(s):
@@ -3434,7 +3846,7 @@ def parallel_streams(torch, mesh):
     return {"mesh": mesh.shape, "streams": [start, end], "frames": f, "seconds": seconds,
             "fps": s * f / seconds, "stage_a_s": stage_a_s, "stage_b_s": stage_b_s,
             "stage_b_ms_per_step": stage_b_s * 1e3 / f, "launches": launches,
-            "chunk_frames": chunk, "peak_mem_gib": peak,
+            "mesh_step_graph_replays": replays, "chunk_frames": chunk, "peak_mem_gib": peak,
             "detections_valid": own_dets, "all_hosts_detections_valid": int(metric_dets),
             "active_tracks": own, "all_hosts_active_tracks": int(metric)}
 
@@ -3534,11 +3946,11 @@ def main():
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
         elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {
-                "k2", "k3", "ingest", "parallel"}:
+                "k2", "k3", "ingest", "parallel", "graphs"}:
             only = set(args[1:])
         else:
             fail("usage: chip_smoke.py [--learned-seeds SEED ... | "
-                 "--only k2|k3|ingest|parallel ...]", 2)
+                 "--only k2|k3|ingest|parallel|graphs ...]", 2)
     try:
         import torch
     except ImportError:
@@ -3581,6 +3993,8 @@ def main():
             emit("ingest", **standalone_ingest(torch, card))
         if "parallel" in only:
             emit("parallel", **phase_parallel(torch, card))
+        if "graphs" in only:
+            emit("graphs", **phase_graphs(torch, card), captured=graphs_summary())
         return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
@@ -3631,6 +4045,10 @@ def main():
     parallel = phase_parallel(torch, card)
     emit("parallel", **parallel)
     par_launches = [r["streams"]["launches"] for r in parallel["ranks"]]
+    # last: the profiler that phase 19 ends with slows every later launch
+    emit("graphs", **phase_graphs(torch, card))
+    captured = graphs_summary()
+    emit("graphs_captured", card=card, graphs=captured)
 
     quarter = k1["modes"]["quarter"]
     conv, packed = k2["timed"]["hrnet_branch0_3x3_48"], k2["timed"]["hrnet_branch0_packed_3x3_96"]
@@ -3722,6 +4140,12 @@ def main():
         "ingest_launches": ingest["d"]["disk"]["k3_launches"],
         "multistream_launches": {m: c["k3"] for m, c in ms_launches.items()},
         "parallel_launches_per_rank": [c["k3"] for c in par_launches],
+        "in_graphs": {  # K3 replayed inside the tracker's CUDA graphs, this process
+            "per_replay": sorted({g["held_launches"]["lap.launches"] for g in captured}),
+            "replays": sum(g["replays"] for g in captured),
+            "launches": sum(g["replays"] * g["held_launches"]["lap.launches"]
+                            for g in captured),
+            "graphs": len(captured)},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

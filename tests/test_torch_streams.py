@@ -130,7 +130,6 @@ def test_step_fn_refuses_a_mesh_and_state_defaults_to_cuda():
     and refuses inputs that are not that shard, or a mesh without the
     global stream count."""
     cfg = tt.TrackerConfig(**CAPS)
-    assert make_multistream_step_fn(cfg).func is multistream_step
     mesh = Mesh(None, {"data": 2, "model": 1}, None, None, 1, 0, torch.device("cpu"))
     with pytest.raises(TypeError, match="num_streams"):
         make_multistream_step_fn(cfg, mesh)
@@ -144,6 +143,11 @@ def test_step_fn_refuses_a_mesh_and_state_defaults_to_cuda():
     step = make_multistream_step_fn(cfg, mesh, num_streams=S)
     local_state, local_out = step(*shard_streams(mesh, inputs))
     whole_state, whole_out = multistream_step(cfg, *inputs)
+    # without a mesh the step is the captured multistream_step (on the CPU,
+    # its buffers over the eager step): the same values, bit for bit
+    for got, ref in zip(make_multistream_step_fn(cfg)(*inputs), (whole_state, whole_out)):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
     for got, ref in zip(tuple(local_state) + tuple(local_out),
                         tuple(whole_state) + tuple(whole_out)):
         torch.testing.assert_close(got, ref[S // 2:], rtol=0, atol=1e-5)

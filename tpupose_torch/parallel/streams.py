@@ -6,9 +6,11 @@ streams at once: tracker state, cameras and detections get a leading
 stream axis and `torch.func.vmap` runs `tracker_step` over it. The step
 reads nothing on the host, so one batched step costs about the launches of
 one stream's step, and the LAPs of all streams go to one launch of K3 per
-call site (`ops.lap.masked_lap`'s vmap rule). Over several cards the
-stream axis is split over the mesh's 'data' ranks (`shard_streams`), and
-each rank advances its own streams.
+call site (`ops.lap.masked_lap`'s vmap rule). `make_multistream_step_fn`
+captures that step once per stream count as a CUDA graph and replays it
+each frame (`runtime.graphs`), as the JAX package jits it. Over several
+cards the stream axis is split over the mesh's 'data' ranks
+(`shard_streams`), and each rank advances its own streams.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from tpupose_torch.geometry import CameraSet
 from tpupose_torch.parallel.mesh import shard_batch
 from tpupose_torch.pipeline.facade import resolve_device
+from tpupose_torch.runtime.graphs import captured_step
 from tpupose_torch.tracking.tracker import (
     TrackerConfig,
     TrackerState,
@@ -61,6 +64,14 @@ def multistream_step(cfg: TrackerConfig, cams: CameraSet, state, dets, mask,
                                                        frame_ids)
 
 
+def captured_multistream_step(cfg: TrackerConfig, cams, state, dets, mask, frame_ids):
+    """The process's captured `multistream_step` for `cfg` at these inputs'
+    device, stream count, shapes and dtypes (`runtime.graphs.captured_step`):
+    its `step` runs one frame, its `clip` F frames."""
+    return captured_step(("multistream_step", cfg), partial(multistream_step, cfg), cams,
+                         state, dets, mask, frame_ids)
+
+
 def shard_streams(mesh, tree):
     """This rank's rows of the leading stream axis of every tensor in a
     stream-major tree (CameraSet, TrackerState, detections), on its
@@ -70,16 +81,23 @@ def shard_streams(mesh, tree):
 
 def make_multistream_step_fn(cfg: TrackerConfig, mesh=None, num_streams=None):
     """The multistream step for `cfg`: fn(cams, state, dets, mask,
-    frame_ids). The JAX package jits it and, with a mesh, pins the stream
-    axis to 'data'; PyTorch runs eagerly.
+    frame_ids) -> (state, FrameOutput), each with a leading stream axis.
+    As the JAX package jits it, each input signature (device, stream count,
+    shapes, dtypes) is captured once per process as a CUDA graph of
+    `multistream_step` and replayed on every call
+    (`runtime.graphs.CapturedStep.step`; on the CPU the same buffers run
+    the eager vmapped step). What it returns is the caller's.
 
     With a mesh each rank calls the step on its own streams (`shard_streams`
-    of the global ones, or `multihost.global_streams` of its own), and
-    nothing crosses cards. `num_streams`, the streams over all ranks, is
-    then required: every input's leading size must be num_streams / data,
-    and a mismatch raises naming the input, so that no rank silently runs
-    the whole stream axis."""
-    step = partial(multistream_step, cfg)
+    of the global ones, or `multihost.global_streams` of its own) and
+    captures its own graph on its own card; nothing crosses cards.
+    `num_streams`, the streams over all ranks, is then required: every
+    input's leading size must be num_streams / data, and a mismatch raises
+    naming the input, so that no rank silently runs the whole stream axis."""
+    def step(cams, state, dets, mask, frame_ids):
+        return captured_multistream_step(cfg, cams, state, dets, mask, frame_ids).step(
+            cams, state, dets, mask, frame_ids)
+
     if mesh is None:
         return step
     if num_streams is None:

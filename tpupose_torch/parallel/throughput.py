@@ -5,7 +5,8 @@ systems (several studios, or several clips of one) through the two-stage
 clip pipeline. Stage A is the facade's own `_clip_detections` (bf16
 preprocessing, bf16 or int8 networks, the K1 decode) over chunks of frames
 of every stream at once; stage B advances the S trackers together, one
-vmapped `tracker_step` per frame (`parallel.streams.multistream_step`).
+replay a frame of the captured vmapped `tracker_step`
+(`parallel.streams.multistream_step`, `runtime.graphs`).
 Over several cards each rank calls the clip function on its own streams
 (`parallel.shard_streams` or `multihost.global_streams`); it needs nothing
 else, since no stream's frames or state cross cards.
@@ -16,9 +17,9 @@ import torch
 
 from tpupose_torch.models.hrnet import HRNetConfig
 from tpupose_torch.models.yolov3 import YoloConfig
-from tpupose_torch.parallel.streams import multistream_step
+from tpupose_torch.parallel.streams import captured_multistream_step
 from tpupose_torch.pipeline.facade import _clip_detections
-from tpupose_torch.tracking.tracker import TrackerConfig, stack_outputs
+from tpupose_torch.tracking.tracker import TrackerConfig
 
 
 def _auto_chunk(s: int, f: int, c: int, target_images: int = 160) -> int:
@@ -65,14 +66,13 @@ def make_multistream_clip_fn(det_cfg: YoloConfig, pose_cfg: HRNetConfig,
                     clip[:, k:k + cf].reshape(s * cf * c, h, w, 3))
                 dets.append(dd.reshape(s, cf, c, d, j, 3))
                 mask.append(mm.reshape(s, cf, c, d))
-            dets, mask = torch.cat(dets, dim=1), torch.cat(mask, dim=1)
-
-            outs = []
-            for t in range(f):
-                states_s, out = multistream_step(tcfg, cams_s, states_s, dets[:, t],
-                                                 mask[:, t], frame_ids[:, t])
-                outs.append(out)
-        outs = stack_outputs(outs)  # (F, S, ...)
+            # frame-major (F, S, ...), as the step's clip replays them
+            dets = torch.cat(dets, dim=1).transpose(0, 1)
+            mask = torch.cat(mask, dim=1).transpose(0, 1)
+            frame_ids = torch.as_tensor(frame_ids).transpose(0, 1)
+            states_s, outs = captured_multistream_step(
+                tcfg, cams_s, states_s, dets[0], mask[0], frame_ids[0]).clip(
+                cams_s, states_s, dets, mask, frame_ids)
         return states_s, type(outs)(*(x.transpose(0, 1) for x in outs))
 
     return fn

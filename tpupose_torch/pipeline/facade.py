@@ -4,8 +4,10 @@ Counterpart of `tpupose/pipeline/facade.py`: the clip path, the staged API
 (`person_detect`, `person_pose_detect`, `person_track`, `process_frame`,
 `process_clips_nn`) and int8 serving (`quantize_models` with its drift
 self-check). Stage A (`_clip_detections`) runs YOLOv3 and HRNet over every
-frame of a clip as one batch; stage B runs the tracker over the frames.
-The pipeline lives on one device, CUDA unless the caller passes another.
+frame of a clip as one batch; stage B runs the tracker over the frames, on
+CUDA as a captured graph of the tracker step replayed each frame
+(`tracking.tracker.make_step_fn`, `track_clip`). The pipeline lives on one
+device, CUDA unless the caller passes another.
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ from tpupose_torch.tracking.tracker import (
     TrackerConfig,
     TrackerState,
     init_state,
+    make_step_fn,
     track_clip,
-    tracker_step,
 )
 
 
@@ -392,18 +394,17 @@ class Pipeline:
             dets, mask = _clip_detections(
                 self.det_cfg, self.pose_cfg, self.tracker_cfg, self.detector,
                 self.pose_model, x, self.compute_dtype)
-            self.state, out = tracker_step(self.tracker_cfg, self.cams, self.state,
-                                           dets, mask, int(frame_id))
+            self.state, out = make_step_fn(self.tracker_cfg)(self.cams, self.state, dets,
+                                                             mask, frame_id)
         return out, dets, mask
 
     def person_track(self, frame_id, detections, det_mask) -> FrameOutput:
         """One tracker step on (C, D, J, 3) detections and a (C, D) mask;
         returns the FrameOutput and updates self.state."""
         with torch.inference_mode():
-            self.state, out = tracker_step(
-                self.tracker_cfg, self.cams, self.state,
-                self._as_input(detections, torch.float32),
-                self._as_input(det_mask, torch.bool), int(frame_id))
+            self.state, out = make_step_fn(self.tracker_cfg)(
+                self.cams, self.state, self._as_input(detections, torch.float32),
+                self._as_input(det_mask, torch.bool), frame_id)
         return out
 
     def process_clip_nn(self, clip_images):

@@ -4,6 +4,7 @@ from tpupose_torch.tracking.tracker import (
     TrackerConfig,
     TrackerState,
     init_state,
+    make_step_fn,
     stack_outputs,
     track_clip,
     tracker_step,
@@ -14,6 +15,7 @@ __all__ = [
     "TrackerConfig",
     "TrackerState",
     "init_state",
+    "make_step_fn",
     "stack_outputs",
     "track_clip",
     "tracker_step",

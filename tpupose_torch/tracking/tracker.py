@@ -3,12 +3,15 @@
 Counterpart of `tpupose/tracking/tracker.py`, with the same semantics: the
 state is a NamedTuple of tensors with static capacities (max_tracks,
 max_dets, max_hyp) and validity masks. Where the JAX package vmaps over
-cameras, tracks or hypotheses, this module writes the batch dimension out;
-`lax.scan` over frames becomes a Python loop (`track_clip`).
+cameras, tracks or hypotheses, this module writes the batch dimension out.
 
-`tracker_step` reads nothing on the host, so on CUDA a frame is queued
-without waiting for the card, and `torch.func.vmap` batches it over
-streams (`tpupose_torch.parallel.streams`). The LAPs go through
+`tracker_step` is the eager step. It reads nothing on the host and every
+shape in it is static, so on CUDA it is captured once as a CUDA graph
+(`runtime.graphs`) and replayed each frame: `make_step_fn` is the
+counterpart of the JAX package's jitted step, and `track_clip` of its
+`lax.scan`, a replay a frame into preallocated (F, ...) outputs. On the
+CPU the same buffers run the eager step. `torch.func.vmap` batches the
+step over streams (`tpupose_torch.parallel.streams`). The LAPs go through
 `ops.lap.masked_lap` (kernel K3 on CUDA): one call over all cameras in the
 association, one per camera in the hypothesis init. The JAX package's two
 `lax.cond`s become what they are under vmap: a camera with no qualified
@@ -20,6 +23,7 @@ that a vmapped step never writes batched values into an unbatched tensor.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -34,6 +38,7 @@ from tpupose_torch.geometry import (
 )
 from tpupose_torch.ops.lap import masked_lap
 from tpupose_torch.ops.smoothing import smooth_last_pose
+from tpupose_torch.runtime.graphs import captured_step
 
 NEVER = -(10**8)  # "no 2D pose stored" timestamp sentinel
 
@@ -673,18 +678,40 @@ def stack_outputs(outs) -> FrameOutput:
     return FrameOutput(*(torch.stack(field) for field in zip(*outs)))
 
 
+def _captured(cfg, cams, state, dets, det_mask, frame_id):
+    """The process's captured `tracker_step` for `cfg` at these inputs'
+    device, shapes and dtypes (`runtime.graphs.captured_step`)."""
+    return captured_step(("tracker_step", cfg), partial(tracker_step, cfg), cams, state,
+                         dets, det_mask, frame_id)
+
+
+def make_step_fn(cfg: TrackerConfig):
+    """The step over a static config, as the JAX package's jitted one:
+    fn(cams, state, dets, det_mask, frame_id) -> (state, FrameOutput).
+
+    Each input signature (device, shapes, dtypes) is captured once per
+    process as a CUDA graph of `tracker_step` and replayed on every call
+    (`runtime.graphs.CapturedStep.step`; on the CPU the same buffers run
+    the eager step). What it returns is the caller's, and `frame_id` (an
+    int or an integer tensor) reaches the program through a device buffer."""
+    def step(cams, state, dets, det_mask, frame_id):
+        return _captured(cfg, cams, state, dets, det_mask, frame_id).step(
+            cams, state, dets, det_mask, frame_id)
+
+    return step
+
+
 def track_clip(cfg: TrackerConfig, cams: CameraSet, state: TrackerState,
                dets, det_mask, frame_ids):
-    """The tracker over a buffered clip.
+    """The tracker over a buffered clip: `make_step_fn`'s program replayed
+    frame by frame, each frame's outputs copied into one (F, ...) buffer.
 
     Args:
       dets: (F, C, D, J, 3); det_mask: (F, C, D); frame_ids: (F,).
     Returns:
       (final_state, FrameOutput stacked over F).
     """
-    outs = []
-    for f in range(dets.shape[0]):
-        state, out = tracker_step(cfg, cams, state, dets[f], det_mask[f],
-                                  frame_ids[f])
-        outs.append(out)
-    return state, stack_outputs(outs)
+    dets, det_mask = torch.as_tensor(dets), torch.as_tensor(det_mask)
+    frame_ids = torch.as_tensor(frame_ids)
+    return _captured(cfg, cams, state, dets[0], det_mask[0], frame_ids[0]).clip(
+        cams, state, dets, det_mask, frame_ids)
