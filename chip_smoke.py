@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only ingest           # phase 17 alone
     python3 chip_smoke.py --only parallel         # phase 18 alone, one rank per card
     python3 chip_smoke.py --only graphs           # phase 19 alone
+    python3 chip_smoke.py --only train            # phase 13 alone, then its profile
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
 memory holds none of phase 5's models, 16 in two parts, (c) after 8
@@ -19,7 +20,10 @@ tracker step runs as a captured CUDA graph wherever the pipeline runs it
 (`runtime.graphs`): its replays on the card are counted in phases 5, 6,
 8, 9, 10, 12 and 18 (b), each as many as the frames it tracked, and a
 graph first captured inside a counted window adds its warm-up's K3
-launches (`graph_k3_warmups`), which ran:
+launches (`graph_k3_warmups`), which ran. The training steps (phases 11, 13,
+18's reference) are captured CUDA graphs too (`runtime.graphs.CapturedUpdate`:
+WARMUP eager steps on the side stream, then one graph a batch shape and
+backend flags), each held against its eager body:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of `tpupose_torch/csrc` with nvcc for sm_90a, one
      process per source, all at once;
@@ -100,13 +104,20 @@ launches (`graph_k3_warmups`), which ran:
      QuantizationDriftError "after distill-QAT"; then `quantize_models`
      with qat_steps=QAT_STEPS and on_drift="warn": ms per QAT step per
      model, peak memory, first and last logged loss, the post-QAT
-     self-check; then one int8 `process_clip` (1 K1, 364 K2, 362 K2a
-     launches). Last, on the tiny configs in f32: the first QAT step's
+     self-check; then `quantize_models(qat_steps=QAT_STEPS)` on fresh
+     pipelines captured and eager (`disable_capture`), both under cuDNN
+     deterministic: the same losses and int8 modules equal tensor for
+     tensor, then eager without deterministic; ms per step of each and
+     the 900 + 900-step start-up at each rate (`startup_900_s`); then
+     one int8 `process_clip` (1 K1, 364 K2,
+     362 K2a launches). Last, on the tiny configs in f32: the first QAT
+     step's
      gradients of every fake-quant conv, card against CPU at the same
      input and output gradient, by relative norm (QAT_GRAD_LIMITS); then
-     `distill_qat` for 3 steps on the card and on the CPU from the same
-     weights and batches, held within Adam's bound (each step moves an
-     entry by at most about lr), a sanity check;
+     `distill_qat` for 3 steps on the card (capturable Adam, the third
+     step a replay) and on the CPU (Adam) from the same weights and
+     batches, held within Adam's bound (each step moves an entry by at
+     most about lr), a sanity check;
  12. the CLI loop with tracks (`cli_tracks`): `run_eval_loop` fed the
      synthetic scene's detections (`synthetic_frame_source`, the
      `person_track` path) with Shelf's config's tracker capacities (16 /
@@ -114,20 +125,30 @@ launches (`graph_k3_warmups`), which ran:
      byte-equal per-camera JSONs, and confirmed tracks; ms per frame, host
      syncs and K3 launches per frame on the card.
  13. training (`train`) at full width: HRNet-W48 384x288 from a seed on blob
-     batches of 8 (`models.train`): (a) `make_train_step` with
-     `make_optimizer()` in bf16, inference-mode BN, 20 steps on one batch
-     (ms per step, the median of steps 5-20, peak memory; the last loss
-     must be below the first); (d) at step 10 the model and the optimizer
-     are saved (`models.checkpoint`) and restored into fresh objects,
-     every tensor torch.equal, and one more step from each (cuDNN
-     deterministic) compared by gradient; (b) the JAX package's learning
-     recipe, Adam 1e-3 in f32 with train-mode BN and a fresh batch per
-     step, 20 steps (ms per step, peak memory, 4,000 steps extrapolated),
-     then 6 steps with TF32 on; (c) on the tiny config, the first step's
+     batches of 8 (`models.train`), every step a captured CUDA graph after
+     its key's 2 eager warm-ups: (a) `make_train_step` with
+     `make_optimizer()` (capturable AdamW) in bf16, inference-mode BN, 20
+     steps on one batch (ms per step, the median of steps 5-20, peak
+     memory; the last loss must be below the first); (d) at step 10 the
+     model and the optimizer are saved (`models.checkpoint`) and restored
+     into fresh objects, every tensor torch.equal, and RESUME_STEPS more
+     steps from each (cuDNN deterministic: a new key, and the fresh step
+     captures over the restored tensors) compared by loss and gradient;
+     (b) the JAX package's learning recipe, capturable Adam 1e-3 in f32
+     with train-mode BN and a fresh batch per step, 20 steps (ms per step,
+     peak memory, 4,000 steps extrapolated), then TF32_STEPS steps with
+     TF32 on (a second key, a second capture); for (a) and (b) each key's
+     graph nodes, capture seconds and pool, the host's µs for a replay
+     and the card's ms for one, then the captured step against its eager
+     body from the same weights on the same batches, both under cuDNN
+     deterministic, every loss, trained tensor, `.grad` and optimizer
+     state torch.equal, and the eager body alone for EAGER_STEPS steps
+     (ms per step, peak); (c) on the tiny config, the first step's
      gradients of every trained tensor, BN statistics included, card
      against CPU in both BN modes (TRAIN_GRAD_LIMITS); (e) the tiny HRNet
-     (weights from LEARN_SEED) trained on the card for 2,000 steps to
-     localize blobs with cuDNN deterministic, folded and decoded with K1
+     (weights from LEARN_SEED) trained on the card for 2,000 steps (1,998
+     replays) to localize blobs with cuDNN deterministic, folded and
+     decoded with K1
      (< 25 px and < half its untrained error), then quantized within 2 px
      of it, every K2 call of that decode held torch.equal to the plain
      version on its own input;
@@ -229,7 +250,9 @@ launches (`graph_k3_warmups`), which ran:
      and (world, 1) otherwise: every split tensor and its Adam moments hold
      1 / model of the rows; the losses and the gathered parameters are held
      against rank 0's unsharded `make_train_step` on the whole global
-     batch (PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL_LR); ms per step
+     batch (PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL_LR), capturable
+     Adam on both sides (the reference's PAR_TRAIN_STEPS are its eager
+     warm-ups, so eager is held against eager); ms per step
      per rank (and rank 0's unsharded step's), peak memory, parameter and
      Adam bytes held per rank, collectives per step. (b) the multi-stream
      clip at (world, 1): YOLOv3-416 (max_candidates=4) and HRNet-W48 folded
@@ -265,14 +288,18 @@ launches (`graph_k3_warmups`), which ran:
      8, 32 streams of different scenes and both capacity sets,
      GRAPH_MS_FRAMES frames twice (the first runs pay functorch's set-up
      and the capture), torch.equal on every field, ms per step of each.
-     Last, every graph the run captured, with its replays
-     (`graphs_captured`).
+     Last, every tracker graph the run captured, with its replays
+     (`graphs_captured`); then phase 13 (f), `train_profile`: for W48
+     recipes (a) and (b) one eager step and one replay under
+     torch.profiler, kernels launched against the graph's kernel nodes,
+     the device's busy ms and idle share.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
 the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
 `--only ingest`, phase 17, its checkpoint files written anew from phase
-10's seed; with `--only parallel`, phase 18; with `--only graphs`, phase 19.
+10's seed; with `--only parallel`, phase 18; with `--only graphs`, phase 19;
+with `--only train`, phase 13 and then 13 (f).
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
@@ -1945,13 +1972,72 @@ class QatLog:
         self.runs[-1].append((step, loss, time.perf_counter()))
 
     def summary(self):
+        """Per model: the logged steps and losses, and ms per step from the
+        first logged step after the capture (WARMUP + 1) to the last, so
+        the replays' rate (an eager run's steps alike)."""
+        from tpupose_torch.runtime.graphs import WARMUP
+
         out = []
         for model, run in zip(("yolov3_416", "hrnet_w48"), self.runs):
             (s0, l0, t0), (s1, l1, t1) = run[0], run[-1]
+            sa, _, ta = next((r for r in run if r[0] > WARMUP + 1), run[0])
             out.append({"model": model, "steps_logged": [s for s, _, _ in run],
-                        "first_loss": l0, "last_loss": l1,
-                        "ms_per_step": (t1 - t0) * 1e3 / (s1 - s0) if s1 > s0 else None})
+                        "losses": [v for _, v, _ in run], "first_loss": l0, "last_loss": l1,
+                        "ms_per_step": (t1 - ta) * 1e3 / (s1 - sa) if s1 > sa else None,
+                        "timed_from_step": sa, "steps_before_s": ta - t0})
         return out
+
+
+def startup_900_s(models):
+    """A 900-step escalation's distill-QAT seconds, both models: 900 steps
+    at the timed rate, plus what the steps up to the timed ones cost beyond
+    it (the warm-ups and the capture)."""
+    return sum(900 * m["ms_per_step"] / 1e3 + m["steps_before_s"]
+               - (m["timed_from_step"] - m["steps_logged"][0]) * m["ms_per_step"] / 1e3
+               for m in models)
+
+
+def qat_run(torch, models, calib, eager):
+    """`quantize_models(qat_steps=QAT_STEPS)` on a fresh pipeline of the
+    float `models`, no self-check, captured or (`eager`) inside
+    `disable_capture()`: (the pipeline, QatLog's summary)."""
+    from tpupose_torch.pipeline import Pipeline
+    from tpupose_torch.runtime.graphs import disable_capture
+
+    pipe, log = Pipeline(*models), QatLog(torch)
+    with disable_capture() if eager else contextlib.nullcontext():
+        pipe.quantize_models(calib, qat_steps=QAT_STEPS, on_drift="warn", check_px=None,
+                             qat_log=log)
+    return pipe, log.summary()
+
+
+def qat_graphed_against_eager(torch, models, calib):
+    """Phase 11's gate: `qat_run` captured and eager, both under cuDNN
+    deterministic: the same logged losses and the int8 modules equal
+    tensor for tensor. Then eager again without deterministic, the rate
+    the captured `qat` leg compares with. Each run's ms per step, and
+    the 900 + 900-step start-up at each rate."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        pg, lg = qat_run(torch, models, calib, eager=False)
+        pe, le = qat_run(torch, models, calib, eager=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = [f"{which}.{k}" for which in ("detector", "pose_model")
+              for (k, a), b in zip(getattr(pg, which).state_dict().items(),
+                                   getattr(pe, which).state_dict().values())
+              if not torch.equal(a, b)]
+    tensors = len(pg.detector.state_dict()) + len(pg.pose_model.state_dict())
+    if differ or [m["losses"] for m in lg] != [m["losses"] for m in le]:
+        fail(f"distill-QAT captured against eager (cuDNN deterministic): {differ[:8]} of "
+             f"{tensors} tensors differ; losses {[m['losses'] for m in lg]} against "
+             f"{[m['losses'] for m in le]}")
+    del pg, pe
+    _, eager = qat_run(torch, models, calib, eager=True)
+    return {"steps": QAT_STEPS, "cudnn_deterministic": True, "tensors_equal": tensors,
+            "graphed": lg, "eager": le, "startup_900_s": {
+                "graphed": startup_900_s(lg), "eager": startup_900_s(le)},
+            "eager_not_deterministic": {"models": eager, "startup_900_s": startup_900_s(eager)}}
 
 
 def phase_int8_qat(torch, card, models, clip, frame_ids):
@@ -2008,8 +2094,8 @@ def phase_int8_qat(torch, card, models, clip, frame_ids):
                   "self_check": dict(pipe.last_quant_report),
                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                   "models": qat_log.summary(),
-                  "extrapolated_900_steps_s": sum(
-                      900 * m["ms_per_step"] / 1e3 for m in qat_log.summary())}
+                  "startup_900_s": startup_900_s(qat_log.summary())}
+    out["graphed_against_eager"] = qat_graphed_against_eager(torch, models, calib)
 
     pipe.track_restart()
     pipe.process_clip(frame_ids, clip)  # warm-up
@@ -2276,7 +2362,10 @@ def phase_cli_tracks(torch, card):
 
 TRAIN_BATCH, TRAIN_STEPS, RESUME_AT = 8, 20, 10  # phase 13 (a), (b), (d)
 TRAIN_TIMED_FROM = 5     # ms per step: median of steps 5..20 (1-based)
-TF32_STEPS = 6           # (b) again with TF32 on, for the record
+TF32_STEPS = 8           # (b) again with TF32 on, a second key: 2 warm-ups, a capture
+RESUME_STEPS = 4         # (d): steps from the restored objects, the 3rd captures
+EAGER_STEPS = 8          # (a), (b): eager steps timed, the median of the last 6
+HOST_REPLAYS = 5         # (a), (b): replays timed on the host behind one sleep
 LEARN_STEPS = 2000       # phase 13 (e), tests/test_int8_learned_accuracy.py's
 #: the tiny model's weights (torch.Generator seed): of seeds 0-7 on the card
 #: (`--learned-seeds`), the one that learned with the most margin
@@ -2339,6 +2428,73 @@ def train_steps(torch, step, batches, steps):
     return losses, ms
 
 
+def capture_report(torch, step, batch):
+    """A captured training step's figures: each key's (its graph's nodes by
+    type, capture seconds, pool MiB, replays), then, on `batch`, the host's
+    µs for one replay while the card sleeps and the card's ms for one
+    replay alone (two more real steps each)."""
+    keys = []
+    for k in step.stats():
+        keys.append({"batch": k["shapes"][0], "dtypes": k["dtypes"], "flags": k["flags"],
+                     "warmups": k["warmups"], "replays": k["replays"],
+                     "capture_s": k["capture_s"], "pool_mib": k["pool_bytes"] / 2**20,
+                     "graph_nodes": k["graph_nodes"]})
+    return {"keys": keys,
+            "host_us_per_replay": host_us_behind_sleep(torch, lambda: step(*batch),
+                                                       n=HOST_REPLAYS),
+            "device_ms_per_replay": device_ms_behind_sleep(torch, lambda: step(*batch))}
+
+
+def everything(tt, model, opt):
+    """{name: tensor} of every trained tensor, its `.grad` and its optimizer
+    state."""
+    out = {}
+    for name, t in tt.named_trained_tensors(model):
+        out[name] = t.detach()
+        out[name + ".grad"] = t.grad
+        for k, v in opt.state[t].items():
+            out[f"{name}.{k}"] = v
+    return out
+
+
+def graphed_against_eager(torch, tt, build, batches, what):
+    """(a), (b): the recipe's captured step and its eager body from the same
+    weights on the same TRAIN_STEPS batches, both under cuDNN deterministic:
+    every loss, trained tensor, `.grad` and optimizer state tensor
+    torch.equal. Then the eager step alone, without deterministic, for
+    EAGER_STEPS more steps: its ms per step, host to a sync, and peak
+    memory."""
+    from tpupose_torch.runtime.graphs import WARMUP, disable_capture
+
+    (mg, og, sg), (me, oe, se) = build(), build()
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed = [sg(*b) for b in batches]
+        with disable_capture():
+            eager = [se(*b) for b in batches]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    bad = [i for i, (a, b) in enumerate(zip(graphed, eager)) if not torch.equal(a, b)]
+    tensors = everything(tt, mg, og)
+    ref = everything(tt, me, oe)
+    bad += [k for k, v in ref.items()
+            if v is None or tensors.get(k) is None or not torch.equal(tensors[k], v)]
+    replays = [k["replays"] for k in sg.stats()]
+    if bad or tensors.keys() != ref.keys() or replays != [len(batches) - WARMUP]:
+        fail(f"{what}: the captured step differs from the eager body under cuDNN deterministic "
+             f"at {bad[:8]} ({len(bad)} in all; replays {replays})")
+    del mg, og, sg, tensors, ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with disable_capture():
+        _, ms = train_steps(torch, se, iter(batches), EAGER_STEPS)
+    return {"steps": len(batches), "cudnn_deterministic": True, "losses_equal": len(batches),
+            "tensors_equal": len(everything(tt, me, oe)), "graphed_replays": replays[0],
+            "eager_step_ms": ms, "eager_ms_per_step": statistics.median(ms[2:]),
+            "eager_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def timed_median(ms):
     return statistics.median(ms[TRAIN_TIMED_FROM - 1:])
 
@@ -2357,8 +2513,10 @@ def blob_batches(tt, rng, cfg, n, fixed=False, scale=1.0):
 
 def check_resume(torch, tt, model, opt, step, batch, root):
     """Phase 13 (d): save the model and the optimizer, restore them into
-    fresh objects, hold every tensor torch.equal, then take one more step
-    from each on `batch` (cuDNN deterministic) and compare the gradients."""
+    fresh objects, hold every tensor torch.equal, then take RESUME_STEPS
+    more steps from each on `batch` (cuDNN deterministic, a new key for
+    both: 2 warm-ups, then the fresh step captures its graph over the
+    restored tensors) and compare the losses and the gradients."""
     import copy
 
     from tpupose_torch.models.checkpoint import restore_params, save_params
@@ -2389,22 +2547,28 @@ def check_resume(torch, tt, model, opt, step, batch, root):
         if set(sa) != set(sb) or not all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa):
             fail("resume: an optimizer state tensor differs after restore_params")
         tensors += len(sa)
+    if not fresh_opt.param_groups[0]["capturable"]:
+        fail("resume: the restored optimizer is not capturable")
     fresh_step = tt.make_train_step(fresh, fresh_opt, torch.bfloat16)
     torch.backends.cudnn.deterministic = True
     try:
-        loss_a, loss_b = step(*batch), fresh_step(*batch)
+        losses = [(step(*batch), fresh_step(*batch)) for _ in range(RESUME_STEPS)]
     finally:
         torch.backends.cudnn.deterministic = False
     worst, where = worst_rel(torch, trained_grads(tt, fresh), trained_grads(tt, model))
     if not worst <= TRAIN_GRAD_LIMITS[False]:
         fail(f"resume: the next step's gradient of {where} differs by {worst}")
+    (fresh_key,) = fresh_step.stats()
+    if fresh_key["replays"] != RESUME_STEPS - fresh_key["warmups"] or fresh_key["replays"] < 1:
+        fail(f"resume: the restored step did not capture and replay ({fresh_key})")
     sizes = {"model_mb": os.path.getsize(paths[0]) / 1e6,
              "optimizer_mb": os.path.getsize(paths[1]) / 1e6}
     del fresh, fresh_opt, fresh_step
     return {"tensors_equal": tensors, **sizes, "save_s": save_s, "restore_s": restore_s,
-            "next_step_losses": [float(loss_a), float(loss_b)],
-            "next_step_losses_equal": bool(torch.equal(loss_a, loss_b)),
+            "next_step_losses": [[float(a), float(b)] for a, b in losses],
+            "next_step_losses_equal": all(bool(torch.equal(a, b)) for a, b in losses),
             "next_step_grad_worst_rel": worst, "next_step_grad_worst_at": where,
+            "restored_step": {k: fresh_key[k] for k in ("warmups", "replays", "capture_s")},
             "cudnn_deterministic": True}
 
 
@@ -2494,7 +2658,8 @@ def k2_held_to_plain(torch, what):
 
 def learned_tiny(torch, tt, seed=LEARN_SEED, gate=True):
     """Phase 13 (e): the tiny HRNet (weights from `seed`) trained on the card
-    to localize blobs (Adam 1e-3, f32, LEARN_STEPS steps on one batch of
+    to localize blobs (capturable Adam 1e-3, f32, LEARN_STEPS steps, all but
+    the first WARMUP replays of one CUDA graph, on one batch of
     TRAIN_BATCH, targets x 10, cuDNN deterministic so that a seed's reading
     repeats), folded, decoded (< LEARNED_PX and < LEARN_GAIN of the
     untrained error), then quantized and decoded again (within INT8_PX of
@@ -2514,7 +2679,7 @@ def learned_tiny(torch, tt, seed=LEARN_SEED, gate=True):
     targets = targets * 10.0
     model = hrnet_init(cfg, torch.Generator().manual_seed(seed)).cuda()
     untrained = decode_error_px(torch, model, cfg, imgs, kps)
-    opt = torch.optim.Adam(tt.trained_tensors(model), lr=1e-3)
+    opt = torch.optim.Adam(tt.trained_tensors(model), lr=1e-3, capturable=True)
     step = tt.make_train_step(model, opt, torch.float32)
     torch.backends.cudnn.deterministic = True
     try:
@@ -2526,6 +2691,8 @@ def learned_tiny(torch, tt, seed=LEARN_SEED, gate=True):
         train_s = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.deterministic = False
+    (key,) = step.stats()
+    del step
     folded = fold_batchnorm(model)
     float_px = decode_error_px(torch, folded, cfg, imgs, kps)
     if gate and not (float_px < LEARNED_PX and float_px < LEARN_GAIN * untrained):
@@ -2545,33 +2712,82 @@ def learned_tiny(torch, tt, seed=LEARN_SEED, gate=True):
              f"{float_px} px (more than {INT8_PX} apart)")
     return {"seed": seed, "steps": LEARN_STEPS, "seconds": train_s,
             "ms_per_step": train_s * 1e3 / LEARN_STEPS, "cudnn_deterministic": True,
+            "optimizer": "Adam 1e-3, capturable", "replays": key["replays"],
+            "capture_s": key["capture_s"], "graph_nodes": key["graph_nodes"],
             "last_loss": last, "untrained_px": untrained, "float_px": float_px,
             "int8_px": int8_px, "int8_launches": launches, "k2_held_to_plain": held,
             "limits": {"float_px": LEARNED_PX, "gain": LEARN_GAIN, "int8_px": INT8_PX}}, \
         (cfg, folded, qmodel)
 
 
+def w48_recipe(torch, tt, cfg, name):
+    """(model, optimizer, captured step) of phase 13's recipe (a), AdamW in
+    bf16 with inference-mode BN, or (b), Adam 1e-3 in f32 with train-mode
+    BN, from the recipe's seed."""
+    from tpupose_torch.models.hrnet import hrnet_init
+
+    model = hrnet_init(cfg, torch.Generator().manual_seed(20 if name == "a" else 23)).cuda()
+    if name == "a":
+        opt = tt.make_optimizer(tt.trained_tensors(model))
+        return model, opt, tt.make_train_step(model, opt, torch.bfloat16)
+    opt = torch.optim.Adam(tt.trained_tensors(model), lr=1e-3, capturable=True)
+    return model, opt, tt.make_train_step(model, opt, torch.float32, train_bn=True)
+
+
+def phase_train_profile(torch, card):
+    """Phase 13 (f), after phase 19 (a profile leaves CUPTI attached, and
+    every later graph launch costs the host more): for W48 recipes (a) and
+    (b), one eager step and one replay of the captured step under
+    torch.profiler, after the warm-ups and the capture: the kernels each
+    launches against the graph's kernel nodes, and the device's busy ms."""
+    import numpy as np
+
+    from tpupose_torch.models import train as tt
+    from tpupose_torch.models.hrnet import hrnet_w48_config
+    from tpupose_torch.runtime.graphs import WARMUP
+
+    cfg = hrnet_w48_config()
+    out = {"card": card}
+    for name in ("a", "b"):
+        model, opt, step = w48_recipe(torch, tt, cfg, name)
+        batch = next(blob_batches(tt, np.random.default_rng(2), cfg, TRAIN_BATCH))
+        for _ in range(WARMUP + 2):
+            step(*batch)
+        torch.cuda.synchronize()
+        runs = {"eager": profiled_device_events(torch, lambda: step.eager(*batch)),
+                "replay": profiled_device_events(torch, lambda: step(*batch))}
+        (key,) = step.stats()
+        for run in runs.values():
+            if isinstance(run, dict):
+                run["kernels"] = run["device_events"] - run["memcpy_memset"]
+                run["busy_ms"] = run["busy_us"] / 1e3
+        out[name] = {**runs, "graph_nodes": key["graph_nodes"]}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(torch, card):
-    """Phase 13: HRNet-W48 384x288 training at full width on blob batches:
-    (a) the JAX default recipe with save / resume (d) at RESUME_AT, (b) the
-    JAX package's learning recipe, (c) the tiny config card vs CPU, (e) a
-    learned tiny model. Returns the report and (b)'s model and last batch
-    for phase 14."""
+    """Phase 13: HRNet-W48 384x288 training at full width on blob batches,
+    every step a captured CUDA graph after its warm-ups: (a) the JAX
+    default recipe with save / resume (d) at RESUME_AT, (b) the JAX
+    package's learning recipe, each also held against its eager body and
+    timed eagerly; (c) the tiny config card vs CPU, (e) a learned tiny
+    model. Returns the report and (b)'s model and last batch for phase
+    14."""
     import tempfile
 
     import numpy as np
 
     from tpupose_torch.models import train as tt
-    from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
+    from tpupose_torch.models.hrnet import hrnet_w48_config
 
     cfg = hrnet_w48_config()
     out = {"card": card, "config": f"HRNet-W48 384x288, blob batches of {TRAIN_BATCH}",
            "tf32": bool(torch.backends.cudnn.allow_tf32)}
 
     # (a) make_optimizer(), bf16, train_bn=False, one batch; (d) at RESUME_AT
-    model = hrnet_init(cfg, torch.Generator().manual_seed(20)).cuda()
-    opt = tt.make_optimizer(tt.trained_tensors(model))
-    step = tt.make_train_step(model, opt, torch.bfloat16)
+    model, opt, step = w48_recipe(torch, tt, cfg, "a")
     batches = blob_batches(tt, np.random.default_rng(0), cfg, TRAIN_BATCH, fixed=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2579,41 +2795,56 @@ def phase_train(torch, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     with tempfile.TemporaryDirectory() as root:
         resume = check_resume(torch, tt, model, opt, step, next(batches), root)
-    more_losses, more_ms = train_steps(torch, step, batches, TRAIN_STEPS - RESUME_AT - 1)
-    losses += [resume["next_step_losses"][0]] + more_losses
-    ms += [None] + more_ms  # the resumed step ran with cuDNN deterministic
+    more_losses, more_ms = train_steps(torch, step, batches,
+                                       TRAIN_STEPS - RESUME_AT - RESUME_STEPS)
+    losses += [a for a, _ in resume["next_step_losses"]] + more_losses
+    ms += [None] * RESUME_STEPS + more_ms  # the resumed steps ran with cuDNN deterministic
     if not losses[-1] < losses[0]:
         fail(f"W48 training (a): the loss went from {losses[0]} to {losses[-1]}")
     timed = [t for t in ms[TRAIN_TIMED_FROM - 1:] if t is not None]
-    out["a"] = {"recipe": "make_optimizer() (AdamW 1e-3, wd 1e-4), bf16, train_bn=False, "
-                          "one batch", "steps": TRAIN_STEPS, "losses": losses, "step_ms": ms,
-                "ms_per_step": statistics.median(timed), "peak_mem_gib": peak}
+    captured = capture_report(torch, step, next(batches))
+    out["a"] = {"recipe": "make_optimizer() (AdamW 1e-3, wd 1e-4, capturable), bf16, "
+                          "train_bn=False, one batch", "steps": TRAIN_STEPS, "losses": losses,
+                "step_ms": ms, "ms_per_step": statistics.median(timed), "peak_mem_gib": peak,
+                "captured": captured}
     out["d"] = resume
     del model, opt, step
+    torch.cuda.empty_cache()
+    out["a"]["against_eager"] = graphed_against_eager(
+        torch, tt, lambda: w48_recipe(torch, tt, cfg, "a"), [next(batches)] * TRAIN_STEPS,
+        "W48 training (a)")
 
     # (b) the JAX package's learning recipe: Adam 1e-3, f32, train_bn, fresh batches
-    model = hrnet_init(cfg, torch.Generator().manual_seed(23)).cuda()
-    opt = torch.optim.Adam(tt.trained_tensors(model), lr=1e-3)
-    step = tt.make_train_step(model, opt, torch.float32, train_bn=True)
+    torch.cuda.empty_cache()
     batches = blob_batches(tt, np.random.default_rng(1), cfg, TRAIN_BATCH, scale=10.0)
+    fresh = [next(batches) for _ in range(TRAIN_STEPS)]
+    model, opt, step = w48_recipe(torch, tt, cfg, "b")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, ms = train_steps(torch, step, batches, TRAIN_STEPS)
+    losses, ms = train_steps(torch, step, iter(fresh), TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     torch.backends.cudnn.allow_tf32 = True
     try:
         tf32_losses, tf32_ms = train_steps(torch, step, batches, TF32_STEPS)
     finally:
         torch.backends.cudnn.allow_tf32 = False
+    captured = capture_report(torch, step, next(batches))  # keys: TF32 off, on
     ms_b = timed_median(ms)
-    out["b"] = {"recipe": "Adam 1e-3, f32, train_bn=True, a fresh batch per step, targets x 10 "
-                          "(scripts/int8_w48_agreement.py:395-414)",
+    out["b"] = {"recipe": "Adam 1e-3 (capturable), f32, train_bn=True, a fresh batch per "
+                          "step, targets x 10 (scripts/int8_w48_agreement.py:395-414)",
                 "steps": TRAIN_STEPS, "losses": losses, "step_ms": ms, "ms_per_step": ms_b,
                 "peak_mem_gib": peak, "extrapolated_4000_steps_s": 4000 * ms_b / 1e3,
-                "tf32_steps": TF32_STEPS, "tf32_losses": tf32_losses, "tf32_step_ms": tf32_ms,
-                "tf32_ms_per_step": statistics.median(tf32_ms[1:])}
+                "captured": captured, "tf32_steps": TF32_STEPS, "tf32_losses": tf32_losses,
+                "tf32_step_ms": tf32_ms, "tf32_ms_per_step": statistics.median(tf32_ms[3:])}
     last_batch = next(batches)
     del opt, step
+    torch.cuda.empty_cache()
+    out["b"]["against_eager"] = graphed_against_eager(
+        torch, tt, lambda: w48_recipe(torch, tt, cfg, "b"), fresh, "W48 training (b)")
+    out["b"]["eager_extrapolated_4000_steps_s"] = (
+        4000 * out["b"]["against_eager"]["eager_ms_per_step"] / 1e3)
+    del fresh
+    torch.cuda.empty_cache()
 
     out["c"] = train_grads_card_vs_cpu(torch, tt)
     out["e"], tiny = learned_tiny(torch, tt)
@@ -3631,7 +3862,8 @@ def parallel_train(torch, mesh):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step, shardings_for = tt.make_sharded_train_step(
-        model, lambda ts: torch.optim.Adam(ts, lr=PAR_TRAIN_LR), mesh, torch.float32,
+        model, lambda ts: torch.optim.Adam(ts, lr=PAR_TRAIN_LR, capturable=True), mesh,
+        torch.float32,
         train_bn=True)
     specs = step.specs
     mesh_mod.all_reduces = 0
@@ -3691,7 +3923,8 @@ def parallel_train(torch, mesh):
         grads_f64 = held_grads(tt.named_trained_tensors(exact))
         del exact
         torch.cuda.empty_cache()
-        ref_opt = torch.optim.Adam(tt.trained_tensors(model), lr=PAR_TRAIN_LR)
+        ref_opt = torch.optim.Adam(tt.trained_tensors(model), lr=PAR_TRAIN_LR,
+                                   capturable=True)
         ref_step = tt.make_train_step(model, ref_opt, torch.float32, train_bn=True)
         ref = {"losses": [], "step_ms": [], "steps": []}
         for i, batch in enumerate(global_batches):
@@ -3710,6 +3943,9 @@ def parallel_train(torch, mesh):
                     grad_rel_norm_to_f64=rel_norm(torch, sharded, grads_f64),
                     unsharded_grad_rel_norm_to_f64=rel_norm(torch, grads_ref, grads_f64))
             ref["steps"].append(agree)
+        # PAR_TRAIN_STEPS <= WARMUP: the unsharded reference's steps are its
+        # warm-ups, eager as the sharded step is
+        ref["replays"] = sum(k["replays"] for k in ref_step.stats())
         ref["limits"] = {"one_data_rank": "losses, gradients, parameters equal",
                          "loss_rtol_first_step": PAR_LOSS_RTOL,
                          "grad_rel_norm_to_f64": f"{PAR_GRAD_F64_RATIO} x the unsharded step's",
@@ -3946,11 +4182,11 @@ def main():
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
         elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {
-                "k2", "k3", "ingest", "parallel", "graphs"}:
+                "k2", "k3", "ingest", "parallel", "graphs", "train"}:
             only = set(args[1:])
         else:
             fail("usage: chip_smoke.py [--learned-seeds SEED ... | "
-                 "--only k2|k3|ingest|parallel|graphs ...]", 2)
+                 "--only k2|k3|ingest|parallel|graphs|train ...]", 2)
     try:
         import torch
     except ImportError:
@@ -3993,8 +4229,12 @@ def main():
             emit("ingest", **standalone_ingest(torch, card))
         if "parallel" in only:
             emit("parallel", **phase_parallel(torch, card))
+        if "train" in only:
+            emit("train", **phase_train(torch, card)[0])
         if "graphs" in only:
             emit("graphs", **phase_graphs(torch, card), captured=graphs_summary())
+        if "train" in only:
+            emit("train_profile", **phase_train_profile(torch, card))
         return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
@@ -4049,6 +4289,7 @@ def main():
     emit("graphs", **phase_graphs(torch, card))
     captured = graphs_summary()
     emit("graphs_captured", card=card, graphs=captured)
+    emit("train_profile", **phase_train_profile(torch, card))
 
     quarter = k1["modes"]["quarter"]
     conv, packed = k2["timed"]["hrnet_branch0_3x3_48"], k2["timed"]["hrnet_branch0_packed_3x3_96"]

@@ -53,13 +53,18 @@ def restore_params(path: str, like=None):
     a tensor of another shape (RuntimeError from a strict
     `load_state_dict`; ValueError from `Optimizer.load_state_dict` for
     parameter groups of other sizes) and on another dtype or a state tensor
-    of another shape (ValueError). Without it, returns the saved state_dict
-    with its tensors on the CPU."""
+    of another shape (ValueError). An optimizer keeps its own `capturable`
+    setting, which follows its tensors' device (a CPU run's state resumes
+    in a card's CUDA graph, and a card's on the CPU). Without it, returns
+    the saved state_dict with its tensors on the CPU."""
     obj = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
     if like is None:
         return obj
     if isinstance(like, torch.optim.Optimizer):
         _check_state_shapes(obj, like)
+        for saved, group in zip(obj["param_groups"], like.param_groups):
+            if "capturable" in group:
+                saved["capturable"] = group["capturable"]
         like.load_state_dict(obj)
     else:
         _check_dtypes(obj, like.state_dict())

@@ -25,8 +25,9 @@ torch.int8)`.
 Label-free distill-QAT (`distill_qat`) trains a fake-quant copy
 (`fake_quant_convs`: `layers.FakeQuantConv2d`s, forward
 `fake_quant_conv_apply`) with autograd and `torch.optim.Adam` to match the
-float model's own outputs, then `requantize_after_qat` turns it into the
-int8 serving module. The other PTQ options are here too: cross-layer
+float model's own outputs, each step a CUDA graph on the card
+(`runtime.graphs.CapturedUpdate`), then `requantize_after_qat` turns it
+into the int8 serving module. The other PTQ options are here too: cross-layer
 equalization (`equalize_convs`, `quantize_hrnet(equalize=True)`),
 MSE-optimal activation ranges (`calibrate_mse`), bias correction
 (`record_bias_correction_means`, `bias_correct_convs`) and BN-statistics
@@ -51,6 +52,7 @@ from tpupose_torch.models.layers import (
     QuantConv2d,
 )
 from tpupose_torch.ops.int8_conv import int8_conv
+from tpupose_torch.runtime.graphs import CapturedUpdate, capturable
 
 __all__ = [
     "ActRecorder",
@@ -369,6 +371,14 @@ def distill_qat(apply_fn, folded, batches, steps=200, lr=1e-5, skip_ids=None, lo
     Returns the requantized int8 serving module. The loss is
     `distill_loss`. Every parameter of the fake-quant copy trains: weights,
     biases, the float convs and each `fq_x_scale`.
+
+    A step is one `runtime.graphs.CapturedUpdate`, the port's counterpart
+    of the JAX package's jitted QAT step: on CUDA (Adam capturable there)
+    each batch shape warms up for WARMUP steps, then replays one CUDA graph
+    of forward, backward and Adam step (a shorter last batch is a second
+    graph); on the CPU the same steps run eagerly, and so do they inside
+    `runtime.graphs.disable_capture()`. The graphs and their memory are
+    released before the function returns.
     """
     with torch.no_grad():
         # clones are normal tensors even where the batches were made under
@@ -380,16 +390,19 @@ def distill_qat(apply_fn, folded, batches, steps=200, lr=1e-5, skip_ids=None, lo
         targets = [[t.to(torch.float32) for t in _as_list(apply_fn(folded, b))]
                    for b in batches]
 
-    optimizer = torch.optim.Adam(fq.parameters(), lr=lr)
-    with torch.enable_grad():
-        for i in range(steps):
-            b = i % len(batches)
-            loss = distill_loss(apply_fn, fq, batches[b], targets[b])
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
-            if log is not None and (i + 1) % max(1, steps // 10) == 0:
-                log(i + 1, float(loss.detach()))
+    params = list(fq.parameters())
+    optimizer = torch.optim.Adam(params, lr=lr, capturable=capturable(params))
+
+    def loss_fn(x, *target):
+        return distill_loss(apply_fn, fq, x, target)
+
+    step = CapturedUpdate(loss_fn, optimizer)
+    for i in range(steps):
+        b = i % len(batches)
+        loss = step(batches[b], *targets[b])
+        if log is not None and (i + 1) % max(1, steps // 10) == 0:
+            log(i + 1, float(loss))
+    step.release()
     optimizer.zero_grad(set_to_none=True)
     return requantize_after_qat(fq)
 

@@ -4,7 +4,9 @@ Counterpart of `tpupose/models/train.py`: top-down pose fine-tuning, MSE over
 per-joint Gaussian target heatmaps with per-joint visibility weights,
 AdamW, inference-mode BN by default (`train_bn=True` normalizes by the batch
 statistics instead). Tensors are NCHW: blob images (N, 3, H, W), targets
-(N, J, Hh, Wh), as the port's HRNet reads and writes them.
+(N, J, Hh, Wh), as the port's HRNet reads and writes them. On the card a
+step of `make_train_step` replays one CUDA graph of forward, backward and
+optimizer step (`runtime.graphs.CapturedUpdate`), as the JAX package jits it.
 
 What trains is what `jax.value_and_grad` trains in the JAX package: every
 leaf of the parameter tree, and there the BN running statistics are leaves.
@@ -30,6 +32,7 @@ import torch.distributed as dist
 from torch import nn
 
 from tpupose_torch.models.layers import BNStatRecorder, SyncBNStatRecorder
+from tpupose_torch.runtime.graphs import CapturedUpdate, capturable
 
 #: 17 visually distinct RGB colors, one per joint: joint identity is
 #: learnable from color alone in the blob-localization task.
@@ -145,33 +148,39 @@ def named_trained_tensors(model: nn.Module):
 def make_optimizer(params, lr=1e-3, weight_decay=1e-4):
     """AdamW over `params` (e.g. `trained_tensors(model)`), as
     `optax.adamw(lr, weight_decay=weight_decay)`: decoupled decay of every
-    tensor it holds, eps outside the bias-corrected square root."""
-    return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+    tensor it holds, eps outside the bias-corrected square root.
+    Capturable on CUDA (`runtime.graphs.capturable`): its step count and
+    bias corrections live on the card, in f32, as optax's do."""
+    params = list(params)
+    return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay,
+                             capturable=capturable(params))
 
 
 def make_train_step(model, optimizer, compute_dtype=torch.bfloat16, train_bn=False):
     """step(images, targets, weights) -> loss: one `heatmap_loss` forward and
-    backward and one optimizer step, in place.
+    backward and one optimizer step, in place; the port's counterpart of
+    `jax.jit` over the JAX package's train step.
 
-    Every tensor the optimizer holds that took no part in the forward (the
-    BN statistics under `train_bn`) gets a zero gradient, as `jax.grad`
-    gives it, so the optimizer still counts and decays it. The gradients
-    stay in `.grad` until the next step. Works on a fake-quant model
+    On a CUDA model the step is a `runtime.graphs.CapturedUpdate`: its
+    first WARMUP calls for a batch shape (and backend flags) run eagerly,
+    the next captures forward, backward and optimizer step as one CUDA
+    graph and replays it, and every later call copies the batch in and
+    replays. The optimizer must be capturable there (`make_optimizer` is;
+    others raise ValueError). On the CPU the same calls run the body
+    eagerly. `step.eager(...)` runs the step on its arguments op by op.
+
+    Every tensor the optimizer holds has a gradient from the first call on:
+    the step zeroes it in place and the backward accumulates into it, so
+    one that took no part in the forward (the BN statistics under
+    `train_bn`) gets a zero gradient, as `jax.grad` gives it, and the
+    optimizer still counts and decays it. The gradients stay in `.grad`
+    until the next step. Works on a fake-quant model
     (`quantize.fake_quant_convs`) too."""
-    tensors = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def step(images, targets, weights):
-        optimizer.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss = heatmap_loss(model, images, targets, weights, compute_dtype, train_bn)
-            loss.backward()
-        for p in tensors:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        optimizer.step()
-        return loss.detach()
+    def loss_fn(images, targets, weights):
+        return heatmap_loss(model, images, targets, weights, compute_dtype, train_bn)
 
-    return step
+    return CapturedUpdate(loss_fn, optimizer)
 
 
 class ShardedTrainStep:

@@ -194,7 +194,9 @@ class Pipeline:
         (`quantize.distill_qat`): each backbone's fake-quant copy trains for
         that many straight-through steps (Adam at `qat_lr`) to match its own
         float outputs on the calibration inputs, split into batches of
-        `qat_batch`, then is requantized. `qat_log(step, loss)` reports
+        `qat_batch`, then is requantized. On the card each QAT step
+        replays a CUDA graph after its warm-ups (a short last batch is a
+        second graph; see `distill_qat`). `qat_log(step, loss)` reports
         progress. Serving speed is the same: the served modules have the
         same int8 structure.
 

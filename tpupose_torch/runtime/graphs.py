@@ -1,47 +1,80 @@
-"""Captured steps: a function of fixed-shape tensors as one replayable program.
+"""Captured steps: a step of fixed-shape tensors as one replayable program.
 
-The JAX package jits its tracker step (`tpupose/tracking/tracker.py:797`),
-so that a frame is one XLA program and the host issues one launch. Eager
-PyTorch issues every op of the step from the host instead (about 1,800
-kernels a frame on an H100), and the host's issue, not the card, sets stage
-B's time.
-The port's counterpart of `jax.jit` is a CUDA graph captured once and
-replayed each frame:
+The JAX package jits its steps: the tracker step (`tpupose/tracking/
+tracker.py:797`), so that a frame is one XLA program, and every training
+step, the train step (`tpupose/models/train.py:116-133`, jitted by its
+callers) and distill-QAT's (`tpupose/models/quantize.py:455-459`). Eager
+PyTorch issues every op of a step from the host instead (about 1,800
+kernels a tracker frame on an H100, about 5,000 a W48 training step), and
+the host's issue, not the card, sets the step's time. The port's
+counterpart of `jax.jit` is a CUDA graph captured once per key and
+replayed at every call. Two kinds of step are captured:
 
-* `Layout` lays the fields of a NamedTuple of tensors out as views of one
-  flat byte buffer, so that copying a whole state or FrameOutput is one
-  copy, not one a field.
-* `CapturedStep` holds static buffers for fn(cams, state, dets, mask,
-  frame_id) -> (state, out): the cams, the state, the frame's inputs (the
-  frame id a 0-d or (S,) int32 tensor on the device, filled outside the
-  program, never a constant inside it) and the outputs. It runs fn a few
-  times eagerly on a side stream (the K3 library's build and load, each K3
-  variant's first launch, the smoothing weights' one copy, cuBLAS
-  handles), captures it with `torch.cuda.graph`, one memory pool a device
-  shared by every graph on it, and ends the program with copies of the new
-  state into the static state, so that the program advances itself.
-  On the CPU the same buffers are written by running fn eagerly at each
-  replay, as a kernel's plain version stands in for it there.
-* `captured_step` keeps one CapturedStep per (tag, device, input shapes and
-  dtypes) for the process: a graph is captured once per key (`steps()`
-  lists them).
+* The tracker step, a pure function fn(cams, state, dets, mask, frame_id)
+  -> (state, out): `CapturedStep`, kept per (tag, device, shapes, dtypes)
+  for the process by `captured_step` (`steps()` lists them).
+  - `Layout` lays the fields of a NamedTuple of tensors out as views of one
+    flat byte buffer, so that copying a whole state or FrameOutput is one
+    copy, not one a field.
+  - It holds static buffers for the cams, the state, the frame's inputs
+    (the frame id a 0-d or (S,) int32 tensor on the device, filled outside
+    the program, never a constant inside it) and the outputs. It runs fn a
+    few times eagerly on a side stream, on throw-away inputs (the K3
+    library's build and load, each K3 variant's first launch, the
+    smoothing weights' one copy, cuBLAS handles), captures it with
+    `torch.cuda.graph` into one memory pool a device, shared by every
+    tracker graph on it, and ends the program with copies of the new state
+    into the static state, so that the program advances itself.
+  - The JAX contract holds: what a step returns belongs to the caller and
+    no later call overwrites it (the state and the outputs are handed out
+    as copies). The state is copied in only when the caller passes
+    something other than the state the step last returned; the cams when
+    they are not the tensors last copied (or one of them was written in
+    place since). Graphs on one device share a memory pool, so they must
+    be replayed on one stream, one after the other, as every caller here
+    does.
+* A training step of loss_fn(*batch) -> loss and an optimizer, which
+  zeroes the gradients, runs the forward and the backward and steps the
+  optimizer, all in place: `CapturedUpdate` (`models.train.make_train_step`,
+  `quantize.distill_qat`).
+  - Static input buffers take each call's batch (a device-to-device copy);
+    the loss is handed out as a copy.
+  - The step is not pure, so its warm-ups are real steps: the first
+    WARMUP calls of a key run the step eagerly on the side stream, on the
+    caller's batches in order (the optimizer's lazy state, cuDNN's
+    algorithm choice, the one-time allocations). The next call captures,
+    and then replays once, since a capture runs nothing.
+  - Every trained tensor gets a zero `.grad` before the first step, and
+    keeps that tensor: the step zeroes it in place
+    (`zero_grad(set_to_none=False)`) and the backward accumulates into it,
+    so every graph of the step reads and writes the same gradients, and
+    they stay in `.grad` after any call.
+  - The key is the device, the batch's shapes and dtypes, and the backend
+    flags that change what a capture records (`backend_flags`). A changed
+    optimizer setting (`lr`, betas, ..., a replaced state after
+    `load_state_dict`) drops the step's graphs, and the next calls warm up
+    and capture anew: a graph never replays stale constants.
+  - Each CapturedUpdate captures into a memory pool of its own (a W48
+    step's activations are several GiB), which `release()` hands back.
+  - On CUDA the optimizer must be capturable (`require_capturable`):
+    capturable Adam keeps its step count and bias corrections on the card.
+  - Inside `disable_capture()` a CapturedUpdate runs its step eagerly on
+    the caller's tensors, as `jax.disable_jit` runs a jitted function op
+    by op: the reference a graph is held against.
 
-The JAX contract holds: what a step returns belongs to the caller and no
-later call overwrites it (the state and the outputs are handed out as
-copies). The state is copied in only when the caller passes something other
-than the state the step last returned; the cams when they are not the
-tensors last copied (or one of them was written in place since). Graphs on
-one device share a memory pool, so they must be replayed on one stream, one
-after the other, as every caller here does.
+On the CPU the same buffers are written by running the step eagerly at
+each replay, as a kernel's plain version stands in for it there.
 
-Kernel launch counters (`ops.lap.launches`) count executions: a capture's
-increments are taken back (nothing ran) and recorded as the launches the
-graph holds, which every replay adds again. The warm-up's launches ran, and
-stay counted. A failed capture or replay raises; a CUDA step never falls
-back to eager execution.
+Kernel launch counters (`ops.lap.launches`, which the tracker step runs)
+count executions: a capture's increments are taken back (nothing ran) and
+recorded as the launches the graph holds, which every replay adds again.
+The warm-up's launches ran, and stay counted. (The training steps run no
+counted kernel.) A failed capture or replay raises; a CUDA step never
+falls back to eager execution.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import time
@@ -138,10 +171,12 @@ def _pool(device):
 
 class _Graph:
     """A CUDA graph on `device`: warm-up and capture on the device's side
-    stream, into its shared pool; replay on the current stream."""
+    stream, into `pool` (by default the device's shared pool); replay on
+    the current stream."""
 
-    def __init__(self, device):
+    def __init__(self, device, pool=None):
         self.device = device
+        self.pool = pool
         self.graph = None
 
     def warmup(self, fn, n):
@@ -157,7 +192,8 @@ class _Graph:
     def capture(self, body):
         g = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.device(self.device), torch.cuda.graph(
-                g, pool=_pool(self.device), stream=_side_stream(self.device),
+                g, pool=self.pool if self.pool is not None else _pool(self.device),
+                stream=_side_stream(self.device),
                 capture_error_mode="thread_local"):
             body()
         g.instantiate()
@@ -377,3 +413,233 @@ def captured_step(tag, fn, cams, state, dets, mask, frame_id) -> CapturedStep:
 def steps() -> dict:
     """Every CapturedStep of the process, by key."""
     return dict(_STEPS)
+
+
+# -- training steps ---------------------------------------------------------------
+
+#: Open `disable_capture()` blocks.
+_capture_disabled = 0
+#: `backend_flags()`'s fields, for the record.
+FLAG_NAMES = ("cudnn.allow_tf32", "cudnn.deterministic", "cudnn.benchmark",
+              "cuda.matmul.allow_tf32")
+
+
+@contextlib.contextmanager
+def disable_capture():
+    """Inside the block every `CapturedUpdate` runs its step eagerly on the
+    caller's tensors, as `jax.disable_jit` runs jitted functions op by op."""
+    global _capture_disabled
+    _capture_disabled += 1
+    try:
+        yield
+    finally:
+        _capture_disabled -= 1
+
+
+def backend_flags():
+    """The backend settings that change what a capture records (the
+    algorithms cuDNN and cuBLAS choose), in FLAG_NAMES' order."""
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark, torch.backends.cuda.matmul.allow_tf32)
+
+
+def capturable(tensors) -> bool:
+    """Whether an optimizer over `tensors` is to be built capturable: on
+    CUDA, where its step is replayed in a graph (capturable Adam refuses
+    CPU tensors)."""
+    return any(t.is_cuda for t in tensors)
+
+
+def require_capturable(optimizer):
+    """Raise ValueError if a parameter group of `optimizer` has its
+    `capturable` setting off: a CUDA graph of its step would replay the
+    step count and bias corrections of the capture."""
+    for i, group in enumerate(optimizer.param_groups):
+        if group.get("capturable") is False:
+            raise ValueError(
+                f"{type(optimizer).__name__}: parameter group {i} is not capturable, and a "
+                f"training step on CUDA replays a CUDA graph; build the optimizer with "
+                f"capturable=True (models.train.make_optimizer does so for CUDA tensors)")
+
+
+def _settings(optimizer):
+    """What a capture bakes in of `optimizer`: its state dict (replaced by
+    `load_state_dict`), each group's tensor list and settings."""
+    return [optimizer.state] + [(g["params"], len(g["params"]),
+                                 {k: v for k, v in g.items() if k != "params"})
+                                for g in optimizer.param_groups]
+
+
+def _same(a, b):
+    """Settings equal: tensors by identity (a graph reads them in place),
+    sequences item by item, anything else by type and value."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a is b
+    if isinstance(a, (tuple, list)) and isinstance(b, (tuple, list)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    return type(a) is type(b) and a == b
+
+
+def _same_settings(now, then):
+    if len(now) != len(then) or now[0] is not then[0]:
+        return False
+    for (pa, na, sa), (pb, nb, sb) in zip(now[1:], then[1:]):
+        if pa is not pb or na != nb or sa.keys() != sb.keys() or not all(
+                _same(v, sb[k]) for k, v in sa.items()):
+            return False
+    return True
+
+
+class _UpdateKey:
+    """One key of a CapturedUpdate: the static batch, the static loss, the
+    program and its figures."""
+
+    def __init__(self, inputs, program):
+        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in inputs]
+        self.program = program
+        self.loss = None
+        self.warmups = self.replays = 0
+        self.captured = False
+        self.capture_s = None
+        self.pool_bytes = 0
+
+
+class CapturedUpdate:
+    """A training step of `loss_fn(*batch) -> loss` and `optimizer`: zero
+    the gradients in place, forward, backward, optimizer step; as one CUDA
+    graph a key (see the module docstring).
+
+    `__call__(*batch)` copies the batch into the key's static buffers and
+    runs a warm-up, or captures and replays, or replays; it returns the
+    loss, the caller's. `eager(*batch)` runs the step on the batch itself.
+    `stats()` gives each key's figures; `release()` drops the graphs."""
+
+    def __init__(self, loss_fn, optimizer):
+        self.loss_fn, self.optimizer = loss_fn, optimizer
+        self._keys: dict = {}
+        self._pool = None
+        self._settings = _settings(optimizer)
+        self._grads = []
+        self._collect_grads()
+
+    def _collect_grads(self):
+        """(tensor, gradient) for every tensor of the optimizer: the `.grad`
+        this step found or made for it first, a zero tensor of its shape and
+        strides."""
+        held = {id(p): g for p, g in self._grads}
+        self._grads = []
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                g = held.get(id(p))
+                if g is None:
+                    g = p.grad if p.grad is not None else torch.zeros_like(p)
+                self._grads.append((p, g))
+
+    def _bind_grads(self):
+        """Point every `.grad` back at this step's gradient (a caller may have
+        set it to None); the graphs read and write those tensors."""
+        for p, g in self._grads:
+            if p.grad is not g:
+                p.grad = g
+
+    def _drop(self):
+        """Forget every key, after the card has run its graphs; returns the
+        keys' devices."""
+        devices = {e.inputs[0].device for e in self._keys.values()}
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        self._keys.clear()
+        self._pool = None
+        return devices
+
+    def release(self):
+        """Drop every graph and static buffer of this step and hand their
+        pool's memory back to the card. The next call of a key warms up
+        and captures anew."""
+        if any(d.type == "cuda" for d in self._drop()):
+            torch.cuda.empty_cache()
+
+    def _check_settings(self):
+        now = _settings(self.optimizer)
+        if not _same_settings(now, self._settings):
+            self._drop()
+            self._settings = now
+            self._collect_grads()
+
+    def _program(self, device):
+        if device.type != "cuda":
+            return _Eager()
+        if self._pool is None:
+            with torch.cuda.device(device):
+                self._pool = torch.cuda.graph_pool_handle()
+        return _Graph(device, self._pool)
+
+    def _body(self, *inputs):
+        """One step: the gradients zeroed in place (every graph of the step
+        shares them), then accumulated by the backward."""
+        self.optimizer.zero_grad(set_to_none=False)
+        with torch.enable_grad():
+            loss = self.loss_fn(*inputs)
+            loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def eager(self, *inputs):
+        """One step on the caller's tensors, op by op."""
+        self._bind_grads()
+        return self._body(*inputs)
+
+    def __call__(self, *inputs):
+        if _capture_disabled:
+            return self.eager(*inputs)
+        self._check_settings()
+        device = inputs[0].device
+        key = (device, tuple((tuple(t.shape), t.dtype) for t in inputs), backend_flags())
+        entry = self._keys.get(key)
+        if entry is None:
+            if device.type == "cuda":
+                require_capturable(self.optimizer)
+            entry = self._keys[key] = _UpdateKey(inputs, self._program(device))
+        for dst, src in zip(entry.inputs, inputs):
+            dst.copy_(src)
+        self._bind_grads()
+        if entry.warmups < WARMUP:
+            loss = entry.program.warmup(lambda: self._body(*entry.inputs), 1).clone()
+            entry.warmups += 1
+            if entry.loss is None:
+                entry.loss = torch.empty_like(loss)
+            return loss
+        if not entry.captured:
+            self._capture(entry)
+        entry.program.replay()
+        entry.replays += 1
+        return entry.loss.clone()
+
+    def _capture(self, entry):
+        device = entry.inputs[0].device
+
+        def record():
+            entry.loss.copy_(self._body(*entry.inputs))
+
+        reserved = 0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # as the capture does: its pool alone grows
+            reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        entry.program.capture(record)
+        entry.capture_s = time.perf_counter() - t0
+        if device.type == "cuda":
+            entry.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        entry.captured = True
+
+    def stats(self) -> list:
+        """Each key's figures: its batch, flags, warm-ups, capture seconds,
+        pool bytes, the graph's nodes by type, its replays."""
+        return [{"device": str(device), "shapes": [list(s) for s, _ in sig],
+                 "dtypes": [str(d).removeprefix("torch.") for _, d in sig],
+                 "flags": dict(zip(FLAG_NAMES, flags)), "warmups": e.warmups,
+                 "capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
+                 "graph_nodes": e.program.node_counts() if e.captured else None,
+                 "replays": e.replays}
+                for (device, sig, flags), e in self._keys.items()]
