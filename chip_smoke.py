@@ -247,14 +247,23 @@ backend flags), each held against its eager body:
      (b)'s recipe (Adam 1e-3, f32, train-mode BN synchronized over 'data',
      targets x 10), cuDNN deterministic, PAR_TRAIN_BATCH crops per data
      rank, PAR_TRAIN_STEPS steps, at (data, model) = (2, 2) on four cards
-     and (world, 1) otherwise: every split tensor and its Adam moments hold
-     1 / model of the rows; the losses and the gathered parameters are held
-     against rank 0's unsharded `make_train_step` on the whole global
-     batch (PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL_LR), capturable
-     Adam on both sides (the reference's PAR_TRAIN_STEPS are its eager
-     warm-ups, so eager is held against eager); ms per step
-     per rank (and rank 0's unsharded step's), peak memory, parameter and
-     Adam bytes held per rank, collectives per step. (b) the multi-stream
+     and (world, 1) otherwise. The step is one CUDA graph a key, its NCCL
+     collectives inside (2 eager warm-ups, the capture, replays): its
+     collectives by kind every step (one all-gather and one reduce-scatter
+     a BN, the parameters' all-gather, the gradients' all-reduce; the first
+     step adds the batch-size all-gather) and those its graph holds; then
+     its eager body (`step.eager`) from the same weights on the same
+     batches, torch.equal on every loss, local trained tensor, `.grad` and
+     Adam state tensor of every step; every split tensor and its Adam
+     moments hold 1 / model of the rows; the losses and the gathered
+     parameters are held against rank 0's unsharded `make_train_step` on
+     the whole global batch, graphed after its warm-ups as the sharded step
+     is (PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL_LR), capturable Adam
+     on both sides; graphed and eager: ms per step per rank (and rank 0's
+     unsharded step's), capture seconds, pool MiB, graph nodes by type,
+     host µs and device ms a replay, peak memory; parameter and Adam bytes
+     held per rank, one small all-reduce's and all-gather's host µs, the
+     NCCL version. (b) the multi-stream
      clip at (world, 1): YOLOv3-416 (max_candidates=4) and HRNet-W48 folded
      to bf16, PAR_STREAMS_PER_CARD streams a card of PAR_FRAMES frames of 5
      random 720x1280 views, each stream's clip from its own seed; each rank
@@ -3767,14 +3776,16 @@ def graphs_summary():
             for ((tag, cfg), _, signature, _), s in card_steps().items()]
 
 
-PAR_TRAIN_BATCH, PAR_TRAIN_STEPS, PAR_TRAIN_LR = 8, 2, 1e-3  # (a): crops per data rank
+#: (a): crops per data rank; steps: WARMUP eager, the capture, replays
+PAR_TRAIN_BATCH, PAR_TRAIN_STEPS, PAR_TRAIN_LR = 8, 6, 1e-3
 PAR_STREAMS_PER_CARD, PAR_FRAMES = 2, 32                     # (b)
-ALL_REDUCE_WARMUP, ALL_REDUCE_CALLS = 20, 200  # (a): one small all-reduce's cost
+SMALL_COLLECTIVE_WARMUP, SMALL_COLLECTIVE_CALLS = 20, 200    # (a): one small collective's cost
 PAR_TIMEOUT_S = 420  # every rank's whole run, the spawn included
-#: (a)'s gates against rank 0's unsharded step. With one data rank the
-#: sharded step computes what the unsharded one does, op for op (the
-#: synchronized BN scales local means by a share of 1): losses, gradients
-#: and parameters equal bit for bit. With more, the batch is summed in
+#: (a)'s gates against rank 0's unsharded step, both graphed after their
+#: warm-ups. With one data rank the sharded step computes what the
+#: unsharded one does, op for op (the synchronized BN's merge over one rank
+#: of share 1 is the identity): losses, gradients and parameters equal bit
+#: for bit. With more, the batch is summed in
 #: parts, and train-mode BN's gradients are ill-conditioned where a
 #: channel's mean dwarfs its spread (a last-bit change moves a tensor's
 #: gradient by up to 1e-2), so the sharded and the unsharded f32 gradients
@@ -3843,52 +3854,95 @@ def param_agreement(torch, got, ref, lr):
             "max_abs_diff": worst_abs, "max_rel_diff": worst_rel, "equal": equal}
 
 
+def sharded_everything(step):
+    """{name: tensor} of a sharded step's local trained tensors, their
+    `.grad` and their optimizer state, copies on the card."""
+    out = {}
+    for name, t in step.tensors.items():
+        out[name] = t.detach().clone()
+        out[name + ".grad"] = t.grad.clone()
+        for k, v in step.optimizer.state[t].items():
+            out[f"{name}.{k}"] = v.clone()
+    return out
+
+
+def small_collective_us(torch, collective):
+    """The host's µs for one small collective, back to back after
+    SMALL_COLLECTIVE_WARMUP, to a sync."""
+    for k in range(SMALL_COLLECTIVE_WARMUP + SMALL_COLLECTIVE_CALLS):
+        if k == SMALL_COLLECTIVE_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        collective()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / SMALL_COLLECTIVE_CALLS
+
+
 def parallel_train(torch, mesh):
     """(a): `make_sharded_train_step` on HRNet-W48 384x288, phase 13 (b)'s
-    recipe, held against rank 0's unsharded `make_train_step` on the whole
-    global batch."""
+    recipe: graphed (2 warm-ups, the capture, replays), then its eager body
+    from the same weights on the same batches, equal bit for bit; then rank
+    0's unsharded `make_train_step` on the whole global batch, graphed too,
+    against the graphed sharded step."""
     import numpy as np
 
     from tpupose_torch.models import train as tt
     from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
-    from tpupose_torch.parallel import mesh as mesh_mod
     from tpupose_torch.parallel import shard_batch
+    from tpupose_torch.runtime.graphs import WARMUP
 
     cfg = hrnet_w48_config()
     d, m = mesh.shape["data"], mesh.shape["model"]
     model = hrnet_init(cfg, torch.Generator().manual_seed(23)).cuda()
+    n_bn = sum(isinstance(x, torch.nn.BatchNorm2d) for x in model.modules())
     batches = blob_batches(tt, np.random.default_rng(1), cfg, PAR_TRAIN_BATCH * d, scale=10.0)
     global_batches = [next(batches) for _ in range(PAR_TRAIN_STEPS)]
+    local_batches = [shard_batch(mesh, b) for b in global_batches]
+
+    def build():
+        return tt.make_sharded_train_step(
+            model, lambda ts: torch.optim.Adam(ts, lr=PAR_TRAIN_LR, capturable=True), mesh,
+            torch.float32, train_bn=True)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step, shardings_for = tt.make_sharded_train_step(
-        model, lambda ts: torch.optim.Adam(ts, lr=PAR_TRAIN_LR, capturable=True), mesh,
-        torch.float32,
-        train_bn=True)
+    step, shardings_for = build()
     specs = step.specs
-    mesh_mod.all_reduces = 0
-    losses, ms, gathered = [], [], []
-    for i, batch in enumerate(global_batches):
-        local = shard_batch(mesh, batch)
+    losses, ms, gathered, snaps, collectives = [], [], [], [], []
+    for i, local in enumerate(local_batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(float(step(*local)))
+        loss = step(*local)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        all_reduces = mesh_mod.all_reduces
+        losses.append(loss)
+        collectives.append(dict(step.collectives))
+        snaps.append(sharded_everything(step))
         if i == 0:
-            grads = {n: t.grad.cpu() for n, t in step.tensors.items()}
+            grads = {n: t.grad.to("cpu", copy=True) for n, t in step.tensors.items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
-        gathered.append({n: t.cpu() for n, t in step.gather().items()})
-    # one collective's cost: a 48-float all-reduce over 'data', back to back
-    x = torch.zeros(48, device=mesh.device)
-    for k in range(ALL_REDUCE_WARMUP + ALL_REDUCE_CALLS):
-        if k == ALL_REDUCE_WARMUP:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        torch.distributed.all_reduce(x, group=mesh.data_group)
-    torch.cuda.synchronize()
-    all_reduce_us = (time.perf_counter() - t0) * 1e6 / ALL_REDUCE_CALLS
+        gathered.append(step.gather())  # copies, kept on the card
+    steady = {"all_reduces": 1, "all_gathers": 1 + n_bn, "reduce_scatters": n_bn}
+    first = dict(steady, all_gathers=2 + n_bn)  # the new key's batch-size all-gather
+    (key,) = step.stats()
+    expected = [first] + [steady] * (PAR_TRAIN_STEPS - 1)
+    if collectives != expected or key["held_collectives"] != steady:
+        fail(f"sharded training: collectives {collectives}, the graph holds "
+             f"{key['held_collectives']}; expected {first}, then {steady} a step ({n_bn} BNs)")
+    host_us = host_us_behind_sleep(torch, lambda: step(*local_batches[-1]), n=HOST_REPLAYS)
+    device_ms = device_ms_behind_sleep(torch, lambda: step(*local_batches[-1]))
+    stats = step.stats()[0]
+    graphed = {"step_ms": ms, "ms_per_step": statistics.median(ms[WARMUP + 1:]),
+               "peak_mem_gib_first_step": peak, "capture_s": stats["capture_s"],
+               "pool_mib": stats["pool_bytes"] / 2**20, "graph_nodes": stats["graph_nodes"],
+               "replays": stats["replays"], "host_us_per_replay": host_us,
+               "device_ms_per_replay": device_ms}
+    small = torch.zeros(3, 48, device=mesh.device)
+    rows = small.new_empty(d, 3, 48)
+    small_us = {"all_reduce": small_collective_us(
+        torch, lambda: torch.distributed.all_reduce(small, group=mesh.data_group)),
+        "all_gather": small_collective_us(torch, lambda: torch.distributed.all_gather_into_tensor(
+            rows.view(-1), small.view(-1), group=mesh.data_group))}
     held = sum(t.numel() * t.element_size() for t in step.tensors.values())
     adam = sum(v.numel() * v.element_size() for st in step.optimizer.state.values()
                for v in st.values() if torch.is_tensor(v))
@@ -3902,14 +3956,43 @@ def parallel_train(torch, mesh):
                 == full[name].shape[0]):
             fail(f"sharded training: {name} holds {t.shape[0]} of {full[name].shape[0]} rows "
                  f"at model={m}")
-    out = {"mesh": mesh.shape, "global_batch": PAR_TRAIN_BATCH * d, "losses": losses,
-           "step_ms": ms, "peak_mem_gib_first_step": peak, "param_bytes_held": held,
-           "adam_bytes_held": adam, "param_bytes_full": full_bytes,
-           "split_tensors": len(split), "trained_tensors": len(step.tensors),
-           "collectives_per_step": step.collectives,
-           "all_reduces_per_step": all_reduces / PAR_TRAIN_STEPS,
-           "all_reduce_us": all_reduce_us}
+    step.release()
     del step
+    # the eager body from the same weights, on the same batches
+    torch.cuda.reset_peak_memory_stats()
+    eager, _ = build()
+    eager_ms, bad = [], []
+    for i, local in enumerate(local_batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = eager.eager(*local)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        now = sharded_everything(eager)
+        bad += [f"{i}:loss"] * (not torch.equal(loss, losses[i]))
+        bad += [f"{i}:{n}" for n, v in now.items() if not torch.equal(snaps[i][n], v)]
+        del now
+    eager_collectives = dict(eager.collectives)
+    tensors_equal = len(snaps[0])
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    eager.release()
+    del eager, snaps
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"sharded training: the graphed step differs from its eager body under cuDNN "
+             f"deterministic at {bad[:8]} ({len(bad)} in all)")
+    losses = [float(x) for x in losses]
+    out = {"mesh": mesh.shape, "global_batch": PAR_TRAIN_BATCH * d, "losses": losses,
+           "nccl": list(torch.cuda.nccl.version()), "graphed": graphed,
+           "eager": {"step_ms": eager_ms, "ms_per_step": statistics.median(eager_ms[1:]),
+                     "peak_mem_gib": eager_peak, "collectives_per_step": eager_collectives},
+           "graphed_equals_eager": {"steps": PAR_TRAIN_STEPS, "losses": PAR_TRAIN_STEPS,
+                                    "tensors_a_step": tensors_equal,
+                                    "cudnn_deterministic": True},
+           "param_bytes_held": held, "adam_bytes_held": adam, "param_bytes_full": full_bytes,
+           "split_tensors": len(split), "trained_tensors": len(full), "bns": n_bn,
+           "collectives_per_step": {**steady, "total": sum(steady.values())},
+           "collectives_first_step": first, "small_collective_us": small_us}
     if mesh.data_index == 0 and mesh.model_index == 0:
         def held_grads(named):  # this rank's entries of each gradient, f64, zeros for none
             return {n: torch.zeros(grads[n].shape, dtype=torch.float64) if t.grad is None
@@ -3931,7 +4014,7 @@ def parallel_train(torch, mesh):
             loss, ms_i = train_steps(torch, ref_step, iter([batch]), 1)
             ref["losses"] += loss
             ref["step_ms"] += ms_i
-            named = {n: t.detach().cpu() for n, t in tt.named_trained_tensors(model)}
+            named = {n: t.detach() for n, t in tt.named_trained_tensors(model)}
             agree = param_agreement(torch, gathered[i], named, PAR_TRAIN_LR)
             agree["loss_rtol"] = abs(losses[i] - loss[0]) / abs(loss[0])
             if i == 0:
@@ -3943,8 +4026,8 @@ def parallel_train(torch, mesh):
                     grad_rel_norm_to_f64=rel_norm(torch, sharded, grads_f64),
                     unsharded_grad_rel_norm_to_f64=rel_norm(torch, grads_ref, grads_f64))
             ref["steps"].append(agree)
-        # PAR_TRAIN_STEPS <= WARMUP: the unsharded reference's steps are its
-        # warm-ups, eager as the sharded step is
+        ref["device_ms_per_replay"] = device_ms_behind_sleep(
+            torch, lambda: ref_step(*global_batches[-1]))
         ref["replays"] = sum(k["replays"] for k in ref_step.stats())
         ref["limits"] = {"one_data_rank": "losses, gradients, parameters equal",
                          "loss_rtol_first_step": PAR_LOSS_RTOL,
@@ -3964,8 +4047,11 @@ def parallel_train(torch, mesh):
                   <= PAR_GRAD_F64_RATIO * steps[0]["unsharded_grad_rel_norm_to_f64"]
                   and all(st["max_abs_diff"] <= 2 * PAR_TRAIN_LR * (i + 1) + PAR_F32_SLACK
                           for i, st in enumerate(steps)))
-        if not ok:
+        # its steps after the warm-ups replayed, and the timed one
+        if not ok or ref["replays"] != PAR_TRAIN_STEPS - WARMUP + 1:
             fail(f"sharded training against the unsharded step: {json.dumps(ref)}")
+        ref_step.release()
+        del ref_step, ref_opt
     del model, gathered
     torch.cuda.empty_cache()
     return out

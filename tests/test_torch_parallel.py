@@ -24,7 +24,17 @@ Tolerances and why:
   Adam's first step moves an entry by lr * g / (|g| + eps), so where a
   gradient is near eps the f32 sums of two half batches (against one
   whole batch) move the step itself (measured: one entry of 202 tensors,
-  6.0e-7 off, rtol 1.2e-5).
+  6.0e-7 off, rtol 1.2e-5, with two all-reduces a BN; with one all-gather
+  a BN the worst entry is still one whose f32 gradient, sharded or not, is
+  mostly rounding, and it moves with the synchronized BN's order of f32
+  sums).
+* The sharded step's captured path (on the CPU its body at every call)
+  against `step.eager` from the same weights, with capturable foreach
+  AdamW as the card runs it: 6 steps bit for bit (losses, local tensors,
+  `.grad`, AdamW state), the same aten and c10d ops every step after the
+  warm-ups, no host read; over a one-rank group of each rank alone, the
+  (1, 1) mesh, bit for bit against `make_train_step` (the merge over one
+  rank is the identity).
 """
 import os
 import subprocess
@@ -385,12 +395,63 @@ def test_second_step_runs_and_unequal_batches_raise(run):
         assert "local batches differ" in str(res["unequal_refused"])
 
 
-def test_collectives_per_step_are_counted(run):
+def _n_bn():
     model = th.hrnet_init(th.tiny_test_config(), torch.Generator().manual_seed(2))
-    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
+    return sum(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
+
+
+def test_collectives_per_step_are_counted(run):
+    n_bn = _n_bn()
     for res in run["ranks"]:
-        # batch sizes, parameters, gradients: one each; the batch shares,
-        # then two all-reduces per BN forward and two backward
-        assert res["train_collectives"].tolist() == [1, 1 + 4 * n_bn, 1, 1]
-        # two full steps; the refused third stops before its forward
-        assert int(res["all_reduces"]) == 2 * (1 + 4 * n_bn)
+        # by kind (all-reduces, all-gathers, reduce-scatters): the gradients'
+        # all-reduce; the parameters' all-gather and one a BN forward; one
+        # reduce-scatter a BN backward; a new key's first call adds the
+        # batch-size all-gather
+        assert res["train_collectives1"].tolist() == [1, 2 + n_bn, n_bn]
+        assert res["train_collectives2"].tolist() == [1, 1 + n_bn, n_bn]
+        # two full steps and a gather(); the refused third stops at its
+        # batch-size all-gather
+        assert res["train_counted"].tolist() == [2, 5 + 2 * n_bn, 2 * n_bn]
+
+
+def test_captured_sharded_step_equals_eager_bit_for_bit(run):
+    for res in run["ranks"]:
+        assert res["captured_unequal"].size == 0, res["captured_unequal"][:8]
+        # every local tensor, its gradient, AdamW's two moments and step count
+        assert int(res["captured_tensors"]) == 5 * int(res["trained_tensors"]) > 500
+        assert res["key_replays"][0].tolist() == [BATCH // DATA, 2, 5]
+
+
+def test_sharded_step_buffers_are_flat_and_fixed(run):
+    for res in run["ranks"]:
+        n = int(res["trained_tensors"])
+        assert int(res["flat_param_storages"]) == int(res["flat_grad_storages"]) == 1
+        assert int(res["flat_param_offsets"]) == int(res["flat_grad_offsets"]) == n
+        assert bool(res["captured_grads_held"])
+
+
+def test_captured_sharded_step_issues_the_same_ops_every_step(run):
+    n_bn = _n_bn()
+    for res in run["ranks"]:
+        assert bool(res["captured_same_ops"]) and int(res["captured_ops"]) > 1000
+        assert int(res["captured_host_reads"]) == 0
+        # the parameters' and the BNs' all-gathers, the BNs' reduce-scatters,
+        # the gradients' all-reduce, each one c10d op
+        assert sorted(res["captured_c10d"].tolist()) == [1, n_bn, 1 + n_bn], (
+            res["captured_c10d_names"])
+
+
+def test_one_rank_sharded_step_equals_the_unsharded_step_bit_for_bit(run):
+    for res in run["ranks"]:
+        assert res["one_rank_unequal"].size == 0, res["one_rank_unequal"][:8]
+        assert int(res["one_rank_tensors"]) == int(res["trained_tensors"]) > 100
+
+
+def test_new_batch_shape_is_a_new_key_with_one_batch_size_all_gather(run):
+    n_bn = _n_bn()
+    for res in run["ranks"]:
+        # half the batch twice (a new key: its first call all-gathers the
+        # batch sizes), then the first shape again
+        assert res["key_collectives"].tolist() == [[1, 2 + n_bn, n_bn], [1, 1 + n_bn, n_bn],
+                                                   [1, 1 + n_bn, n_bn]]
+        assert res["key_replays"].tolist() == [[BATCH // DATA, 2, 5], [BATCH // DATA // 2, 2, 0]]

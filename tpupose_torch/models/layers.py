@@ -63,41 +63,72 @@ class BNStatRecorder:
         return m, v
 
 
+def merge_bn_stats(shares, means, variances, residuals):
+    """The statistics of a batch from those of its d parts, by Chan et al.'s
+    parallel merge: `shares` (d,) the parts' fractions of the batch (summing
+    to 1); `means`, `variances` and `residuals` (d, C) each part's f32 mean
+    m_i, its mean square deviation from m_i, and the mean of those
+    deviations r_i (what the f32 rounding of m_i left out: m_i + r_i is the
+    part's mean to f32 precision). Returns (mean, variance), (C,):
+
+        m = sum_i s_i m_i,
+        v = sum_i s_i var_i + sum_i s_i (m_i - m) (m_i - m + 2 r_i),
+
+    the mean square deviation from m, exactly so in exact arithmetic. Each
+    m_i - m is exact in f32, and every term is a part's own two-pass
+    statistic, so v keeps the two-pass accuracy where a channel's mean
+    dwarfs its spread, which E[x^2] - E[x]^2 loses; and so does the spread
+    of the part means, which the f32 m_i alone round away (there the
+    rounding of m_i is of the order of m_i - m). Over one part of share 1
+    it is the identity, bit for bit, and so is its gradient: the correction
+    term and its gradients are exact zeros.
+    (A residual's own gradient is zero in exact arithmetic: callers pass it
+    detached.)"""
+    s = shares[:, None]
+    m = (s * means).sum(dim=0)
+    dev = means - m
+    # the small between-part terms summed apart, then rounded into the sum
+    # of variances once (not once a part)
+    between = (s * dev * torch.add(dev, residuals, alpha=2)).sum(dim=0)
+    return m, (s * variances).sum(dim=0) + between
+
+
 class SyncBNStatRecorder(BNStatRecorder):
     """A `BNStatRecorder` whose statistics are those of the whole batch
     over the ranks of a process group (synchronized train-mode BN), as the
     JAX package's `jnp.mean` / `jnp.var` over a data-sharded batch, which
-    XLA turns into psums. The ranks' inputs share (C, H, W).
+    XLA turns into psums. The ranks' inputs share (C, H, W); `shares` (d,)
+    holds each group rank's fraction of the batch (`models.train.
+    ShardedTrainStep` gives 1 / d, its local batches being equal).
 
-    At its first BN the recorder all-reduces the ranks' batch sizes, which
-    gives this rank's share of the batch, n / N. Each BN then takes two
-    passes, as `jnp.var`: the mean as a differentiable all-reduce of the
-    local f32 means over (N, H, W) times that share, then the population
-    variance as a second one of the local means of the squared deviations
-    from it (`parallel.mesh.all_reduce_sum`). So a forward costs one
-    all-reduce, and each BN two in the forward and two in the backward.
-    Local means scaled by the share, and not sums divided by a count, so
-    that one rank alone computes exactly what `BNStatRecorder` does: the
-    statistics of train-mode BN are ill-conditioned where a channel's mean
-    dwarfs its spread, and a last-bit change there moves its gradients by
-    up to 1e-2.
+    Each BN computes this rank's two-pass statistics in f32 over (N, H, W),
+    as `BNStatRecorder.observe`, and the mean of the deviations, gathers
+    the (3, C) block of mean, variance and mean deviation from every rank in
+    one differentiable all-gather (`parallel.mesh.all_gather`, whose
+    backward is one SUM reduce-scatter), and merges the rows with
+    `merge_bn_stats`, the same on every rank. So each BN costs one
+    collective in the forward and one in the backward. On one rank the
+    merge is the identity, and the statistics and their gradients are
+    `BNStatRecorder`'s bit for bit: train-mode BN's are ill-conditioned
+    where a channel's mean dwarfs its spread, and a last-bit change there
+    moves its gradients by up to 1e-2.
     """
 
-    def __init__(self, group):
+    def __init__(self, group, shares):
         super().__init__()
         self.group = group
-        self.share = None
+        self.shares = shares
 
     def observe(self, bn, x):
-        from tpupose_torch.parallel.mesh import all_reduce_sum, all_reduce_sum_
+        from tpupose_torch.parallel.mesh import all_gather
 
         xf = x.to(torch.float32)
-        if self.share is None:
-            n = xf.new_tensor([xf.shape[0]])
-            self.share = n / all_reduce_sum_(n.clone(), self.group)
-        m = all_reduce_sum(xf.mean(dim=(0, 2, 3)) * self.share, self.group)
-        sq = torch.square(xf - m[:, None, None]).mean(dim=(0, 2, 3))
-        v = all_reduce_sum(sq * self.share, self.group)
+        m = xf.mean(dim=(0, 2, 3))
+        dev = xf - m[:, None, None]
+        v = torch.square(dev).mean(dim=(0, 2, 3))
+        r = dev.detach().mean(dim=(0, 2, 3))  # the f32 mean's rounding: its gradient is 0
+        rows = all_gather(torch.stack((m, v, r)), self.group)  # (d, 3, C)
+        m, v = merge_bn_stats(self.shares, *rows.unbind(1))
         self.taps.append((bn, m, v))
         return m, v
 

@@ -1,4 +1,4 @@
-"""Meshes of ranks, sharding specs, and a differentiable all-reduce.
+"""Meshes of ranks, sharding specs, and counted (differentiable) collectives.
 
 Counterpart of `tpupose/parallel/mesh.py`, over `torch.distributed`: one
 process per card (a rank) where the JAX package has one program over a
@@ -27,9 +27,14 @@ from tpupose_torch.pipeline.facade import resolve_device
 AXES = ("data", "model")
 #: The process group's backend for a mesh on each device type.
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
-#: All-reduces issued by `all_reduce_sum_` and `all_reduce_sum`, forward
-#: and backward (reset freely; read by chip_smoke.py).
+#: Collectives issued through this module, by kind, forward and backward
+#: (reset freely; read by chip_smoke.py). A captured training step counts
+#: those its graph holds at each replay (`runtime.graphs.CapturedUpdate`).
 all_reduces = 0
+all_gathers = 0
+reduce_scatters = 0
+#: The counters' names.
+COUNTERS = ("all_reduces", "all_gathers", "reduce_scatters")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,20 +150,43 @@ def all_reduce_sum_(x, group):
     return x
 
 
-class _AllReduceSum(torch.autograd.Function):
+def all_gather_into_(out, x, group):
+    """Every rank's `x` over `group` into `out` (contiguous, d times x's
+    size; its r-th part is group rank r's), counted in `all_gathers`;
+    returns `out`."""
+    global all_gathers
+    all_gathers += 1
+    dist.all_gather_into_tensor(out.view(-1), x.view(-1), group=group)
+    return out
+
+
+def reduce_scatter_sum_into_(out, x, group):
+    """The SUM over `group` of every rank's `x` (contiguous, d times out's
+    size), scattered: `out` gets the r-th part of the sum on group rank r;
+    counted in `reduce_scatters`; returns `out`."""
+    global reduce_scatters
+    reduce_scatters += 1
+    dist.reduce_scatter_tensor(out.view(-1), x.view(-1), op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return all_reduce_sum_(x.clone(memory_format=torch.contiguous_format), group)
+        x = x.contiguous()
+        out = x.new_empty((dist.get_world_size(group),) + tuple(x.shape))
+        return all_gather_into_(out, x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_sum_(grad.clone(memory_format=torch.contiguous_format),
-                               ctx.group), None
+        grad = grad.contiguous()
+        return reduce_scatter_sum_into_(grad.new_empty(grad.shape[1:]), grad, ctx.group), None
 
 
-def all_reduce_sum(x, group):
-    """The SUM of `x` over the ranks of `group`, differentiable: its
-    backward is the same all-reduce of the incoming gradient, so that each
-    rank's input gets the gradient of every rank's loss."""
-    return _AllReduceSum.apply(x, group)
+def all_gather(x, group):
+    """(d, *x.shape): `x` of each of the d ranks of `group`, in group rank
+    order; differentiable: its backward is a SUM reduce-scatter of the
+    incoming gradient, so that each rank's input gets the gradient of every
+    rank's loss with respect to its row."""
+    return _AllGather.apply(x, group)

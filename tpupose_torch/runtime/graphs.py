@@ -36,7 +36,10 @@ replayed at every call. Two kinds of step are captured:
 * A training step of loss_fn(*batch) -> loss and an optimizer, which
   zeroes the gradients, runs the forward and the backward and steps the
   optimizer, all in place: `CapturedUpdate` (`models.train.make_train_step`,
-  `quantize.distill_qat`).
+  `quantize.distill_qat`, and `models.train.ShardedTrainStep`, which adds
+  the parameters' all-gather to its forward and the gradients' all-reduce
+  after the backward through the `_reduce` hook, NCCL collectives inside
+  the graph).
   - Static input buffers take each call's batch (a device-to-device copy);
     the loss is handed out as a copy.
   - The step is not pure, so its warm-ups are real steps: the first
@@ -68,9 +71,10 @@ each replay, as a kernel's plain version stands in for it there.
 Kernel launch counters (`ops.lap.launches`, which the tracker step runs)
 count executions: a capture's increments are taken back (nothing ran) and
 recorded as the launches the graph holds, which every replay adds again.
-The warm-up's launches ran, and stay counted. (The training steps run no
-counted kernel.) A failed capture or replay raises; a CUDA step never
-falls back to eager execution.
+The warm-up's launches ran, and stay counted. A training step counts
+`parallel.mesh`'s collectives the same way (they run no counted kernel).
+A failed capture or replay raises; a CUDA step never falls back to eager
+execution.
 """
 from __future__ import annotations
 
@@ -97,18 +101,27 @@ _STREAMS: dict = {}
 
 
 def _counters():
-    """The launch counters a capture may increment, as (module, name)."""
+    """The launch counters a tracker capture may increment, as (module,
+    name)."""
     from tpupose_torch.ops import lap
 
     return ((lap, "launches"),)
 
 
-def _read_counts():
-    return [getattr(m, n) for m, n in _counters()]
+def _collective_counters():
+    """The collective counters a training capture may increment
+    (`parallel.mesh`'s, by kind), as (module, name)."""
+    from tpupose_torch.parallel import mesh
+
+    return tuple((mesh, name) for name in mesh.COUNTERS)
 
 
-def _add_counts(counts, sign=1):
-    for (m, n), c in zip(_counters(), counts):
+def _read_counts(counters):
+    return [getattr(m, n) for m, n in counters]
+
+
+def _add_counts(counters, counts, sign=1):
+    for (m, n), c in zip(counters, counts):
         setattr(m, n, getattr(m, n) + sign * c)
 
 
@@ -276,13 +289,13 @@ class CapturedStep:
             self._loaded_cams = None
             self._load(cams, state, dets, mask, frame_id)
 
-            counts = _read_counts()
+            counts = _read_counts(_counters())
             t0 = time.perf_counter()
             _, out = program.warmup(self._call, WARMUP)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             self.warmup_s = time.perf_counter() - t0
-            self.warmup_launches = [a - b for a, b in zip(_read_counts(), counts)]
+            self.warmup_launches = [a - b for a, b in zip(_read_counts(_counters()), counts)]
             self._out_type = type(out)
             self._out_layout = Layout(out)
             self._out_flat = self._out_layout.empty(device=device)
@@ -293,14 +306,14 @@ class CapturedStep:
             if device.type == "cuda":
                 torch.cuda.empty_cache()  # as the capture does: its pool alone grows
                 reserved = torch.cuda.memory_reserved(device)
-            counts = _read_counts()
+            counts = _read_counts(_counters())
             t0 = time.perf_counter()
             program.capture(self._body)
             self.capture_s = time.perf_counter() - t0
-            after = _read_counts()
+            after = _read_counts(_counters())
             # a capture launches nothing: its increments are what each replay runs
             self.held_launches = [a - b for a, b in zip(after, counts)]
-            _add_counts(self.held_launches, -1)
+            _add_counts(_counters(), self.held_launches, -1)
             self.pool_bytes = ((torch.cuda.memory_reserved(device) - reserved)
                                if device.type == "cuda" else 0)
 
@@ -322,7 +335,7 @@ class CapturedStep:
     def _replay(self):
         self._program.replay()
         self.replays += 1
-        _add_counts(self.held_launches)
+        _add_counts(_counters(), self.held_launches)
 
     def _load_context(self, cams, state):
         """Copy the cams and the state in where they changed."""
@@ -502,6 +515,7 @@ class _UpdateKey:
         self.captured = False
         self.capture_s = None
         self.pool_bytes = 0
+        self.held_collectives = None  # what the graph issues a replay, by kind
 
 
 class CapturedUpdate:
@@ -577,13 +591,34 @@ class CapturedUpdate:
 
     def _body(self, *inputs):
         """One step: the gradients zeroed in place (every graph of the step
-        shares them), then accumulated by the backward."""
-        self.optimizer.zero_grad(set_to_none=False)
+        shares them), then accumulated by the backward, then `_reduce`d."""
+        self._zero_grads()
         with torch.enable_grad():
             loss = self.loss_fn(*inputs)
             loss.backward()
+        loss = self._reduce(loss.detach())
         self.optimizer.step()
-        return loss.detach()
+        return loss
+
+    def _zero_grads(self):
+        self.optimizer.zero_grad(set_to_none=False)
+
+    def _reduce(self, loss):
+        """After the backward, before the optimizer step: a subclass's
+        reduction of the gradients; returns the loss the step returns."""
+        return loss
+
+    def _key(self, inputs):
+        """The key of a call: the device, the batch's shapes and dtypes, the
+        backend flags."""
+        return (inputs[0].device, tuple((tuple(t.shape), t.dtype) for t in inputs),
+                backend_flags())
+
+    def _new_key(self, key, inputs):
+        if key[0].type == "cuda":
+            require_capturable(self.optimizer)
+        entry = self._keys[key] = _UpdateKey(inputs, self._program(key[0]))
+        return entry
 
     def eager(self, *inputs):
         """One step on the caller's tensors, op by op."""
@@ -594,13 +629,10 @@ class CapturedUpdate:
         if _capture_disabled:
             return self.eager(*inputs)
         self._check_settings()
-        device = inputs[0].device
-        key = (device, tuple((tuple(t.shape), t.dtype) for t in inputs), backend_flags())
+        key = self._key(inputs)
         entry = self._keys.get(key)
         if entry is None:
-            if device.type == "cuda":
-                require_capturable(self.optimizer)
-            entry = self._keys[key] = _UpdateKey(inputs, self._program(device))
+            entry = self._new_key(key, inputs)
         for dst, src in zip(entry.inputs, inputs):
             dst.copy_(src)
         self._bind_grads()
@@ -614,6 +646,7 @@ class CapturedUpdate:
             self._capture(entry)
         entry.program.replay()
         entry.replays += 1
+        _add_counts(_collective_counters(), entry.held_collectives)
         return entry.loss.clone()
 
     def _capture(self, entry):
@@ -626,20 +659,29 @@ class CapturedUpdate:
         if device.type == "cuda":
             torch.cuda.empty_cache()  # as the capture does: its pool alone grows
             reserved = torch.cuda.memory_reserved(device)
+        counts = _read_counts(_collective_counters())
         t0 = time.perf_counter()
         entry.program.capture(record)
         entry.capture_s = time.perf_counter() - t0
+        # a capture issues nothing: its collectives are what each replay issues
+        entry.held_collectives = [a - b for a, b in zip(
+            _read_counts(_collective_counters()), counts)]
+        _add_counts(_collective_counters(), entry.held_collectives, -1)
         if device.type == "cuda":
             entry.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         entry.captured = True
 
     def stats(self) -> list:
         """Each key's figures: its batch, flags, warm-ups, capture seconds,
-        pool bytes, the graph's nodes by type, its replays."""
+        pool bytes, the graph's nodes by type, the collectives it holds by
+        kind, its replays."""
+        names = [n for _, n in _collective_counters()]
         return [{"device": str(device), "shapes": [list(s) for s, _ in sig],
                  "dtypes": [str(d).removeprefix("torch.") for _, d in sig],
                  "flags": dict(zip(FLAG_NAMES, flags)), "warmups": e.warmups,
                  "capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
                  "graph_nodes": e.program.node_counts() if e.captured else None,
+                 "held_collectives": (dict(zip(names, e.held_collectives))
+                                      if e.captured else None),
                  "replays": e.replays}
-                for (device, sig, flags), e in self._keys.items()]
+                for (device, sig, flags, *_), e in self._keys.items()]
