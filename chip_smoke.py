@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only parallel         # phase 18 alone, one rank per card
     python3 chip_smoke.py --only graphs           # phase 19 alone
     python3 chip_smoke.py --only train            # phase 13 alone, then its profile
+    python3 chip_smoke.py --only profile          # phase 20 alone: the stage-A profile
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
 memory holds none of phase 5's models, 16 in two parts, (c) after 8
@@ -35,10 +36,17 @@ backend flags), each held against its eager body:
      `quantize_nhwc_plain`, `torch.equal` on the whole output, at every
      distinct (Cin, H, W) input of the quantized convs of HRNet-W48 384x288
      and YOLOv3-416 at the main path's batch (640 crops, 160 images), bf16
-     with a planted NaN and int8 (f32 too at branch 0's input); then K2
+     with a planted NaN and int8 (f32 too at branch 0's input), in its
+     transposing mode (NCHW input) and, for Cin % 16 == 0, its elementwise
+     mode (the channels-last copy of the same input); then K2
      against its plain version, `torch.equal`, at every distinct quantized
      conv shape at that batch, float input with a planted NaN and int8
-     input, dequantize and requant-relu epilogue, plus one dilated shape:
+     input, dequantize and requant-relu epilogue, plus one dilated shape,
+     each on the NCHW input and on its channels-last copy (the main path's
+     layout: K2a's elementwise mode, none for an int8 input, and K2b's or
+     the stem kernel's NHWC mode; torch.equal to the NCHW route on the whole
+     batch, the output channels-last; a channels-last input of 8 channels,
+     which no kernel takes, must raise):
      K2 (K2a + the implicit GEMM K2b, or the stem kernel for the stems'
      Cin of 3) runs on the whole batch, and its first and last 8 crops / 4
      images are held against the plain version on those images (the last
@@ -52,23 +60,37 @@ backend flags), each held against its eager body:
      and YOLO's 3x3 3->32 at 416x416 (x160), each with its bound; K2a and
      K2 also at width-packed branch 0 (`ops.packing`: 3x3 96->96 at 96x36,
      x640, K = 864), checked as the main path's shapes and timed beside
-     the unpacked branch 0, with the bf16 cuDNN conv's bound;
+     the unpacked branch 0, with the bf16 cuDNN conv's bound; every time
+     also channels-last ("nhwc": K2, K2a, K2b, K2 on an int8 input, plain
+     and cuDNN);
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
      720x1280 uint8 frames; the decode launch count, K3's (one association
      and one init LAP a camera, a frame), the stage A / stage B split, peak
-     memory, host syncs;
+     memory, host syncs; a forward pre-hook on every conv counts the inputs
+     that are not channels-last (0 expected); stage A timed STAGE_A_RUNS
+     times after the clips; and the layouts against each other on the first
+     LAYOUT_FRAMES frames (`layout_agreement`): in f32 with TF32 off, the
+     heatmaps and the detector's heads channels-last against the same
+     models in NCHW (`nchw_model`) within LAYOUT_F32_REL in relative norm
+     and equal detection masks; in bf16 the same numbers and the share of
+     equal heatmap argmaxes, reported;
   6. the int8 main path: `Pipeline.quantize_models` on 8 frames of one view
      (on_drift="warn": random weights drift by design, so the self-check
      report is printed and not gated on), then `process_clip` twice on the
      same clip; K1, K2, K2a and stem-kernel launch counts (364 K2, 362 K2a
-     and 2 stem per clip expected), stage A, peak memory, and the
-     int8-vs-bf16 keypoint shift
-     (for information);
+     and 2 stem per clip expected, every one in its channels-last mode),
+     no NCHW conv input, stage A (STAGE_A_RUNS times), K2's and K2a's
+     device ms in one stage A, peak memory, and the int8-vs-bf16 keypoint
+     shift (for information); then every quantized conv on SUB_CROPS crops
+     and SUB_IMAGES images, channels-last, torch.equal to the same conv on
+     the NCHW copy of its input (`int8_layouts_equal`);
   7. int8-resident blocks: one HRNet-W48 forward with `int8_resident=True`
-     on 8 crops in f32, each block held against the generic int8 block on
-     the same input within the bound of the JAX package's test;
+     on 8 crops in f32, channels-last, each block held against the generic
+     int8 block on the same input within the bound of the JAX package's
+     test; K2's calls counted by input dtype and K2a's: none on an int8
+     (channels-last) input, one on every float input but the stem's;
   8. the staged API: `process_frame` over the first 4 frames against
      `process_clip` on those frames (equal masks, detections within atol
      2e-2 / rtol 1e-3);
@@ -91,7 +113,8 @@ backend flags), each held against its eager body:
      frames through `process_frame`), in bf16 and again after
      `quantize_models` on all views of the first 8 frames
      (on_drift="warn"), each run with K1, K2 and K2a counted from 0 (6, 0,
-     0 in bf16; 6, 6 x 364, 6 x 362 in int8) and K3 (68 x 6); each run's
+     0 in bf16; 6, 6 x 364, 6 x 362 in int8) and K3 (68 x 6) and no NCHW
+     conv input (the pre-hook of phase 5); each run's
      first clip
      against `process_clip` + `harvest` (poses within 1e-3), the pkl and
      per-camera JSONs written and read back, PCP scored against the
@@ -195,7 +218,8 @@ backend flags), each held against its eager body:
      through `quantize_convs` + `uncalibrated_scales`; fps, the stage A /
      stage B split (each alone to a sync), K1 / K2 / K2a / K3 launches
      counted from 0 (8, 0, 0, 768 in bf16; 8, 8 x 364, 8 x 362, 768 in
-     int8), peak memory, host syncs; each stream's stage B equal to
+     int8), no NCHW conv input, peak memory, host syncs; each stream's
+     stage B equal to
      `track_clip` on its own stage-A detections, and (bf16, information)
      the share of its masks equal to `process_clip_nn`'s on the same frames.
  16. serving bundles and packing (`bundle_pack`): (c), after phase 8:
@@ -265,7 +289,8 @@ backend flags), each held against its eager body:
      held per rank, one small all-reduce's and all-gather's host µs, the
      NCCL version. (b) the multi-stream
      clip at (world, 1): YOLOv3-416 (max_candidates=4) and HRNet-W48 folded
-     to bf16, PAR_STREAMS_PER_CARD streams a card of PAR_FRAMES frames of 5
+     to bf16 and served channels-last (`to_channels_last`, as `Pipeline`
+     serves), PAR_STREAMS_PER_CARD streams a card of PAR_FRAMES frames of 5
      random 720x1280 views, each stream's clip from its own seed; each rank
      makes only its own streams (`process_stream_slice`, `shard_streams`,
      `global_streams`), runs `make_multistream_clip_fn` once to warm up and
@@ -302,13 +327,24 @@ backend flags), each held against its eager body:
      recipes (a) and (b) one eager step and one replay under
      torch.profiler, kernels launched against the graph's kernel nodes,
      the device's busy ms and idle share.
+ 20. the stage-A profile (`stage_a_profile`), after 13 (f): phase 5's
+     models rebuilt from its seed, in bf16 and in int8 (`quantize_convs`,
+     uncalibrated scales), stage A on a 32-frame clip of 5 random 720x1280
+     views served channels-last and, the same models and clip, in NCHW
+     (`nchw_model`, the layout the port served before): stage A ms in turns
+     (PROFILE_ORDER), then one stage A of each under torch.profiler: device
+     ms by kernel family (PROFILE_FAMILIES: cuDNN conv, its layout
+     transposes, K2a, K2b, stem, elementwise, copies, crop matmuls, NMS /
+     top-K, K1, ...), the PROFILE_TOP longest kernels of each, busy ms and
+     the idle share.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
 the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
 `--only ingest`, phase 17, its checkpoint files written anew from phase
 10's seed; with `--only parallel`, phase 18; with `--only graphs`, phase 19;
-with `--only train`, phase 13 and then 13 (f).
+with `--only train`, phase 13 and then 13 (f); with `--only profile`, phase
+20.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
@@ -318,7 +354,9 @@ from disk as `ingest_launches`, K1's and K3's per rank in phase 18 (b) as
 `parallel_launches_per_rank`; K2's `packed_branch0` holds phase 4's
 times and bounds at the packed branch-0 shape beside the unpacked one's
 and phase 16 (c)'s K2 launches at that shape a packed clip; the stem kernel's row
-times HRNet's stem and, under `yolo_stem`, YOLO's; K3's `launches` are
+times HRNet's stem and, under `yolo_stem`, YOLO's; K2's, K2a's and the
+stem kernel's `ms` and `plain_ms` are their channels-last modes' (the main
+path's), the NCHW ones under `nchw`; K3's `launches` are
 phase 15 (d)'s int8 run's, and its times those of (a) at (d)'s
 association shape, with `device_us`, `host_us` and `op_host_us`; its
 `bound_ms` is the latency bound, `bound_by` "latency", and the
@@ -533,6 +571,52 @@ def bound(moved, ops, ops_per_s):
             "bytes": moved, "ops": ops}
 
 
+@contextlib.contextmanager
+def nchw_conv_inputs(torch, *models):
+    """Counts the conv inputs of `models` (float and int8 convs) that are not
+    channels-last, by a forward pre-hook on every conv, while the block runs.
+    Yields a dict whose "nchw" and "convs" grow as the convs run."""
+    from tpupose_torch.models.layers import QuantConv2d
+
+    counts = {"nchw": 0, "convs": 0}
+
+    def hook(mod, args):
+        counts["convs"] += 1
+        counts["nchw"] += not args[0].is_contiguous(memory_format=torch.channels_last)
+
+    hooks = [m.register_forward_pre_hook(hook) for model in models for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, QuantConv2d))]
+    try:
+        yield counts
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_channels_last(counts, what):
+    """Fails unless convs ran and none of their inputs was NCHW."""
+    if not counts["convs"] or counts["nchw"]:
+        fail(f"{what}: {counts['nchw']} of {counts['convs']} conv inputs were not "
+             f"channels-last")
+    return counts
+
+
+def nchw_model(torch, model):
+    """A copy of `model` with NCHW weights that runs on an NCHW copy of its
+    input: the port's stage A as it was before it served channels-last
+    (`_pose_crops` and `detect_people` copied the networks' inputs to NCHW),
+    for the layout comparisons and the stage-A profile."""
+    class NCHW(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = copy.deepcopy(model).to(memory_format=torch.contiguous_format)
+
+        def forward(self, x, *args):
+            return self.model(x.contiguous(), *args)
+
+    return NCHW()
+
+
 def phase_kernel(th, torch, gen):
     n, j, h, w = 640, 17, 96, 72
     heat = planted_heatmaps(n, j, h, w, gen)
@@ -645,41 +729,56 @@ def phase_k2a(torch, gen, hr_shapes, yo_shapes):
     """K2a against its plain version, torch.equal on the whole output, at
     every distinct (Cin, H, W) of the quantized convs at the main path's
     batch (and at packed branch 0's): bf16 and int8 inputs, and f32 at
-    branch 0's input, packed and not."""
+    branch 0's input, packed and not; in both modes where Cin % 16 == 0
+    (the transposing one on the NCHW input, the elementwise one on its
+    channels-last copy), the first mode alone at the stems' Cin of 3."""
     from tpupose_torch.ops import int8_conv as k2
 
     inv = torch.tensor([127.0 / 8.0], device="cuda")
     inputs = sorted({(sh[:3], MAIN_CROPS) for sh in hr_shapes}
                     | {(BRANCH0_PACKED[:3], MAIN_CROPS)}
                     | {(sh[:3], MAIN_IMAGES) for sh in yo_shapes})
-    checked = 0
+    checked = checked_cl = 0
     for shape, batch in inputs:
         dtypes = [torch.bfloat16, torch.int8]
         if shape in (BRANCH0[:3], BRANCH0_PACKED[:3]):
             dtypes.append(torch.float32)
         for dtype in dtypes:
             x = k2a_input(torch, gen, shape, batch, dtype)
-            got = k2.quantize_nhwc_cuda(x, inv)
             ref = k2.quantize_nhwc_plain(x, inv)
-            if not torch.equal(got, ref):
-                fail(f"K2a {shape} batch {batch} {dtype}: differs from the plain version "
-                     f"in {int((got != ref).sum())} codes")
-            if dtype != torch.int8 and got[0, shape[1] // 2, shape[2] // 2, 0] != 0:
-                fail(f"K2a {shape} {dtype}: the planted NaN did not quantize to 0")
-            checked += 1
-            del x, got, ref
-    return {"checked": checked, "distinct_inputs": len(inputs), "max_abs_err": 0.0}
+            layouts = [x] + ([x.contiguous(memory_format=torch.channels_last)]
+                             if k2.channels_last(shape[0]) else [])
+            for xl in layouts:
+                before = k2.quantize_cl_launches
+                got = k2.quantize_nhwc_cuda(xl, inv)
+                mode = "channels-last" if k2.quantize_cl_launches > before else "NCHW"
+                if (mode == "channels-last") != (xl is not x):
+                    fail(f"K2a {shape} {dtype}: the {mode} mode ran on the other layout")
+                if not torch.equal(got, ref):
+                    fail(f"K2a ({mode}) {shape} batch {batch} {dtype}: differs from the plain "
+                         f"version in {int((got != ref).sum())} codes")
+                if dtype != torch.int8 and got[0, shape[1] // 2, shape[2] // 2, 0] != 0:
+                    fail(f"K2a ({mode}) {shape} {dtype}: the planted NaN did not quantize to 0")
+                checked += 1
+                checked_cl += xl is not x
+                del got
+            del x, ref, layouts
+    return {"checked": checked, "checked_channels_last": checked_cl,
+            "distinct_inputs": len(inputs), "max_abs_err": 0.0}
 
 
 def time_k2(torch, gen, shape, batch, with_plain=True):
-    """Times of one conv shape at `batch`, bf16 in and out: K2 as the main
-    path calls it, and, on the channels-last path, K2a and K2b alone; the
-    plain version and the bf16 cuDNN conv; each kernel with its bound."""
+    """Times of one conv shape at `batch`, bf16 in and out, on an NCHW input
+    and, under "nhwc", on its channels-last copy (the main path's layout):
+    K2 as the main path calls it, and, on the GEMM path, K2a and K2b alone
+    and K2 on an int8 channels-last input (K2b alone, the int8-resident
+    blocks' route); the plain version and the bf16 cuDNN conv in each
+    layout; each kernel with its bound."""
     import torch.nn.functional as F
 
     from tpupose_torch.ops import int8_conv as k2
 
-    b16 = torch.bfloat16
+    b16, cl = torch.bfloat16, torch.channels_last
     cin, h, w, cout, k, stride, dil = shape
     wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, b16, b16)
     y = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil)
@@ -690,6 +789,12 @@ def time_k2(torch, gen, shape, batch, with_plain=True):
                                                         stride, dil), reps=10),
            **bound(x.numel() * 2 + wq.numel() + y.numel() * 2 + vectors, ops,
                    H100_INT8_OPS_PER_S)}
+    xc = x.contiguous(memory_format=cl)
+    nhwc = out["nhwc"] = {
+        "ms": cuda_time_ms(lambda: k2.int8_conv_cuda(xc, wk, (k, k), inv, mul, add, b16,
+                                                     stride, dil), reps=10),
+        **bound(x.numel() * 2 + wq.numel() + y.numel() * 2 + vectors, ops,
+                H100_INT8_OPS_PER_S)}
     if k2.channels_last(cin):
         xq = k2.quantize_nhwc_cuda(x, inv)
         out["k2a"] = {"ms": cuda_time_ms(lambda: k2.quantize_nhwc_cuda(x, inv), reps=10),
@@ -700,10 +805,28 @@ def time_k2(torch, gen, shape, batch, with_plain=True):
                               H100_INT8_OPS_PER_S)}
         out["design_bytes"] = out["k2a"]["bytes"] + out["k2b"]["bytes"]
         out["design_bound_ms"] = out["design_bytes"] / H100_BYTES_PER_S * 1e3
+        nhwc["k2a"] = {"ms": cuda_time_ms(lambda: k2.quantize_nhwc_cuda(xc, inv), reps=10),
+                       **{f: out["k2a"][f] for f in ("bound_ms", "bound_by", "bytes", "ops")}}
+        nhwc["k2b"] = {"ms": cuda_time_ms(lambda: k2.gemm_nhwc_cuda(
+                           xq, wk, (k, k), mul, add, b16, stride, dil, nhwc_out=True),
+                           reps=10),
+                       **{f: out["k2b"][f] for f in ("bound_ms", "bound_by", "bytes", "ops")}}
+        # an int8 channels-last input: K2b reads it in place, no K2a
+        xi = xq.permute(0, 3, 1, 2)
+        before = k2.quantize_launches
+        nhwc["int8_input"] = {"ms": cuda_time_ms(lambda: k2.int8_conv_cuda(
+                                  xi, wk, (k, k), None, mul, add, b16, stride, dil), reps=10),
+                              **{f: out["k2b"][f] for f in ("bound_ms", "bound_by", "bytes",
+                                                            "ops")}}
+        nhwc["int8_input"]["k2a_launches"] = k2.quantize_launches - before
+        if nhwc["int8_input"]["k2a_launches"]:
+            fail(f"K2 on an int8 channels-last input {shape} launched K2a")
         if with_plain:
             out["k2a"]["plain_ms"] = cuda_time_ms(lambda: k2.quantize_nhwc_plain(x, inv),
                                                   warmup=1, reps=5)
-        del xq
+            nhwc["k2a"]["plain_ms"] = cuda_time_ms(lambda: k2.quantize_nhwc_plain(xc, inv),
+                                                   warmup=1, reps=5)
+        del xq, xi
     if k2.stem_path(cin, k, k):  # the stems' route before the stem kernel
         out["gather_ms"] = cuda_time_ms(lambda: k2.gather_conv_cuda(
             x, wk, (k, k), inv, mul, add, b16, stride, dil), reps=10)
@@ -711,11 +834,17 @@ def time_k2(torch, gen, shape, batch, with_plain=True):
         out["plain_ms"] = cuda_time_ms(
             lambda: k2.int8_conv_plain(x, wq, inv, mul, add, b16, stride, dil),
             warmup=1, reps=3)
+        nhwc["plain_ms"] = cuda_time_ms(
+            lambda: k2.int8_conv_plain(xc, wq, inv, mul, add, b16, stride, dil),
+            warmup=1, reps=3)
     wb = torch.randn((cout, cin, k, k), generator=gen, device="cuda").to(b16)
     out["bf16_cudnn_ms"] = cuda_time_ms(
         lambda: F.conv2d(x, wb, stride=stride, padding=k // 2, dilation=dil), reps=10)
     out["bf16_cudnn_bound"] = bound(x.numel() * 2 + wb.numel() * 2 + y.numel() * 2, ops,
                                     H100_BF16_OPS_PER_S)
+    wbc = wb.contiguous(memory_format=cl)
+    nhwc["bf16_cudnn_ms"] = cuda_time_ms(
+        lambda: F.conv2d(xc, wbc, stride=stride, padding=k // 2, dilation=dil), reps=10)
     return out
 
 
@@ -742,6 +871,7 @@ def phase_k2(torch, gen, card):
              + [(sh, STEM_EDGE_BATCH, STEM_EDGE_BATCH, modes + [(f32, f32), (f32, i8)],
                  120.0) for sh in STEM_EDGE_SHAPES])
     checked, stems, gathered, max_err, stem_err = 0, 0, 0, 0.0, 0.0
+    checked_cl = 0
     for shape, batch, sub, shape_modes, gain in cases:
         cin, _, _, _, k, stride, dil = shape
         stem = k2.stem_path(cin, k, k)
@@ -753,6 +883,21 @@ def phase_k2(torch, gen, card):
                                                    out_dtype, gain)
             got = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, out_dtype, stride, dil)
             what = f"K2 {shape} batch {batch} {in_dtype} -> {out_dtype}"
+            # the channels-last route: K2a's elementwise mode (none for an
+            # int8 input) and K2b's NHWC store, or the stem kernel's
+            xc = x.contiguous(memory_format=torch.channels_last)
+            counts = (k2.quantize_launches, k2.nhwc_launches)
+            got_cl = k2.int8_conv_cuda(xc, wk, (k, k), inv, mul, add, out_dtype, stride, dil)
+            k2a_runs = k2.quantize_launches - counts[0]
+            if (k2a_runs, k2.nhwc_launches - counts[1]) != (
+                    int(k2.channels_last(cin) and in_dtype != i8), 1):
+                fail(f"{what}, channels-last: {k2a_runs} K2a and "
+                     f"{k2.nhwc_launches - counts[1]} NHWC-output launches")
+            if not got_cl.is_contiguous(memory_format=torch.channels_last):
+                fail(f"{what}: the channels-last route's output is not channels-last")
+            if not torch.equal(got_cl, got):
+                fail(f"{what}: the channels-last route differs from the NCHW route in "
+                     f"{int((got_cl != got).sum())} outputs")
             if out_dtype != i8 and not bool(torch.isfinite(got).all()):
                 fail(f"{what}: non-finite outputs")
             for first, size in parts:
@@ -762,16 +907,28 @@ def phase_k2(torch, gen, card):
                 max_err = max(max_err, err)
                 if stem:
                     stem_err = max(stem_err, err)
-                if not torch.equal(got[part], ref):
-                    fail(f"{what}: images {first}..{first + size - 1} differ from the "
-                         f"plain version by up to {err}")
+                for route, y in (("NCHW", got), ("channels-last", got_cl)):
+                    if not torch.equal(y[part], ref):
+                        fail(f"{what} ({route}): images {first}..{first + size - 1} differ "
+                             f"from the plain version by up to "
+                             f"{float((y[part].float() - ref.float()).abs().max())}")
                 if out_dtype == i8 and not (ref.min() == 0 and ref.max() == 127):
                     fail(f"{what}: the requant check does not span [0, 127]")
                 del ref
             checked += 1
+            checked_cl += 1
             stems += stem
             gathered += not (stem or k2.channels_last(cin))
-            del x, got
+            del x, xc, got, got_cl
+    # the gather kernel reads NCHW only: a channels-last input is refused
+    wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, (8, 12, 10, 16, 3, 1, 1), 2,
+                                           b16, b16)
+    try:
+        k2.int8_conv_cuda(x.contiguous(memory_format=torch.channels_last), wk, (3, 3), inv,
+                          mul, add, b16)
+        fail("K2: a channels-last input of 8 channels was not refused")
+    except ValueError:
+        pass
     timed = {name: time_k2(torch, gen, shape, batch, with_plain)
              for name, shape, batch, with_plain in (
                  ("hrnet_branch0_3x3_48", BRANCH0, MAIN_CROPS, True),
@@ -779,7 +936,8 @@ def phase_k2(torch, gen, card):
                  ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES, True),
                  ("hrnet_stem_3x3_s2_3_64", (3, 384, 288, 64, 3, 2, 1), MAIN_CROPS, True),
                  ("yolo_stem_3x3_3_32", (3, 416, 416, 32, 3, 1, 1), MAIN_IMAGES, True))}
-    return {"card": card, "checked": checked, "checked_on_stem_kernel": stems,
+    return {"card": card, "checked": checked, "checked_channels_last": checked_cl,
+            "checked_on_stem_kernel": stems,
             "checked_on_gather_path": gathered, "stem_max_abs_err": stem_err,
             "k2a": k2a, "batch": {"hrnet_w48": MAIN_CROPS, "yolov3_416": MAIN_IMAGES},
             "compared_images": {"hrnet_w48": 2 * SUB_CROPS, "yolov3_416": 2 * SUB_IMAGES,
@@ -844,13 +1002,14 @@ def phase_main_path(torch, gen, card):
     lap.launches = 0
     replays = card_replays()
     clip_ms, syncs = [], 0
-    for _ in range(2):
-        t0 = time.perf_counter()
-        with counted_syncs() as counted:
-            outs, dets, mask = pipe.process_clip(frame_ids, clip)
-        torch.cuda.synchronize()
-        clip_ms.append((time.perf_counter() - t0) * 1e3)
-        syncs += counted["syncs"]
+    with nchw_conv_inputs(torch, pipe.detector, pipe.pose_model) as layouts:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with counted_syncs() as counted:
+                outs, dets, mask = pipe.process_clip(frame_ids, clip)
+            torch.cuda.synchronize()
+            clip_ms.append((time.perf_counter() - t0) * 1e3)
+            syncs += counted["syncs"]
     launches, k3_launches = th.launches, lap.launches
     replays = card_replays() - replays
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -863,19 +1022,90 @@ def phase_main_path(torch, gen, card):
              f"{2 * frames * (1 + views)} (one association and {views} init LAPs a frame)")
 
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
+    check_channels_last(layouts, "bf16 clip path")
     ms = statistics.median(clip_ms)
+    stage_a_runs = stage_a_times(torch, pipe, clip)
     return {
         "config": "YOLOv3-416 (max_candidates=4) + HRNet-W48 384x288, BN folded, "
                   "bf16; 32 frames x 5 views x 720x1280 uint8",
         "card": card, "first_clip_s": first_s, "clip_ms": clip_ms,
         "ms_per_clip": ms, "fps": frames * 1e3 / ms,
-        "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
+        "stage_a_ms": stage_a_ms, "stage_a_runs_ms": stage_a_runs,
+        "stage_a_median_ms": statistics.median(stage_a_runs),
+        "conv_inputs": layouts, "layouts": layout_agreement(torch, pipe, clip),
+        "stage_b_ms": stage_b_ms,
         "stage_b_ms_per_frame": stage_b_ms / frames, "stage_b_eager_ms": stage_b_eager_ms,
         "decode_launches": launches, "k3_launches": k3_launches, "clips": 2,
         "graph_replays": replays,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "peak_mem_gib": peak_gib,
     }, (pipe, clip, frame_ids, dets, mask)
+
+
+STAGE_A_RUNS = 3  # stage A timed after the counted clips, none the first after a capture
+LAYOUT_FRAMES = 2  # frames of the clip (x 5 views) for the layout comparisons
+#: The layout comparisons in f32, TF32 off: channels-last against NCHW
+#: heatmaps and detector heads within this relative norm (summation order
+#: only), and equal detection masks.
+LAYOUT_F32_REL = 1e-5
+
+
+def stage_a_times(torch, pipe, clip):
+    """ms of STAGE_A_RUNS stage A calls (`process_clip_nn`, to a sync)."""
+    runs = []
+    for _ in range(STAGE_A_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process_clip_nn(clip)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
+def layout_agreement(torch, pipe, clip):
+    """The served channels-last stage A against the same models in NCHW
+    (`nchw_model`) on the first LAYOUT_FRAMES frames: in f32 (copies of the
+    bf16 weights cast to f32, TF32 off) the heatmaps on the channels-last
+    run's crops and the detector's heads within LAYOUT_F32_REL in relative
+    norm, and `_clip_detections`' masks equal (gates); in bf16 the same
+    quantities and the share of heatmap planes whose argmax agrees,
+    reported as phase 16 (c) reports packing's."""
+    from tpupose_torch.models.yolov3 import prepare_yolo_images
+    from tpupose_torch.pipeline.facade import _clip_detections, _pose_crops
+
+    images = clip[:LAYOUT_FRAMES].reshape(-1, *clip.shape[2:])
+    xf = images.to(torch.bfloat16) / 255.0
+    out = {"images": images.shape[0]}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        det, pose = ((copy.deepcopy(pipe.detector).float(), copy.deepcopy(pipe.pose_model).float())
+                     if dtype == torch.float32 else (pipe.detector, pipe.pose_model))
+        det_n, pose_n = nchw_model(torch, det), nchw_model(torch, pose)
+        with torch.inference_mode():
+            runs = [_clip_detections(pipe.det_cfg, pipe.pose_cfg, pipe.tracker_cfg, d, p,
+                                     images, dtype) for d, p in ((det, pose), (det_n, pose_n))]
+            ximg = prepare_yolo_images(pipe.det_cfg, xf).permute(0, 3, 1, 2)
+            heads = [det(ximg, dtype), det_n(ximg, dtype)]
+            boxes, _, _ = pipe.person_detect(images)
+            _, crops = _pose_crops(pipe.pose_cfg, xf, boxes)
+            heat, heat_n = pose(crops, dtype), pose_n(crops, dtype)
+        row = {"crops": crops.shape[0],
+               "heatmaps_rel": rel_norm(torch, {0: heat.float()}, {0: heat_n.float()}),
+               "heads_rel": [rel_norm(torch, {0: a.float()}, {0: b.float()})
+                             for a, b in zip(*heads)],
+               "masks_equal": bool(torch.equal(runs[0][1], runs[1][1])),
+               "detections_valid": int(runs[0][1].sum()),
+               "argmax_equal_share": float((heat.flatten(2).argmax(-1)
+                                            == heat_n.flatten(2).argmax(-1)).float().mean())}
+        if not (heat.is_contiguous(memory_format=torch.channels_last) and heat_n.is_contiguous()):
+            fail(f"layouts ({name}): the heatmaps are not in their input's layout")
+        if dtype == torch.float32:
+            worst = max([row["heatmaps_rel"]] + row["heads_rel"])
+            if worst > LAYOUT_F32_REL or not row["masks_equal"]:
+                fail(f"layouts in f32: channels-last against NCHW {row}, gates: relative "
+                     f"norm {LAYOUT_F32_REL}, equal masks")
+        out[name] = row
+        del det, pose, det_n, pose_n, runs, heads, heat, heat_n
+    return out
 
 
 def check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg):
@@ -937,20 +1167,27 @@ def phase_int8_path(torch, card, main):
     torch.cuda.reset_peak_memory_stats()
     th.launches = 0
     k2.launches = 0
-    k2.quantize_launches = 0
-    k2.stem_launches = 0
+    k2.quantize_launches = k2.quantize_cl_launches = 0
+    k2.stem_launches = k2.nhwc_launches = 0
     lap.launches = 0
     replays = card_replays()
     clip_ms, syncs = [], 0
-    for _ in range(2):
-        t0 = time.perf_counter()
-        with counted_syncs() as counted:
-            outs, dets, mask = pipe.process_clip(frame_ids, clip)
-        torch.cuda.synchronize()
-        clip_ms.append((time.perf_counter() - t0) * 1e3)
-        syncs += counted["syncs"]
+    with nchw_conv_inputs(torch, pipe.detector, pipe.pose_model) as layouts:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with counted_syncs() as counted:
+                outs, dets, mask = pipe.process_clip(frame_ids, clip)
+            torch.cuda.synchronize()
+            clip_ms.append((time.perf_counter() - t0) * 1e3)
+            syncs += counted["syncs"]
     k1_launches, k2_launches, k3_launches = th.launches, k2.launches, lap.launches
     k2a_launches, stem_launches = k2.quantize_launches, k2.stem_launches
+    k2a_cl_launches, nhwc_launches = k2.quantize_cl_launches, k2.nhwc_launches
+    check_channels_last(layouts, "int8 clip path")
+    if (k2a_cl_launches, nhwc_launches) != (k2a_launches, k2_launches):
+        fail(f"two int8 clips: {k2a_cl_launches} of {k2a_launches} K2a launches in the "
+             f"channels-last mode and {nhwc_launches} of {k2_launches} K2 launches with an "
+             f"NHWC store, expected all")
     replays = card_replays() - replays
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if (k3_launches, replays) != (2 * frames * (1 + views), 2 * frames):
@@ -961,7 +1198,9 @@ def phase_int8_path(torch, card, main):
              f"{k2a_launches} and the stem kernel {stem_launches} times, expected >= 1, "
              f"728, 724 and 4")
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
-    k2_ms, k2_calls = k2_time_in_stage_a(torch, pipe, clip)
+    stage_a_runs = stage_a_times(torch, pipe, clip)
+    k2_ms, k2_calls, k2a_ms = k2_time_in_stage_a(torch, pipe, clip)
+    layouts_int8 = int8_layouts_equal(torch, pipe, clip)
     both = (mask & mask_bf16)
     shift = torch.linalg.norm(dets[..., :2] - dets_bf16[..., :2], dim=-1)[both]
     ms = statistics.median(clip_ms)
@@ -976,6 +1215,10 @@ def phase_int8_path(torch, card, main):
         "stem_launches": stem_launches,
         "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
         "graph_replays": replays, "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
+        "k2a_ms_in_stage_a": k2a_ms, "k2b_and_stem_ms_in_stage_a": k2_ms - k2a_ms,
+        "quantize_cl_launches": k2a_cl_launches, "nhwc_launches": nhwc_launches,
+        "stage_a_runs_ms": stage_a_runs, "stage_a_median_ms": statistics.median(stage_a_runs),
+        "conv_inputs": layouts, "layouts": layouts_int8,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "masks_equal_bf16": bool(torch.equal(mask, mask_bf16)),
         "kps_shift_vs_bf16_px": {"median": float(shift.median()), "p95": float(shift.quantile(0.95)),
@@ -986,32 +1229,82 @@ def phase_int8_path(torch, card, main):
 
 def k2_time_in_stage_a(torch, pipe, clip, shape=None):
     """Summed device time of the K2 launches in one int8 stage A, by CUDA
-    events around each launch (after the counted runs; no host syncs), and
-    the number of launches; with `shape`, a (C, H, W) input, also the
-    number of launches at it."""
+    events around each launch (after the counted runs; no host syncs), the
+    number of launches and the summed time of their K2a passes; with
+    `shape`, a (C, H, W) input, also the number of launches at it."""
     from tpupose_torch.ops import int8_conv as k2
 
-    events, inner, at_shape = [], k2.int8_conv_cuda, [0]
+    events, at_shape = {"k2": [], "k2a": []}, [0]
+    inner = {"k2": k2.int8_conv_cuda, "k2a": k2.quantize_nhwc_cuda}
 
-    def timed(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        y = inner(*args, **kw)
-        end.record()
-        events.append((start, end))
-        at_shape[0] += tuple(args[0].shape[1:]) == shape
-        return y
+    def timed(name):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = inner[name](*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            at_shape[0] += name == "k2" and tuple(args[0].shape[1:]) == shape
+            return y
+        return run
 
-    k2.int8_conv_cuda = timed
+    k2.int8_conv_cuda, k2.quantize_nhwc_cuda = timed("k2"), timed("k2a")
     try:
         pipe.process_clip_nn(clip)
     finally:
-        k2.int8_conv_cuda = inner
+        k2.int8_conv_cuda, k2.quantize_nhwc_cuda = inner["k2"], inner["k2a"]
     torch.cuda.synchronize()
+    ms = {name: sum(s.elapsed_time(e) for s, e in ev) for name, ev in events.items()}
     if shape is None:
-        return sum(s.elapsed_time(e) for s, e in events), len(events)
-    return sum(s.elapsed_time(e) for s, e in events), len(events), at_shape[0]
+        return ms["k2"], len(events["k2"]), ms["k2a"]
+    return ms["k2"], len(events["k2"]), at_shape[0]
+
+
+def int8_layouts_equal(torch, pipe, clip):
+    """Every quantized conv of the int8 models on SUB_CROPS crops and
+    SUB_IMAGES images of the clip's first frame, channels-last as served,
+    torch.equal to the same conv on the NCHW copy of its input (K2's NCHW
+    routes), its output channels-last."""
+    from tpupose_torch.models.layers import QuantConv2d
+    from tpupose_torch.models.yolov3 import prepare_yolo_images
+    from tpupose_torch.ops.int8_conv import int8_conv
+    from tpupose_torch.pipeline.facade import _pose_crops
+
+    checked = {"hrnet": 0, "yolo": 0}
+
+    def hook(name):
+        def check(mod, args, out):
+            x = args[0]
+            ref = int8_conv(x.contiguous(), mod.weight_q, mod.weight_k, mod.inv_scale(),
+                            *mod.dequant_vectors(), x.dtype, mod.stride, mod.dilation)
+            if not out.is_contiguous(memory_format=torch.channels_last):
+                fail(f"int8 layouts: a {name} conv's output is not channels-last")
+            if not torch.equal(out, ref):
+                fail(f"int8 layouts: a {name} conv {tuple(x.shape)} differs channels-last "
+                     f"from NCHW in {int((out != ref).sum())} outputs")
+            checked[name] += 1
+        return check
+
+    with torch.inference_mode():
+        xf = clip[0].to(torch.bfloat16) / 255.0
+        ximg = prepare_yolo_images(pipe.det_cfg, xf)[:SUB_IMAGES]
+        boxes, _, _ = pipe.person_detect(clip[0])
+        _, crops = _pose_crops(pipe.pose_cfg, xf, boxes)
+    hooks = [m.register_forward_hook(hook(name))
+             for name, model in (("hrnet", pipe.pose_model), ("yolo", pipe.detector))
+             for m in model.modules() if isinstance(m, QuantConv2d)]
+    try:
+        with torch.inference_mode():
+            pipe.detector(ximg.permute(0, 3, 1, 2), pipe.compute_dtype)
+            pipe.pose_model(crops[:SUB_CROPS], pipe.compute_dtype)
+    finally:
+        for h in hooks:
+            h.remove()
+    expect = (292, 72)
+    if (checked["hrnet"], checked["yolo"]) != expect:
+        fail(f"int8 layouts: {checked} quantized convs checked, expected {expect}")
+    return {"crops": SUB_CROPS, "images": SUB_IMAGES, "convs_equal": checked}
 
 
 def phase_resident(torch, card, pipe, clip):
@@ -1028,6 +1321,7 @@ def phase_resident(torch, card, pipe, clip):
     import dataclasses
 
     from tpupose_torch.models.hrnet import BasicBlock, Bottleneck
+    from tpupose_torch.ops import int8_conv as k2
     from tpupose_torch.pipeline.facade import _pose_crops
 
     model = pipe.pose_model
@@ -1062,20 +1356,42 @@ def phase_resident(torch, card, pipe, clip):
     cfg = model.cfg
     with torch.inference_mode():
         generic_heat = model(crops, torch.float32)
+    # the resident forward's K2 calls by input dtype, and the K2a passes
+    calls, inner = {"int8": 0, "float": 0, "k2a": 0, "k2a_on_int8": 0}, k2.int8_conv_cuda
+    inner_k2a = k2.quantize_nhwc_cuda
+
+    def counted(*args, **kw):
+        calls["int8" if args[0].dtype == torch.int8 else "float"] += 1
+        return inner(*args, **kw)
+
+    def counted_k2a(x, inv):
+        calls["k2a"] += 1
+        calls["k2a_on_int8"] += x.dtype == torch.int8
+        return inner_k2a(x, inv)
+
     hooks = [m.register_forward_hook(hook) for m in model.modules()
              if isinstance(m, (BasicBlock, Bottleneck))]
     try:
         with torch.inference_mode():
             model.cfg = dataclasses.replace(cfg, int8_resident=True)
+            k2.int8_conv_cuda, k2.quantize_nhwc_cuda = counted, counted_k2a
             resident_heat = model(crops, torch.float32)
     finally:
+        k2.int8_conv_cuda, k2.quantize_nhwc_cuda = inner, inner_k2a
         model.cfg = cfg
         for h in hooks:
             h.remove()
     if checked[0] != len(hooks) or not checked[0]:
         fail(f"int8-resident: {checked[0]} of {len(hooks)} blocks checked")
+    # the stem is the one float-input conv without K2a; an int8 channels-
+    # last input (the blocks' inter-conv tensors) launches none
+    if calls["k2a_on_int8"] or calls["k2a"] != calls["float"] - 1 or not calls["int8"]:
+        fail(f"int8-resident forward, channels-last: {calls}; expected K2a on every float "
+             f"input but the stem's and on no int8 input")
+    # the resident blocks' own convs (the generic checks above ran too)
     return {"card": card, "crops": SUB_CROPS, "blocks_checked": checked[0],
             "max_abs_diff": worst[0], "max_diff_over_bound": worst[1],
+            "k2_calls_and_k2a": calls,
             "heatmap_max_abs_diff": float((resident_heat - generic_heat).abs().max())}
 
 
@@ -1434,12 +1750,14 @@ def cli_loop(torch, cfg, pipe, frames, card, counters, source=None, timer=None):
     replays, before = card_replays(), set(card_steps())
     t0 = time.perf_counter()
     try:
-        multi_poses3d, annotations = cli.run_eval_loop(
-            cfg, pipe, in_memory() if source is None else source, timer, clip=CLI_CLIP)
-        torch.cuda.synchronize()
+        with nchw_conv_inputs(torch, pipe.detector, pipe.pose_model) as layouts:
+            multi_poses3d, annotations = cli.run_eval_loop(
+                cfg, pipe, in_memory() if source is None else source, timer, clip=CLI_CLIP)
+            torch.cuda.synchronize()
     finally:
         del pipe.process_clip, pipe.process_frame
     loop_s = time.perf_counter() - t0
+    check_channels_last(layouts, "the CLI loop")
     launches = {f"{module.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(module, attr)
                 for module, attr in counters}
     n_clips, n_tail = divmod(n, CLI_CLIP)
@@ -1463,7 +1781,7 @@ def cli_loop(torch, cfg, pipe, frames, card, counters, source=None, timer=None):
         "ms_per_trailing_frame": statistics.median(calls["process_frame"]),
         "timer_report": timer.report(num_views=len(cfg.dataset.folders_order)).splitlines(),
         "launches": launches, "k3_launches": k3_launches, "graph_replays": replays,
-        "captured_here": len(set(card_steps()) - before),
+        "conv_inputs": layouts, "captured_here": len(set(card_steps()) - before),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "host_syncs_per_frame": syncs[0] / n,
         "confirmed_track_frames": sum(len(p) for p in multi_poses3d.values()),
@@ -2776,6 +3094,136 @@ def phase_train_profile(torch, card):
     return out
 
 
+#: Kernel families of the stage-A profile: the first whose substrings a
+#: kernel's name holds takes it, else "other".
+PROFILE_FAMILIES = (
+    ("K1", ("heatmap_decode_kernel",)),
+    ("K2a", ("quantize_nhwc",)),
+    ("K2b", ("int8_conv_nhwc_kernel",)),
+    ("stem", ("int8_stem_kernel",)),
+    ("gather", ("int8_conv_kernel",)),
+    ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw", "NchwToNhwc", "NhwcToNchw")),
+    ("cuDNN conv", ("fprop", "conv", "cudnn", "implicit")),
+    ("crop matmuls", ("gemm", "Gemm", "nvjet", "cutlass", "xmma")),
+    ("NMS / top-K", ("sort", "Sort", "radix", "Radix", "topk", "TopK", "bitonic")),
+    ("copies (layout, dtype, cat)", ("copy", "Copy")),
+    ("memcpy / memset", ("Memcpy", "Memset", "memcpy", "memset")),
+    ("elementwise", ("elementwise", "reduce", "Reduce", "upsample", "index", "fill",
+                     "scatter", "gather", "where")),
+)
+PROFILE_ORDER = "CNNC"  # stage A channels-last (C) and NCHW (N) in turns, unprofiled
+PROFILE_TOP = 8  # kernels listed a family, the longest first
+
+
+def family_of(name):
+    return next((fam for fam, keys in PROFILE_FAMILIES if any(k in name for k in keys)),
+                "other")
+
+
+def profiled_families(torch, fn):
+    """Device ms by kernel family (PROFILE_FAMILIES) of fn() under
+    torch.profiler, the PROFILE_TOP longest kernels of each, the device's busy ms
+    (the union of its kernels' intervals), the window from the first
+    kernel's start to the last one's end and the idle share of it; or the
+    error as a string."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:  # a machine may refuse CUPTI: report, do not gate
+        return f"not measured: {type(e).__name__}: {e}"
+    if not events:
+        return "not measured: the profiler recorded no device events"
+    fams, names = {}, {}
+    for e in events:
+        us = e.time_range.end - e.time_range.start
+        fam = family_of(e.name)
+        fams[fam] = fams.get(fam, 0.0) + us / 1e3
+        key = (fam, e.name[:160])
+        names[key] = names.get(key, 0.0) + us / 1e3
+    top = {}
+    for (fam, name), ms in sorted(names.items(), key=lambda kv: -kv[1]):
+        if len(top.setdefault(fam, [])) < PROFILE_TOP:
+            top[fam].append([name, ms])
+    busy, window = busy_and_window(events)
+    return {"family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])), "top": top,
+            "device_events": len(events), "busy_ms": busy / 1e3, "window_ms": window / 1e3,
+            "idle_share": 1.0 - busy / window if window > 0 else 0.0}
+
+
+def phase_stage_a_profile(torch, card):
+    """The stage-A profile, last (CUPTI stays attached): phase 5's models
+    rebuilt from the same seed, in bf16 and in int8 (`quantize_convs` with
+    `uncalibrated_scales`, the work of calibrated scales), on a 32-frame
+    clip of 5 random 720x1280 views, served channels-last and, with the
+    same models and clip, in NCHW (`nchw_model`): stage A's ms (host clock
+    to a sync, PROFILE_ORDER, unprofiled), then one stage A of each under
+    torch.profiler, device ms by kernel family and the idle share."""
+    from tpupose_torch.data.synthetic import make_scene
+    from tpupose_torch.geometry import make_camera_set
+    from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
+    from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.models.quantize import (
+        hrnet_skip_ids,
+        quantize_convs,
+        uncalibrated_scales,
+        yolo_skip_ids,
+    )
+    from tpupose_torch.models.yolov3 import YoloConfig, yolov3_init
+    from tpupose_torch.pipeline import Pipeline
+    from tpupose_torch.tracking.tracker import TrackerConfig
+
+    views, frames, height, width = 5, 32, 720, 1280
+    det_cfg, pose_cfg = YoloConfig(max_candidates=4), hrnet_w48_config()
+    tcfg = TrackerConfig(num_cameras=views, max_dets=4, max_tracks=12, max_hyp=24)
+    cpu_gen = torch.Generator().manual_seed(0)
+    det = fold_batchnorm(yolov3_init(det_cfg, cpu_gen), dtype=torch.bfloat16)
+    pose = fold_batchnorm(hrnet_init(pose_cfg, cpu_gen), dtype=torch.bfloat16)
+    scene = make_scene(num_frames=1, num_cameras=views, num_actors=3, seed=0)
+    cams = make_camera_set(scene.P, scene.K, scene.RT, width, height)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    clip = torch.randint(0, 256, (frames, views, height, width, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    out = {"card": card, "config": "phase 5's models and clip size; int8 by quantize_convs + "
+                                   "uncalibrated_scales", "families": [f for f, _ in
+                                                                     PROFILE_FAMILIES]}
+    for mode in ("bf16", "int8"):
+        pipe = Pipeline(cams, tcfg, det_cfg, det, pose_cfg, pose)
+        if mode == "int8":
+            pipe.detector = quantize_convs(pipe.detector, uncalibrated_scales(
+                pipe.detector, yolo_skip_ids(pipe.detector, det_cfg)))
+            pipe.pose_model = quantize_convs(pipe.pose_model, uncalibrated_scales(
+                pipe.pose_model, hrnet_skip_ids(pipe.pose_model)))
+        served = {"C": (pipe.detector, pipe.pose_model),
+                  "N": (nchw_model(torch, pipe.detector), nchw_model(torch, pipe.pose_model))}
+
+        def stage_a(which):
+            pipe.detector, pipe.pose_model = served[which]
+            pipe.process_clip_nn(clip)
+
+        for which in "CN":  # warm-ups
+            stage_a(which)
+        times = {"C": [], "N": []}
+        for which in PROFILE_ORDER:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage_a(which)
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t0) * 1e3)
+        out[mode] = {
+            layout: {"stage_a_ms": times[which],
+                     "stage_a_median_ms": statistics.median(times[which]),
+                     "profile": profiled_families(torch, lambda w=which: stage_a(w))}
+            for layout, which in (("channels_last", "C"), ("nchw", "N"))}
+        del pipe, served
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(torch, card):
     """Phase 13: HRNet-W48 384x288 training at full width on blob batches,
     every step a captured CUDA graph after its warm-ups: (a) the JAX
@@ -3358,13 +3806,14 @@ def multistream_clip(torch, float_models):
             lap.launches = 0
             before = set(card_steps())
             t0 = time.perf_counter()
-            with counted_syncs() as counted:
+            with counted_syncs() as counted, nchw_conv_inputs(torch, det_m, pose_m) as layouts:
                 states, outs = fn(det_m, pose_m, broadcast_cameras(cams, s),
                                   init_multistream_state(tcfg, s), clip, fids)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         finally:
             throughput._clip_detections = inner
+        check_channels_last(layouts, f"multistream clip ({mode})")
         launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
                     "k2_stem": k2.stem_launches, "k3": lap.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3407,7 +3856,8 @@ def multistream_clip(torch, float_models):
         run = {"seconds": seconds, "fps": s * f / seconds, "stage_a_s": stage_a_s,
                "stage_b_s": stage_b_s, "stage_b_ms_per_step": stage_b_s * 1e3 / f,
                "launches": launches, "k3_warmup_launches": warmup, "peak_mem_gib": peak,
-               "host_syncs": counted["syncs"], "detections_valid": int(mask.sum())}
+               "host_syncs": counted["syncs"], "detections_valid": int(mask.sum()),
+               "conv_inputs": layouts}
         if mode == "bf16":  # information: process_clip's stage A on the same frames
             pipe = Pipeline(cams, tcfg, det_cfg, det_m, pose_cfg, pose_m)
             equal = total = 0
@@ -3515,6 +3965,21 @@ def gate_mismatches(found, where):
     return {"bit_equal": False, "first": found[:8], "float_max_abs_diff": worst}
 
 
+def busy_and_window(events):
+    """µs the profiled device events cover (the union of their intervals),
+    and the window from the first start to the last end."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    return busy, max(e for _, e in spans) - spans[0][0]
+
+
 def profiled_device_events(torch, fn):
     """Device events of fn() under torch.profiler: (count, memcpy/memset
     count, busy µs as the union of their intervals, window µs from the
@@ -3531,16 +3996,7 @@ def profiled_device_events(torch, fn):
         return f"not measured: {type(e).__name__}: {e}"
     if not events:
         return "not measured: the profiler recorded no device events"
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy += hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    busy += hi - lo
-    window = max(e for _, e in spans) - spans[0][0]
+    busy, window = busy_and_window(events)
     copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in events)
     return {"device_events": len(events), "memcpy_memset": copies, "busy_us": busy,
             "window_us": window, "idle_share": 1.0 - busy / window if window > 0 else 0.0}
@@ -4065,7 +4521,7 @@ def parallel_streams(torch, mesh):
     from tpupose_torch.data.synthetic import make_scene
     from tpupose_torch.geometry import make_camera_set
     from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
-    from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.models.layers import fold_batchnorm, to_channels_last
     from tpupose_torch.models.yolov3 import YoloConfig, yolov3_init
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import lap
@@ -4087,8 +4543,11 @@ def parallel_streams(torch, mesh):
     det_cfg, pose_cfg = YoloConfig(max_candidates=4), hrnet_w48_config()
     tcfg = TrackerConfig(num_cameras=views, max_dets=4, max_tracks=12, max_hyp=24)
     cpu_gen = torch.Generator().manual_seed(0)
-    detector = fold_batchnorm(yolov3_init(det_cfg, cpu_gen), dtype=torch.bfloat16).cuda()
-    pose = fold_batchnorm(hrnet_init(pose_cfg, cpu_gen), dtype=torch.bfloat16).cuda()
+    # served channels-last, as `Pipeline` serves them
+    detector = to_channels_last(
+        fold_batchnorm(yolov3_init(det_cfg, cpu_gen), dtype=torch.bfloat16).cuda())
+    pose = to_channels_last(
+        fold_batchnorm(hrnet_init(pose_cfg, cpu_gen), dtype=torch.bfloat16).cuda())
     scene = make_scene(num_frames=1, num_cameras=views, num_actors=3, seed=0)
     cams = make_camera_set(scene.P, scene.K, scene.RT, width, height, device="cuda")
     cams_s = shard_streams(mesh, broadcast_cameras(cams, total))
@@ -4268,11 +4727,11 @@ def main():
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
         elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {
-                "k2", "k3", "ingest", "parallel", "graphs", "train"}:
+                "k2", "k3", "ingest", "parallel", "graphs", "train", "profile"}:
             only = set(args[1:])
         else:
             fail("usage: chip_smoke.py [--learned-seeds SEED ... | "
-                 "--only k2|k3|ingest|parallel|graphs|train ...]", 2)
+                 "--only k2|k3|ingest|parallel|graphs|train|profile ...]", 2)
     try:
         import torch
     except ImportError:
@@ -4321,6 +4780,8 @@ def main():
             emit("graphs", **phase_graphs(torch, card), captured=graphs_summary())
         if "train" in only:
             emit("train_profile", **phase_train_profile(torch, card))
+        if "profile" in only:
+            emit("stage_a_profile", **phase_stage_a_profile(torch, card))
         return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
@@ -4376,6 +4837,7 @@ def main():
     captured = graphs_summary()
     emit("graphs_captured", card=card, graphs=captured)
     emit("train_profile", **phase_train_profile(torch, card))
+    emit("stage_a_profile", **phase_stage_a_profile(torch, card))
 
     quarter = k1["modes"]["quarter"]
     conv, packed = k2["timed"]["hrnet_branch0_3x3_48"], k2["timed"]["hrnet_branch0_packed_3x3_96"]
@@ -4402,11 +4864,18 @@ def main():
         "source": "tpupose_torch/csrc/int8_conv.cu",
         "replaces": "tpupose/models/quantize.py:210",
         "launches": int8["k2_launches"],
-        "max_abs_err": k2["max_abs_err"], "ms": conv["ms"],
-        "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
-        "bound_by": conv["bound_by"], "library_ms": None,
-        "k2b_ms": conv["k2b"]["ms"], "design_bound_ms": conv["design_bound_ms"],
-        "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
+        "max_abs_err": k2["max_abs_err"], "ms": conv["nhwc"]["ms"],
+        "plain_ms": conv["nhwc"]["plain_ms"], "bound_ms": conv["nhwc"]["bound_ms"],
+        "bound_by": conv["nhwc"]["bound_by"], "library_ms": None,
+        "layout": "channels-last (the main path's; NCHW under 'nchw')",
+        "nhwc_launches": int8["nhwc_launches"], "k2b_ms": conv["nhwc"]["k2b"]["ms"],
+        "int8_input_ms": conv["nhwc"]["int8_input"]["ms"],
+        "design_bound_ms": conv["design_bound_ms"],
+        "bf16_cudnn_ms": conv["nhwc"]["bf16_cudnn_ms"], "shape": conv["shape"],
+        "nchw": {"ms": conv["ms"], "plain_ms": conv["plain_ms"], "k2b_ms": conv["k2b"]["ms"],
+                 "bf16_cudnn_ms": conv["bf16_cudnn_ms"]},
+        "yolo_3x3_128_256": {"nhwc": k2["timed"]["yolo_3x3_128_256"]["nhwc"],
+                             "nchw_ms": k2["timed"]["yolo_3x3_128_256"]["ms"]},
         "packed_branch0": {
             "shape": packed["shape"], "ms": packed["ms"], "plain_ms": packed["plain_ms"],
             "bound_ms": packed["bound_ms"], "bound_by": packed["bound_by"],
@@ -4427,13 +4896,18 @@ def main():
         "source": "tpupose_torch/csrc/int8_conv.cu",
         "replaces": "tpupose/models/quantize.py:210",
         "launches": int8["stem_launches"],
-        "max_abs_err": k2["stem_max_abs_err"], "ms": stem["ms"],
-        "plain_ms": stem["plain_ms"], "bound_ms": stem["bound_ms"],
+        "max_abs_err": k2["stem_max_abs_err"], "ms": stem["nhwc"]["ms"],
+        "plain_ms": stem["nhwc"]["plain_ms"], "bound_ms": stem["bound_ms"],
         "bound_by": stem["bound_by"], "library_ms": None,
-        "gather_ms": stem["gather_ms"], "bf16_cudnn_ms": stem["bf16_cudnn_ms"],
+        "layout": "channels-last (the main path's; NCHW under 'nchw')",
+        "gather_ms": stem["gather_ms"], "bf16_cudnn_ms": stem["nhwc"]["bf16_cudnn_ms"],
+        "nchw": {"ms": stem["ms"], "plain_ms": stem["plain_ms"],
+                 "bf16_cudnn_ms": stem["bf16_cudnn_ms"]},
         "shape": stem["shape"], "yolo_stem": {
-            f: yolo_stem[f] for f in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                      "gather_ms", "bf16_cudnn_ms")},
+            **{f: yolo_stem[f] for f in ("shape", "bound_ms", "bound_by", "gather_ms")},
+            "ms": yolo_stem["nhwc"]["ms"], "plain_ms": yolo_stem["nhwc"]["plain_ms"],
+            "bf16_cudnn_ms": yolo_stem["nhwc"]["bf16_cudnn_ms"],
+            "nchw": {f: yolo_stem[f] for f in ("ms", "plain_ms", "bf16_cudnn_ms")}},
         "cli_launches": {m: c["int8_conv.stem_launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2_stem"],
         "multistream_launches": {m: c["k2_stem"] for m, c in ms_launches.items()},
@@ -4442,9 +4916,13 @@ def main():
         "source": "tpupose_torch/csrc/int8_conv.cu",
         "replaces": "tpupose/models/quantize.py:229",
         "launches": int8["quantize_launches"],
-        "max_abs_err": k2["k2a"]["max_abs_err"], "ms": conv["k2a"]["ms"],
-        "plain_ms": conv["k2a"]["plain_ms"], "bound_ms": conv["k2a"]["bound_ms"],
-        "bound_by": conv["k2a"]["bound_by"], "library_ms": None,
+        "max_abs_err": k2["k2a"]["max_abs_err"], "ms": conv["nhwc"]["k2a"]["ms"],
+        "plain_ms": conv["nhwc"]["k2a"]["plain_ms"], "bound_ms": conv["nhwc"]["k2a"]["bound_ms"],
+        "bound_by": conv["nhwc"]["k2a"]["bound_by"], "library_ms": None,
+        "layout": "channels-last input: the elementwise mode (the main path's; the "
+                  "transposing mode on an NCHW input under 'nchw')",
+        "channels_last_launches": int8["quantize_cl_launches"],
+        "nchw": {"ms": conv["k2a"]["ms"], "plain_ms": conv["k2a"]["plain_ms"]},
         "shape": conv["shape"][:4],
         "cli_launches": {m: c["int8_conv.quantize_launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2a"],

@@ -154,3 +154,86 @@ def test_channels_last_convs_stay_on_the_plain_version_on_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         tk.gemm_nhwc_cuda(tk.quantize_nhwc_plain(x, qt.inv_scale()), qt.weight_k, (3, 3),
                           mul, add, torch.float32)
+
+
+# -- the channels-last modes (the served layout) --------------------------------
+
+
+def _cl(x):
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _layout_input(rng, dtype, shape):
+    """An NCHW input of `shape`: int8 codes, or floats with a NaN planted in
+    the first and the last image."""
+    if dtype == torch.int8:
+        return torch.as_tensor(rng.integers(-127, 128, size=shape).astype(np.int8))
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 3).to(dtype)
+    x[0, 0, 1, 2] = x[-1, -1, -2, -1] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("cin", [16, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_quantize_nhwc_plain_channels_last_mode(dtype, cin):
+    """K2a's elementwise mode reads a channels-last input: its plain version
+    on that input is today's on the NCHW one."""
+    x = _layout_input(np.random.default_rng(cin + 1), dtype, (2, cin, 5, 7))
+    inv = torch.tensor([127.0 / 6.0])
+    got = tk.quantize_nhwc_plain(_cl(x), inv)
+    assert got.is_contiguous() and tuple(got.shape) == (2, 5, 7, cin)
+    assert torch.equal(got, tk.quantize_nhwc_plain(x, inv))
+    # with Cin % 16 == 0 the NHWC int8 copy is the input's own NHWC view
+    if dtype == torch.int8:
+        assert torch.equal(got, _cl(x).permute(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("out", ["dequantize", "requant_relu"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("cin", [16, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_int8_conv_plain_channels_last_mode(dtype, cin, stride, out):
+    """K2b's NHWC-output mode: the plain version on a channels-last input is
+    today's on the NCHW input, its result channels-last."""
+    rng = np.random.default_rng(cin * 10 + stride)
+    cout = 24
+    x = _layout_input(rng, dtype, (2, cin, 9, 7))
+    wq = torch.as_tensor(rng.integers(-127, 128, size=(cout, cin, 3, 3)).astype(np.int8))
+    inv = torch.tensor([127.0 / 6.0])
+    out_dtype = torch.int8 if out == "requant_relu" else (
+        torch.float32 if dtype == torch.int8 else dtype)
+    # int8 outputs spread over [0, 127], past both clamps
+    mul = torch.as_tensor(rng.uniform(0.5, 1.5, cout).astype(np.float32)) / (
+        200.0 if out_dtype == torch.int8 else 2000.0)
+    add = torch.as_tensor(rng.standard_normal(cout).astype(np.float32))
+    got = tk.int8_conv_plain(_cl(x), wq, inv, mul, add, out_dtype, stride)
+    ref = tk.int8_conv_plain(x, wq, inv, mul, add, out_dtype, stride)
+    assert got.is_contiguous(memory_format=torch.channels_last) and not got.is_contiguous()
+    assert ref.is_contiguous() and got.dtype == out_dtype
+    assert torch.equal(got, ref)
+    if out == "requant_relu":
+        assert ref.min() == 0 and ref.max() == 127  # both clamps reached
+    # the models' dispatch keeps the layout on the CPU too
+    assert torch.equal(tk.int8_conv(_cl(x), wq, None, inv, mul, add, out_dtype, stride), ref)
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_CASES))
+def test_gemm_reads_an_int8_channels_last_input_in_place(case):
+    """An int8 channels-last activation with Cin % 16 == 0 is K2b's operand as
+    it is (no K2a): its NHWC view, im2col'd in K2b's (r, c, ci) order against
+    `pack_weight`'s rows, gives the exact conv, whose NHWC output is the
+    channels-last result."""
+    cin, cout, k, stride, dil, h, w = GEMM_CASES[case]
+    rng = np.random.default_rng(11)
+    wq = torch.as_tensor(rng.integers(-127, 128, size=(cout, cin, k, k)).astype(np.int8))
+    x = _cl(torch.as_tensor(rng.integers(-127, 128, size=(2, cin, h, w)).astype(np.int8)))
+    view = x.permute(0, 2, 3, 1)
+    assert view.is_contiguous() and view.data_ptr() == x.data_ptr()
+    a, (n, ho, wo) = _im2col_nhwc(view, k, k, stride, dil)
+    wk = tk.pack_weight(wq)
+    kk = cin * k * k
+    acc = (a @ wk[:, :kk].to(torch.float64).T)[:, :cout].to(torch.int32)
+    got = acc.reshape(n, ho, wo, cout).permute(0, 3, 1, 2)  # K2b's NHWC store
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, tk.conv_exact(x, wq, stride, dil))
+    assert torch.equal(got, tk.conv_exact(x.contiguous(), wq, stride, dil))

@@ -16,7 +16,11 @@ against the plain versions and the JAX package.
   `stem_tile` output pixels, a halo of quantized input (zero outside the
   image) and A rows gathered from it in (ci, r, c) order, against
   `pack_weight`'s rows. Held equal to `int8_conv_plain` and to the JAX
-  package's `_int8_conv` for Cin 3 at stride 1 and 2.
+  package's `_int8_conv` for Cin 3 at stride 1 and 2. Its channels-last
+  mode with the kernel's flat index arithmetic (a halo row is an input
+  row's (w, ci) elements from a 16-byte chunk boundary, K positions at
+  r * halo_stride + c * Cin + ci from their pixel) held equal to the plain
+  version on the channels-last input, its result channels-last.
 
 Tolerances: none. Both kernels are exact by design (the same f32
 operations in the same order; int32 sums of int8 products).
@@ -232,6 +236,77 @@ def test_stem_emulation_equals_plain_and_jax(stride, hw, in_dtype, out_dtype):
                                      jnp.asarray(wq.permute(2, 3, 1, 0).numpy()), stride))
     acc_t = tk.conv_exact(xq, wq, stride)
     np.testing.assert_array_equal(acc_t.permute(0, 2, 3, 1).numpy(), acc_j)
+
+
+def _stem_nhwc_emulation(x, wk, inv, mul, add, out_dtype, kh, kw, stride):
+    """The stem kernel's NHWC mode on channels-last x, block by block of
+    `stem_tile` pixels, with its flat index arithmetic."""
+    n, cin, h, w = x.shape
+    e = 16 // x.element_size()  # input elements a 16-byte chunk
+    ph, pw = kh // 2, kw // 2
+    ho, wo = tk.out_size(h, kh, stride), tk.out_size(w, kw, stride)
+    rows, cols = tk.stem_tile(ho, wo)
+    cout = mul.shape[0]
+    k = cin * kh * kw
+    xq = x if x.dtype == torch.int8 else tk.quantize_input(x, inv)
+    flat = xq.permute(0, 2, 3, 1).reshape(n, h, w * cin)  # NHWC input rows
+    ci, r, c = (torch.as_tensor(v) for v in np.unravel_index(np.arange(k), (cin, kh, kw)))
+    weights = wk[:cout, :tk.BLOCK_K].to(torch.float64)
+    halo_rows = (rows - 1) * stride + kh
+    halo_elems = ((cols - 1) * stride + kw) * cin
+    halo_stride = (halo_elems + 2 * e - 2) // e * e
+    off = r * halo_stride + c * cin + ci
+    tr, tcol = (torch.as_tensor(v.reshape(-1)) for v in np.meshgrid(
+        np.arange(rows), np.arange(cols), indexing="ij"))
+    out = torch.empty((n, ho, wo, cout), dtype=out_dtype)
+    for img in range(n):
+        for oh0 in range(0, ho, rows):
+            for ow0 in range(0, wo, cols):
+                ih0, iw0 = oh0 * stride - ph, ow0 * stride - pw
+                row_start = iw0 * cin
+                c_first = row_start // e * e  # floor: the chunk at or below
+                halo = torch.zeros((halo_rows, halo_stride), dtype=torch.int8)
+                for i in range(halo_rows):
+                    if 0 <= ih0 + i < h:
+                        gc = c_first + torch.arange(halo_stride)
+                        ok = (gc >= 0) & (gc < w * cin)
+                        halo[i, ok] = flat[img, ih0 + i, gc[ok]]
+                base = tr * stride * halo_stride + tcol * stride * cin + (row_start - c_first)
+                a = torch.zeros((rows * cols, tk.BLOCK_K), dtype=torch.float64)
+                a[:, :k] = halo.reshape(-1)[base[:, None] + off[None]].to(torch.float64)
+                acc = (a @ weights.T).to(torch.int32).T.reshape(cout, rows, cols)
+                y = tk.epilogue(acc, mul, add, out_dtype).permute(1, 2, 0)
+                nr, nc = min(rows, ho - oh0), min(cols, wo - ow0)
+                out[img, oh0:oh0 + nr, ow0:ow0 + nc] = y[:nr, :nc]
+    return out.permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("stride,hw", [(2, (23, 38)), (1, (9, 37)), (2, (6, 1100)),
+                                       (1, (5, 64))])
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.int8),
+    (torch.int8, torch.float32)])
+def test_stem_nhwc_emulation_equals_plain(stride, hw, in_dtype, out_dtype):
+    rng = np.random.default_rng(stride * 10 + hw[1])
+    h, w = hw
+    cout = 40
+    wq = torch.as_tensor(rng.integers(-127, 128, size=(cout, 3, 3, 3)).astype(np.int8))
+    inv = torch.tensor([127.0 / 6.0])
+    if in_dtype == torch.int8:
+        x = torch.as_tensor(rng.integers(-127, 128, size=(2, 3, h, w)).astype(np.int8))
+    else:
+        x = torch.as_tensor(rng.standard_normal((2, 3, h, w)).astype(np.float32) * 3).to(in_dtype)
+        x[1, 2, h - 1, w // 2] = float("nan")  # quantizes to 0
+    x = x.contiguous(memory_format=torch.channels_last)
+    mul = torch.as_tensor(rng.uniform(0.5, 1.5, size=cout).astype(np.float32)) * 2e-4
+    add = torch.as_tensor(rng.standard_normal(cout).astype(np.float32))
+    if out_dtype == torch.int8:
+        mul, add = mul * 1e3, add * 10
+    got = _stem_nhwc_emulation(x, tk.pack_weight(wq), inv, mul, add, out_dtype, 3, 3, stride)
+    ref = tk.int8_conv_plain(x, wq, inv, mul, add, out_dtype, stride)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert ref.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ref)
 
 
 def test_stem_tile_covers_the_main_path_stems():

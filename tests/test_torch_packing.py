@@ -171,3 +171,19 @@ def test_pipeline_pack_models_keeps_detections():
     packed = pipe.pose_model
     pipe.pack_models()  # idempotent
     assert pipe.pose_model is packed
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int8])
+def test_pack_width_of_channels_last_is_a_view_matching_jax(dtype):
+    rng = np.random.default_rng(3)
+    x = rng.integers(-127, 128, size=(2, 5, 8, 3)).astype(dtype)  # NHWC
+    want = np.asarray(jp.pack_width(jnp.asarray(x)))
+    xt = _nchw(x).contiguous(memory_format=torch.channels_last)
+    got = tp.pack_width(xt)
+    assert got.data_ptr() == xt.data_ptr()
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(_nhwc(got), want)
+    np.testing.assert_array_equal(_nhwc(tp.pack_width(_nchw(x))), want)  # the NCHW copy
+    back = tp.unpack_width(got)
+    assert back.data_ptr() == xt.data_ptr() and torch.equal(back, xt)
+    assert back.is_contiguous(memory_format=torch.channels_last)

@@ -49,12 +49,17 @@ def _config_record(cfg) -> dict:
 def write_bundle(out_dir, det_cfg, detector, pose_cfg, pose_model,
                  provenance=None, dtype="bfloat16", quantized=False):
     """Save the folded serving modules' state_dicts and the manifest under
-    `out_dir`; returns the manifest."""
+    `out_dir`; returns the manifest. Tensors are saved contiguous, so a
+    model served channels-last (`Pipeline`) writes the bytes an NCHW one
+    does."""
     from tpupose_torch.models.checkpoint import save_params
 
     os.makedirs(out_dir, exist_ok=True)
     for role, model in (("det", detector), ("pose", pose_model)):
-        save_params(os.path.join(out_dir, BUNDLE_FILES[role]), model.state_dict())
+        sd = model.state_dict()
+        for k, v in sd.items():
+            sd[k] = v.contiguous()
+        save_params(os.path.join(out_dir, BUNDLE_FILES[role]), sd)
     manifest = {
         "format": BUNDLE_FORMAT,
         "folded": True,

@@ -33,10 +33,13 @@
 // into one pass (0.2535 ms at 3.35 TB/s), for 0.183 T int-ops (0.093 ms at
 // 1,979 TOPS); the 1x1 convs are more byte-bound still.
 //
-// Three paths, chosen by Cin, kh and kw (the wrapper decides):
+// Three paths, chosen by Cin, kh and kw (the wrapper decides), each for the
+// activation's layout: NCHW, or channels-last (an (N, C, H, W) tensor with
+// NHWC strides, the layout the served path and the JAX package compute in),
+// whose output is channels-last again.
 //
 // Cin % 16 == 0, every conv of the main path but the two RGB stems: two
-// launches.
+// launches (one for an int8 channels-last input).
 //   K2a `quantize_nhwc_kernel` quantizes x once into an (N, H, W, Cp) int8
 //   copy (Cp = Cin rounded up to 16, pad channels 0; an int8 x is copied
 //   through). A block moves 64 channels x 64 pixels through shared memory:
@@ -64,9 +67,18 @@
 //   This design moves more than the fused bound: at branch 0 the quantize
 //   pass reads 424.7 MB of bf16 and writes 212.3 MB of int8, the GEMM reads
 //   212.3 MB and writes 424.7 MB, about 1,274 MB (0.380 ms at 3.35 TB/s).
-//   Left for later: `wgmma` with TMA; int8 NHWC activations written by the
-//   previous conv's epilogue, so that K2a disappears; a 48-wide N tile for
-//   branch 0, whose Cout of 48 wastes a quarter of a 64-wide tile.
+//   Channels-last: K2a's elementwise mode `quantize_nhwc_cl_kernel` reads a
+//   run of 16 channels of one pixel (16-byte loads) and writes its 16 codes
+//   as one 16-byte store, with no shared memory (the same bytes as the
+//   transposing mode); an int8 channels-last input (the int8-resident
+//   blocks' inter-conv tensors) is K2b's operand as it is, and K2a does not
+//   run. K2b's NHWC template stages its tile as o_s[m][co] and writes each
+//   pixel's channels n0.. as 16-byte runs (the output's rows are a pixel's
+//   Cout channels), scalars where a run passes Cout or its alignment; the
+//   loads, the mma pipeline and the epilogue arithmetic are the NCHW
+//   template's.
+//   Left for later: `wgmma` with TMA; a 48-wide N tile for branch 0, whose
+//   Cout of 48 wastes a quarter of a 64-wide tile.
 //
 // Cin * kh * kw <= 32, the two RGB stems (3 x 3 x 3 = 27 at Cin 3): one
 // launch of the stem kernel `int8_stem_kernel`. Bound: bytes, and 84% of
@@ -95,7 +107,11 @@
 // destination is not 16-byte aligned. Measured on an H100 80GB HBM3 at
 // 700 W, persistent blocks that prefetched the next tile's halo into a
 // second buffer, and tiles of more than one row at the stems' widths,
-// were slower.
+// were slower. Channels-last output (NHWC template): the stage holds a row
+// of channels per pixel, and the block's threads copy each pixel's
+// channels n0.. to the output as 16-byte runs, consecutive in memory where
+// the block's channels are all of Cout (both stems). The input stays NCHW:
+// the wrapper copies a channels-last 3-channel input to NCHW first.
 //
 // Any other Cin: one launch of the gather kernel `int8_conv_kernel` (once the
 // kernel of every Cin; on the main path it now runs no conv), which reads
@@ -507,6 +523,79 @@ int launch_quantize(const void* x, const float* inv, int8_t* y, int n, int c,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2a on a channels-last input: (N, H, W, C) f32 / bf16 / int8 with
+// C % 16 == 0 -> the same (N, H, W, C) int8, element for element. One thread
+// a run of 16 channels of one pixel: 16-byte loads where VEC (x 16-byte
+// aligned), scalar loads else, and one 16-byte store. No transpose, so no
+// shared memory.
+constexpr int kQLThreads = 256;
+
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
+         ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
+}
+
+template <int IN, bool VEC>
+__global__ void __launch_bounds__(kQLThreads)
+quantize_nhwc_cl_kernel(const void* __restrict__ x, const float* __restrict__ inv_p,
+                        int8_t* __restrict__ y, long long runs) {
+  const long long r = static_cast<long long>(blockIdx.x) * kQLThreads + threadIdx.x;
+  if (r >= runs) return;
+  const long long e = r * 16;
+  float inv = 1.f;
+  if constexpr (IN != kI8) inv = __ldg(inv_p);
+  uint4 out;
+  if constexpr (VEC && IN == kI8) {
+    out = __ldg(reinterpret_cast<const uint4*>(static_cast<const int8_t*>(x) + e));
+  } else if constexpr (VEC && IN == kF32) {
+    const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(x) + e);
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 v = __ldg(p + j);
+      w[j] = pack4(quantize(v.x, inv), quantize(v.y, inv), quantize(v.z, inv),
+                   quantize(v.w, inv));
+    }
+    out = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (VEC && IN == kBF16) {
+    const uint4* p = reinterpret_cast<const uint4*>(static_cast<const unsigned short*>(x) + e);
+    uint32_t w[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 v = __ldg(p + h);
+      const uint32_t b[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        w[2 * h + k] = pack4(quantize(__uint_as_float(b[2 * k] << 16), inv),
+                             quantize(__uint_as_float(b[2 * k] & 0xffff0000u), inv),
+                             quantize(__uint_as_float(b[2 * k + 1] << 16), inv),
+                             quantize(__uint_as_float(b[2 * k + 1] & 0xffff0000u), inv));
+    }
+    out = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    int q[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) q[j] = code<IN>(Src<IN>::load(x, e + j), inv);
+    out = make_uint4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+                     pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+  }
+  *reinterpret_cast<uint4*>(y + e) = out;
+}
+
+template <int IN>
+int launch_quantize_cl(const void* x, const float* inv, int8_t* y, long long runs,
+                       cudaStream_t stream) {
+  const long long blocks = (runs + kQLThreads - 1) / kQLThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    quantize_nhwc_cl_kernel<IN, true><<<grid, kQLThreads, 0, stream>>>(x, inv, y, runs);
+  } else {
+    quantize_nhwc_cl_kernel<IN, false><<<grid, kQLThreads, 0, stream>>>(x, inv, y, runs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // K2b: implicit GEMM over the (N, H, W, Cp) int8 copy.
 
@@ -574,17 +663,21 @@ __device__ __forceinline__ void locate(long long img0, int p0, int r, int hw,
 }
 
 // Dynamic shared memory: the cp.async ring, reused by the epilogue's
-// output tile (kGN rows of kGM outputs, each row padded by 16 bytes).
-template <int OUT>
+// output tile (NCHW: kGN rows of kGM outputs; NHWC: kGM rows of kGN
+// outputs; each row padded by 16 bytes).
+template <int OUT, bool NHWC>
 constexpr int gemm_smem() {
   constexpr int pipe = kStages * (kGM + kGN) * kGK;
-  constexpr int tile = kGN * (kGM * static_cast<int>(sizeof(typename Out<OUT>::T)) + 16);
+  constexpr int size = static_cast<int>(sizeof(typename Out<OUT>::T));
+  constexpr int tile = NHWC ? kGM * (kGN * size + 16) : kGN * (kGM * size + 16);
   return pipe > tile ? pipe : tile;
 }
 
 // 4 blocks an SM: at most 128 registers a thread (64 accumulators). s.cin is
 // the channel count of the copy (a multiple of 16), s.k = kh*kw*s.cin.
-template <int OUT>
+// NHWC: the output is (N, Ho, Wo, Cout) (a channels-last (N, Cout, Ho, Wo)
+// tensor) instead of NCHW; only the epilogue's staging and stores differ.
+template <int OUT, bool NHWC>
 __global__ void __launch_bounds__(kGThreads, 4)
 int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
                       const float* __restrict__ mul, const float* __restrict__ add,
@@ -717,12 +810,58 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
   cp_async_wait<0>();
   __syncthreads();
 
+  int8_t* const o_s = smem;
+  const bool has_add = add != nullptr;
+  if constexpr (NHWC) {
+    // Epilogue, staged: o_s[m][co], each pixel's kGN outputs a row padded by
+    // 16 bytes (bf16 and int8 fragment writes conflict-free, f32 two-way).
+    constexpr int kORowN = kGN * static_cast<int>(sizeof(O)) + 16;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = wn * 32 + ni * 8 + 2 * t + j;
+        const int co = n0 + col;
+        const float cm = co < s.cout ? __ldg(mul + co) : 0.f;
+        const float ca = (co < s.cout && has_add) ? __ldg(add + co) : 0.f;
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = wm * 64 + mi * 16 + g + 8 * half;
+            *reinterpret_cast<O*>(o_s + row * kORowN + col * static_cast<int>(sizeof(O))) =
+                finish<OUT>(acc[mi][ni][2 * half + j], cm, ca, has_add);
+          }
+      }
+    __syncthreads();
+
+    // Store: pixel m's outputs n0.. are consecutive in the output, so each
+    // tile row leaves as 16-byte runs of E channels; a run past Cout or off
+    // the 16-byte alignment stores scalars.
+    constexpr int E = 16 / static_cast<int>(sizeof(O));
+    constexpr int kRunsN = kGN / E;
+    const int cols = min(kGN, s.cout - n0);
+    O* const out = static_cast<O*>(y);
+    for (int e = tid; e < kGM * kRunsN; e += kGThreads) {
+      const int row = e / kRunsN, c0 = (e % kRunsN) * E;
+      const long long m = m0 + row;
+      if (c0 >= cols || m >= m_total) continue;
+      const long long o = m * s.cout + n0 + c0;
+      const int8_t* src = o_s + row * kORowN + c0 * static_cast<int>(sizeof(O));
+      if (c0 + E <= cols && o % E == 0) {
+        *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int i = 0; i < E && c0 + i < cols; ++i)
+          out[o + i] = reinterpret_cast<const O*>(src)[i];
+      }
+    }
+    return;
+  }
+
   // Epilogue, staged: o_s[co][m] in the output type, rows padded by 16 bytes
   // (conflict-free fragment writes). Accumulator (mi, ni, r) is row
   // wm*64 + mi*16 + g + 8*(r >> 1), column wn*32 + ni*8 + 2t + (r & 1).
   constexpr int kORow = kGM * static_cast<int>(sizeof(O)) + 16;
-  int8_t* const o_s = smem;
-  const bool has_add = add != nullptr;
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -770,18 +909,25 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
   }
 }
 
-template <int OUT>
+template <int OUT, bool NHWC>
 int launch_gemm(const int8_t* xq, const int8_t* wk, const float* mul,
                 const float* add, void* y, const Shape& s, cudaStream_t stream) {
-  constexpr int kSmem = gemm_smem<OUT>();
+  constexpr int kSmem = gemm_smem<OUT, NHWC>();
   // More would need cudaFuncSetAttribute(MaxDynamicSharedMemorySize) first.
   static_assert(kSmem <= 48 * 1024, "K2b's shared memory passes the default 48 KB");
   const long long m_tiles = (static_cast<long long>(s.n) * s.ho * s.wo + kGM - 1) / kGM;
   const long long blocks = m_tiles * ((s.cout + kGN - 1) / kGN);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int8_conv_nhwc_kernel<OUT><<<static_cast<unsigned>(blocks), kGThreads, kSmem, stream>>>(
-      xq, wk, mul, add, y, s);
+  int8_conv_nhwc_kernel<OUT, NHWC><<<static_cast<unsigned>(blocks), kGThreads, kSmem,
+                                     stream>>>(xq, wk, mul, add, y, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int OUT>
+int launch_gemm_layout(bool nhwc_out, const int8_t* xq, const int8_t* wk, const float* mul,
+                       const float* add, void* y, const Shape& s, cudaStream_t stream) {
+  return nhwc_out ? launch_gemm<OUT, true>(xq, wk, mul, add, y, s, stream)
+                  : launch_gemm<OUT, false>(xq, wk, mul, add, y, s, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -800,32 +946,48 @@ struct StemTile {
   int raw_chunks;            // 16-byte input chunks a halo row: the columns the
                              // taps reach, from the chunk boundary at or below
   int halo_stride;           // bytes a halo row: raw_chunks codes a chunk
-  int halo_bytes;            // cin * halo_rows * halo_stride, rounded up to 16
-  int raw_bytes;             // one raw halo buffer: cin * halo_rows * raw_chunks * 16
-  int stage_stride;          // bytes per output channel row of the stage
-  int stage_bytes;           // min(64, Cout rounded up to 16) rows: every row the
-                             // block's 16-channel mma tiles write
+  int halo_bytes;            // its rows (cin * halo_rows for NCHW) * halo_stride,
+                             // rounded up to 16
+  int raw_bytes;             // one raw halo buffer: its rows * raw_chunks * 16
+  int stage_stride;          // bytes a row of the stage: one output channel's
+                             // pixels (NCHW) or one pixel's channels (NHWC)
+  int stage_bytes;           // every channel row the block's 16-channel mma tiles
+                             // write, min(64, Cout rounded up to 16) (NCHW), or
+                             // every pixel row, as wide as that (NHWC)
   int off[32];               // K position -> halo offset from its pixel; -1 past K
 };
 
-template <int IN, int OUT>
+template <int IN, int OUT, bool NHWC>
 StemTile stem_tile(const Shape& s, int rows, int cols) {
   constexpr int E = 16 / static_cast<int>(sizeof(typename Src<IN>::T));
   StemTile t;
   t.rows = rows;
   t.cols = cols;
   t.halo_rows = (rows - 1) * s.stride + (s.kh - 1) * s.dil + 1;
-  const int halo_cols = (cols - 1) * s.stride + (s.kw - 1) * s.dil + 1;
+  // a halo row: one channel's columns (NCHW) or every channel of each
+  // column (NHWC); as many rows as input rows the taps reach, times Cin
+  // for NCHW
+  const int halo_cols = ((cols - 1) * s.stride + (s.kw - 1) * s.dil + 1) * (NHWC ? s.cin : 1);
+  const int halo_rows = NHWC ? t.halo_rows : s.cin * t.halo_rows;
   t.raw_chunks = (halo_cols + 2 * E - 2) / E;  // any start within a chunk
   t.halo_stride = t.raw_chunks * E;
-  t.halo_bytes = (s.cin * t.halo_rows * t.halo_stride + 15) / 16 * 16;
-  t.raw_bytes = s.cin * t.halo_rows * t.raw_chunks * 16;
-  t.stage_stride = rows * cols * static_cast<int>(sizeof(typename Out<OUT>::T)) + 16;
-  t.stage_bytes = min(kSN, (s.cout + 15) / 16 * 16) * t.stage_stride;
+  t.halo_bytes = (halo_rows * t.halo_stride + 15) / 16 * 16;
+  t.raw_bytes = halo_rows * t.raw_chunks * 16;
+  constexpr int size = static_cast<int>(sizeof(typename Out<OUT>::T));
+  const int channels = min(kSN, (s.cout + 15) / 16 * 16);
+  if (NHWC) {
+    t.stage_stride = channels * size + 16;
+    t.stage_bytes = rows * cols * t.stage_stride;
+  } else {
+    t.stage_stride = rows * cols * size + 16;
+    t.stage_bytes = channels * t.stage_stride;
+  }
   const int taps = s.kh * s.kw;
   for (int k = 0; k < 32; ++k) {
     const int ci = k / taps, r = (k - ci * taps) / s.kw, c = k - ci * taps - r * s.kw;
-    t.off[k] = k < s.k ? (ci * t.halo_rows + r * s.dil) * t.halo_stride + c * s.dil : -1;
+    t.off[k] = k >= s.k ? -1
+               : NHWC ? r * s.dil * t.halo_stride + c * s.dil * s.cin + ci
+                      : (ci * t.halo_rows + r * s.dil) * t.halo_stride + c * s.dil;
   }
   return t;
 }
@@ -887,6 +1049,29 @@ __device__ __forceinline__ void store_pair(int8_t* p, int a0, int a1, float mul,
   }
 }
 
+// Two outputs of one pixel at neighbouring channels (their mul and add),
+// finished as `finish` does each, stored together at p (aligned to the
+// pair).
+template <int OUT>
+__device__ __forceinline__ void store_channel_pair(int8_t* p, int a0, int a1,
+                                                   const float (&mul)[2],
+                                                   const float (&add)[2], bool has_add) {
+  float v0 = __fmul_rn(__int2float_rn(a0), mul[0]), v1 = __fmul_rn(__int2float_rn(a1), mul[1]);
+  if (has_add) {
+    v0 = __fadd_rn(v0, add[0]);
+    v1 = __fadd_rn(v1, add[1]);
+  }
+  if constexpr (OUT == kBF16) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else if constexpr (OUT == kF32) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    const int q0 = static_cast<int>(fminf(fmaxf(rintf(v0), 0.f), 127.f));
+    const int q1 = static_cast<int>(fminf(fmaxf(rintf(v1), 0.f), 127.f));
+    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(q0 | (q1 << 8));
+  }
+}
+
 // The E codes of one raw chunk, stored at dst (aligned to E bytes).
 template <int IN>
 __device__ __forceinline__ void quantize_chunk(const void* src, int8_t* dst, float inv) {
@@ -929,12 +1114,15 @@ __device__ __forceinline__ void quantize_chunk(const void* src, int8_t* dst, flo
 //      per 16 channels. An accumulator pair is one channel at two
 //      neighbouring pixels, finished with that lane's channel's mul and add
 //      (registers) into one store to the stage, one row of pixels per
-//      channel.
-//   4. One thread a run of a channel's NCHW plane (one per tile row, or one
-//      for all its rows where they are whole output rows) copies it from the
-//      stage by one bulk copy, or, where the run is not 16-byte aligned,
-//      element by element.
-template <int IN, int OUT, bool VEC>
+//      channel (NCHW), or two stores, one row of channels per pixel (NHWC).
+//   4. NCHW: one thread a run of a channel's plane (one per tile row, or
+//      one for all its rows where they are whole output rows) copies it from
+//      the stage by one bulk copy, or, where the run is not 16-byte aligned,
+//      element by element. NHWC: a pixel's channels n0.. are consecutive in
+//      the (N, Ho, Wo, Cout) output, so threads copy the stage's pixel rows
+//      as 16-byte runs of channels, scalars where a run passes Cout or its
+//      alignment.
+template <int IN, int OUT, bool VEC, bool NHWC>
 __global__ void __launch_bounds__(kSThreads)
 int8_stem_kernel(const void* __restrict__ x, const int8_t* __restrict__ wk,
                  const float* __restrict__ inv_p, const float* __restrict__ mul,
@@ -943,6 +1131,7 @@ int8_stem_kernel(const void* __restrict__ x, const int8_t* __restrict__ wk,
   using Raw = typename Src<IN>::T;
   using O = typename Out<OUT>::T;
   constexpr int E = 16 / static_cast<int>(sizeof(Raw));  // input elements a chunk
+  constexpr int kO = static_cast<int>(sizeof(O));
   extern __shared__ __align__(128) int8_t smem[];
   int8_t* const halo = smem;
   int8_t* const stage = halo + t.halo_bytes;
@@ -958,125 +1147,213 @@ int8_stem_kernel(const void* __restrict__ x, const int8_t* __restrict__ wk,
   const int oh0 = th * t.rows, ow0 = (tile - th * tiles_w) * t.cols;
   const int n0 = blockIdx.y * kSN;
   const int ih0 = oh0 * s.stride - s.pad_h, iw0 = ow0 * s.stride - s.pad_w;
-  const int c_first = (iw0 >= 0 ? iw0 / E : -((-iw0 + E - 1) / E)) * E;
-  const int halo_rows = s.cin * t.halo_rows;
+  // a halo row: one channel's input row (NCHW), or one input row of every
+  // channel, its elements (w, ci) (NHWC); its first element and length
+  const int row_start = NHWC ? iw0 * s.cin : iw0;
+  const int row_len = NHWC ? s.w * s.cin : s.w;
+  const int c_first = (row_start >= 0 ? row_start / E : -((-row_start + E - 1) / E)) * E;
+  const int halo_rows = NHWC ? t.halo_rows : s.cin * t.halo_rows;
 
   // 1. The raw halo, one warp a row.
   for (int row = warp; row < halo_rows; row += kSWarps) {
-    const int ci = row / t.halo_rows, ih = ih0 + row - ci * t.halo_rows;
+    const int ci = NHWC ? 0 : row / t.halo_rows, ih = ih0 + row - ci * t.halo_rows;
     const bool row_ok = static_cast<unsigned>(ih) < static_cast<unsigned>(s.h);
-    const long long src = ((img * s.cin + ci) * s.h + ih) * static_cast<long long>(s.w);
+    const long long src = NHWC ? (img * s.h + ih) * static_cast<long long>(row_len)
+                               : ((img * s.cin + ci) * s.h + ih) * static_cast<long long>(s.w);
     for (int ch = lane; ch < t.raw_chunks; ch += 32) {
       const int gc = c_first + ch * E;
       Raw* dst = raw + (row * t.raw_chunks + ch) * E;
       if constexpr (VEC) {
-        const bool ok = row_ok && gc >= 0 && gc + E <= s.w;
+        const bool ok = row_ok && gc >= 0 && gc + E <= row_len;
         cp_async16(smem_addr(dst), ok ? static_cast<const Raw*>(x) + src + gc : x, ok);
       } else {
 #pragma unroll
         for (int j = 0; j < E; ++j)
-          dst[j] = row_ok && static_cast<unsigned>(gc + j) < static_cast<unsigned>(s.w)
+          dst[j] = row_ok && static_cast<unsigned>(gc + j) < static_cast<unsigned>(row_len)
                        ? Src<IN>::load(x, src + gc + j) : Raw(0);
       }
     }
   }
   if constexpr (VEC) cp_async_commit();
 
-  // The weights as A fragments of 4 channel tiles (rows n0 + 16*ct + g and
-  // + 8), this lane's two channels' mul and add and stage rows in each,
-  // and its K positions 4*q4 + i (B word 0) and 16 + 4*q4 + i (word 1) as
-  // halo offsets.
+  // This lane's K positions 4*q4 + i (fragment word 0) and 16 + 4*q4 + i
+  // (word 1) as halo offsets.
   const bool has_add = add != nullptr;
-  uint32_t wa[4][4];
-  float cmul[4][2], cadd[4][2];
-  int crow[4][2];
-#pragma unroll
-  for (int ct = 0; ct < 4; ++ct) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = n0 + 16 * ct + g + 8 * h;  // < Cout padded to 64: a weight row
-      const int8_t* w = wk + static_cast<long long>(co) * s.kpad + 4 * q4;
-      wa[ct][h] = __ldg(reinterpret_cast<const uint32_t*>(w));
-      wa[ct][2 + h] = __ldg(reinterpret_cast<const uint32_t*>(w + 16));
-      cmul[ct][h] = co < s.cout ? __ldg(mul + co) : 0.f;
-      cadd[ct][h] = co < s.cout && has_add ? __ldg(add + co) : 0.f;
-      crow[ct][h] = (16 * ct + g + 8 * h) * t.stage_stride;
-    }
-  }
   int off[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) off[i] = t.off[(i < 4 ? 4 * q4 : 16 + 4 * q4) + (i & 3)];
   float inv = 1.f;
   if constexpr (IN != kI8) inv = __ldg(inv_p);
-  if constexpr (VEC) cp_async_wait<0>();
-  __syncthreads();
-
-  // 2. The int8 halo, one chunk a lane.
-  for (int i = tid; i < halo_rows * t.raw_chunks; i += kSThreads)
-    quantize_chunk<IN>(raw + i * E, halo + i * E, inv);
-  __syncthreads();  // the raw halo is consumed: the stage may be written
-
-  // 3. 8-pixel runs of the tile's rows, one warp each in turn.
   const int channels = min(kSN, s.cout - n0);
-  const int ctiles = (channels + 15) / 16;
-  int tr = 0, tc = 8 * warp;
-  while (tc >= t.cols) {
-    tc -= t.cols;
-    ++tr;
-  }
-  while (tr < t.rows) {
-    const int base = tr * s.stride * t.halo_stride + (tc + g) * s.stride + (iw0 - c_first);
-    const uint32_t bfr[2] = {gather4(halo, base, off, 0), gather4(halo, base, off, 4)};
-    // pixel of accumulator columns 2*q4, + 1
-    const int m = (tr * t.cols + tc + 2 * q4) * static_cast<int>(sizeof(O));
+  const int rows = min(t.rows, s.ho - oh0), cols = min(t.cols, s.wo - ow0);
+  // halo offset of tile pixel (tr, tc)'s first tap
+  auto pixel_base = [&](int tr, int tc) {
+    return tr * s.stride * t.halo_stride + tc * s.stride * (NHWC ? s.cin : 1) +
+           (row_start - c_first);
+  };
+  O* const out = static_cast<O*>(y);
+
+  if constexpr (NHWC) {
+    // The mma transposed: its rows are 16 pixels (A: fragment words of four
+    // taps of one pixel, gathered from the halo) and its columns 8 output
+    // channels (B: the weights, in registers for the whole block), so an
+    // accumulator pair is two neighbouring channels of one pixel and
+    // leaves as one store into the stage's pixel row.
+    uint32_t wb[8][2];
+    float cmul[8][2], cadd[8][2];
 #pragma unroll
-    for (int ct = 0; ct < 4; ++ct) {
-      if (ct >= ctiles) break;
-      int acc[4] = {0, 0, 0, 0};
-      mma_s8(acc, wa[ct], bfr);
+    for (int j = 0; j < 8; ++j) {
+      const int8_t* w = wk + static_cast<long long>(n0 + 8 * j + g) * s.kpad + 4 * q4;
+      wb[j][0] = __ldg(reinterpret_cast<const uint32_t*>(w));  // < Cout padded to 64
+      wb[j][1] = __ldg(reinterpret_cast<const uint32_t*>(w + 16));
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store_pair<OUT>(stage + crow[ct][h] + m, acc[2 * h], acc[2 * h + 1], cmul[ct][h],
-                        cadd[ct][h], has_add);
+      for (int i = 0; i < 2; ++i) {
+        const int co = n0 + 8 * j + 2 * q4 + i;
+        cmul[j][i] = co < s.cout ? __ldg(mul + co) : 0.f;
+        cadd[j][i] = co < s.cout && has_add ? __ldg(add + co) : 0.f;
+      }
     }
-    tc += 8 * kSWarps;
+    if constexpr (VEC) cp_async_wait<0>();
+    __syncthreads();
+
+    // 2. The int8 halo, one chunk a lane.
+    for (int i = tid; i < halo_rows * t.raw_chunks; i += kSThreads)
+      quantize_chunk<IN>(raw + i * E, halo + i * E, inv);
+    __syncthreads();  // the raw halo is consumed: the stage may be written
+
+    // 3. 16-pixel runs of the tile's rows, one warp each in turn.
+    const int ntiles = (channels + 7) / 8;
+    int tr = 0, tc = 16 * warp;
     while (tc >= t.cols) {
       tc -= t.cols;
       ++tr;
     }
-  }
-  fence_proxy_async();
-  __syncthreads();
-
-  // 4. The stage to the NCHW planes, one thread a run.
-  const int rows = min(t.rows, s.ho - oh0), cols = min(t.cols, s.wo - ow0);
-  const bool whole = t.cols == s.wo;  // the tile's rows are one run of the plane
-  const int runs = whole ? 1 : rows, len = whole ? rows * s.wo : cols;
-  const int bytes = len * static_cast<int>(sizeof(O));
-  O* const out = static_cast<O*>(y);
-  const long long plane = static_cast<long long>(s.ho) * s.wo;
-  bool bulk = false;
-  for (int e = tid; e < channels * runs; e += kSThreads) {
-    const int co_l = e / runs, rr = e - co_l * runs;
-    O* const dst = out + (img * s.cout + n0 + co_l) * plane +
-                   static_cast<long long>(oh0 + rr) * s.wo + ow0;
-    const int8_t* src = stage + co_l * t.stage_stride + rr * t.cols * static_cast<int>(sizeof(O));
-    if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
-      bulk_store(dst, smem_addr(src), bytes);
-      bulk = true;
-    } else {
-      for (int i = 0; i < len; ++i) dst[i] = reinterpret_cast<const O*>(src)[i];
+    while (tr < t.rows) {
+      const int b0 = pixel_base(tr, tc + g), b1 = pixel_base(tr, tc + g + 8);
+      const uint32_t afr[4] = {gather4(halo, b0, off, 0), gather4(halo, b1, off, 0),
+                               gather4(halo, b0, off, 4), gather4(halo, b1, off, 4)};
+      int8_t* const p0 = stage + (tr * t.cols + tc + g) * t.stage_stride + 2 * q4 * kO;
+      int8_t* const p1 = p0 + 8 * t.stage_stride;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= ntiles) break;
+        int acc[4] = {0, 0, 0, 0};
+        mma_s8(acc, afr, wb[j]);
+        store_channel_pair<OUT>(p0 + 8 * j * kO, acc[0], acc[1], cmul[j], cadd[j], has_add);
+        store_channel_pair<OUT>(p1 + 8 * j * kO, acc[2], acc[3], cmul[j], cadd[j], has_add);
+      }
+      tc += 16 * kSWarps;
+      while (tc >= t.cols) {
+        tc -= t.cols;
+        ++tr;
+      }
     }
+    __syncthreads();
+
+    // 4. The stage's pixel rows to the (N, Ho, Wo, Cout) output: a pixel's
+    // channels n0.. are consecutive there, 16-byte runs a thread.
+    constexpr int EO = 16 / kO;
+    const int runs = (channels + EO - 1) / EO;
+    for (int e = tid; e < rows * cols * runs; e += kSThreads) {
+      const int pix = e / runs, c0 = (e - pix * runs) * EO;
+      const int rr = pix / cols, cc = pix - rr * cols;
+      O* const dst = out + ((img * s.ho + oh0 + rr) * static_cast<long long>(s.wo) + ow0 + cc) *
+                               s.cout + n0 + c0;
+      const int8_t* src = stage + (rr * t.cols + cc) * t.stage_stride + c0 * kO;
+      if (c0 + EO <= channels && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int i = 0; i < EO && c0 + i < channels; ++i)
+          dst[i] = reinterpret_cast<const O*>(src)[i];
+      }
+    }
+  } else {
+    // The weights as A fragments of 4 channel tiles (rows n0 + 16*ct + g
+    // and + 8), this lane's two channels' mul and add and stage rows in
+    // each.
+    uint32_t wa[4][4];
+    float cmul[4][2], cadd[4][2];
+    int crow[4][2];
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = n0 + 16 * ct + g + 8 * h;  // < Cout padded to 64: a weight row
+        const int8_t* w = wk + static_cast<long long>(co) * s.kpad + 4 * q4;
+        wa[ct][h] = __ldg(reinterpret_cast<const uint32_t*>(w));
+        wa[ct][2 + h] = __ldg(reinterpret_cast<const uint32_t*>(w + 16));
+        cmul[ct][h] = co < s.cout ? __ldg(mul + co) : 0.f;
+        cadd[ct][h] = co < s.cout && has_add ? __ldg(add + co) : 0.f;
+        crow[ct][h] = (16 * ct + g + 8 * h) * t.stage_stride;
+      }
+    }
+    if constexpr (VEC) cp_async_wait<0>();
+    __syncthreads();
+
+    // 2. The int8 halo, one chunk a lane.
+    for (int i = tid; i < halo_rows * t.raw_chunks; i += kSThreads)
+      quantize_chunk<IN>(raw + i * E, halo + i * E, inv);
+    __syncthreads();  // the raw halo is consumed: the stage may be written
+
+    // 3. 8-pixel runs of the tile's rows, one warp each in turn.
+    const int ctiles = (channels + 15) / 16;
+    int tr = 0, tc = 8 * warp;
+    while (tc >= t.cols) {
+      tc -= t.cols;
+      ++tr;
+    }
+    while (tr < t.rows) {
+      const int base = pixel_base(tr, tc + g);
+      const uint32_t bfr[2] = {gather4(halo, base, off, 0), gather4(halo, base, off, 4)};
+      // pixel of accumulator columns 2*q4, + 1
+      const int m = (tr * t.cols + tc + 2 * q4) * kO;
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct) {
+        if (ct >= ctiles) break;
+        int acc[4] = {0, 0, 0, 0};
+        mma_s8(acc, wa[ct], bfr);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          store_pair<OUT>(stage + crow[ct][h] + m, acc[2 * h], acc[2 * h + 1], cmul[ct][h],
+                          cadd[ct][h], has_add);
+      }
+      tc += 8 * kSWarps;
+      while (tc >= t.cols) {
+        tc -= t.cols;
+        ++tr;
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // 4. The stage to the NCHW planes, one thread a run.
+    const bool whole = t.cols == s.wo;  // the tile's rows are one run of the plane
+    const int runs = whole ? 1 : rows, len = whole ? rows * s.wo : cols;
+    const int bytes = len * kO;
+    const long long plane = static_cast<long long>(s.ho) * s.wo;
+    bool bulk = false;
+    for (int e = tid; e < channels * runs; e += kSThreads) {
+      const int co_l = e / runs, rr = e - co_l * runs;
+      O* const dst = out + (img * s.cout + n0 + co_l) * plane +
+                     static_cast<long long>(oh0 + rr) * s.wo + ow0;
+      const int8_t* src = stage + co_l * t.stage_stride + rr * t.cols * kO;
+      if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+        bulk_store(dst, smem_addr(src), bytes);
+        bulk = true;
+      } else {
+        for (int i = 0; i < len; ++i) dst[i] = reinterpret_cast<const O*>(src)[i];
+      }
+    }
+    // the stage must not be released before the copies have read it
+    if (bulk) bulk_commit_and_wait_read();
   }
-  // the stage must not be released before the copies have read it
-  if (bulk) bulk_commit_and_wait_read();
 }
 
-template <int IN, int OUT>
+template <int IN, int OUT, bool NHWC>
 int launch_stem(const void* x, const int8_t* wk, const float* inv, const float* mul,
                 const float* add, void* y, const Shape& s, int rows, int cols,
                 cudaStream_t stream) {
-  const StemTile t = stem_tile<IN, OUT>(s, rows, cols);
+  const StemTile t = stem_tile<IN, OUT, NHWC>(s, rows, cols);
   const int smem = stem_smem(t);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_h = (s.ho + rows - 1) / rows, tiles_w = (s.wo + cols - 1) / cols;
@@ -1085,8 +1362,11 @@ int launch_stem(const void* x, const int8_t* wk, const float* inv, const float* 
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>((s.cout + kSN - 1) / kSN));
   constexpr int kSize = static_cast<int>(sizeof(typename Src<IN>::T));
-  const bool vec = s.w % (16 / kSize) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  auto kernel = vec ? int8_stem_kernel<IN, OUT, true> : int8_stem_kernel<IN, OUT, false>;
+  // an input row (of one channel, NCHW; of every channel, NHWC) in whole chunks
+  const bool vec = s.w * (NHWC ? s.cin : 1) % (16 / kSize) == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kernel = vec ? int8_stem_kernel<IN, OUT, true, NHWC>
+                     : int8_stem_kernel<IN, OUT, false, NHWC>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1096,16 +1376,28 @@ int launch_stem(const void* x, const int8_t* wk, const float* inv, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int IN>
+template <int IN, bool NHWC>
 int dispatch_stem(int out_type, const void* x, const int8_t* wk, const float* inv,
                   const float* mul, const float* add, void* y, const Shape& s, int rows,
                   int cols, cudaStream_t stream) {
   switch (out_type) {
-    case kF32: return launch_stem<IN, kF32>(x, wk, inv, mul, add, y, s, rows, cols, stream);
-    case kBF16: return launch_stem<IN, kBF16>(x, wk, inv, mul, add, y, s, rows, cols, stream);
-    case kI8: return launch_stem<IN, kI8>(x, wk, inv, mul, add, y, s, rows, cols, stream);
+    case kF32:
+      return launch_stem<IN, kF32, NHWC>(x, wk, inv, mul, add, y, s, rows, cols, stream);
+    case kBF16:
+      return launch_stem<IN, kBF16, NHWC>(x, wk, inv, mul, add, y, s, rows, cols, stream);
+    case kI8:
+      return launch_stem<IN, kI8, NHWC>(x, wk, inv, mul, add, y, s, rows, cols, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int IN>
+int dispatch_stem_layout(bool nhwc, int out_type, const void* x, const int8_t* wk,
+                         const float* inv, const float* mul, const float* add, void* y,
+                         const Shape& s, int rows, int cols, cudaStream_t stream) {
+  return nhwc
+      ? dispatch_stem<IN, true>(out_type, x, wk, inv, mul, add, y, s, rows, cols, stream)
+      : dispatch_stem<IN, false>(out_type, x, wk, inv, mul, add, y, s, rows, cols, stream);
 }
 
 }  // namespace
@@ -1158,10 +1450,29 @@ extern "C" int tpupose_quantize_nhwc(const void* x, int in_type, const float* in
   }
 }
 
-// K2b. xq: (n, h, w, cp) int8 from K2a, cp % 16 == 0. wk: (ceil(cout/64)*64,
+// K2a on a channels-last input. x: (n, h, w, c) contiguous, c % 16 == 0,
+// in_type as tpupose_quantize_nhwc's. y: (n, h, w, c) int8, 16-byte aligned.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int tpupose_quantize_nhwc_cl(const void* x, int in_type, const float* inv,
+                                        int8_t* y, long long elements, void* stream) {
+  if (elements == 0) return 0;
+  if (elements % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (in_type) {
+    case kF32: return launch_quantize_cl<kF32>(x, inv, y, elements / 16, st);
+    case kBF16: return launch_quantize_cl<kBF16>(x, inv, y, elements / 16, st);
+    case kI8: return launch_quantize_cl<kI8>(x, inv, y, elements / 16, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K2b. xq: (n, h, w, cp) int8 (K2a's output, or an int8 channels-last
+// activation), cp % 16 == 0. wk: (ceil(cout/64)*64,
 // kpad) int8 contiguous, kpad = ceil(cp*kh*kw/32)*32, row co holding
 // weight_q[co] in (r, c, ci) order, zeros elsewhere. mul, add: (cout,) f32;
-// add may be null. y: (n, cout, ho, wo) contiguous, out_type 0 f32 / 1 bf16
+// add may be null. y: (n, cout, ho, wo) contiguous, or (n, ho, wo, cout)
+// where nhwc_out, out_type 0 f32 / 1 bf16
 // (dequantize) or 2 int8 (requantize-relu). xq, wk and y 16-byte aligned.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int tpupose_int8_conv_nhwc(const int8_t* xq, const int8_t* wk,
@@ -1169,7 +1480,7 @@ extern "C" int tpupose_int8_conv_nhwc(const int8_t* xq, const int8_t* wk,
                                       int out_type, int n, int cp, int h, int w,
                                       int cout, int kh, int kw, int stride,
                                       int pad_h, int pad_w, int dil, int ho, int wo,
-                                      int kpad, void* stream) {
+                                      int kpad, int nhwc_out, void* stream) {
   const Shape s{n, cp, h, w, cout, kh, kw, stride, pad_h, pad_w, dil, ho, wo,
                     cp * kh * kw, kpad};
   if (static_cast<long long>(n) * ho * wo == 0 || cout == 0) return 0;
@@ -1180,16 +1491,18 @@ extern "C" int tpupose_int8_conv_nhwc(const int8_t* xq, const int8_t* wk,
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (out_type) {
-    case kF32: return launch_gemm<kF32>(xq, wk, mul, add, y, s, st);
-    case kBF16: return launch_gemm<kBF16>(xq, wk, mul, add, y, s, st);
-    case kI8: return launch_gemm<kI8>(xq, wk, mul, add, y, s, st);
+    case kF32: return launch_gemm_layout<kF32>(nhwc_out, xq, wk, mul, add, y, s, st);
+    case kBF16: return launch_gemm_layout<kBF16>(nhwc_out, xq, wk, mul, add, y, s, st);
+    case kI8: return launch_gemm_layout<kI8>(nhwc_out, xq, wk, mul, add, y, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The stem kernel (Cin % 16 != 0 and cin*kh*kw <= 32). Arguments as the
 // gather kernel's (kpad == 32), plus the tile: `rows` output rows by `cols`
-// output columns (cols % 16 == 0) per block, for 64 output channels.
+// output columns (cols % 16 == 0) per block, for 64 output channels; and
+// nhwc: x is (n, h, w, cin) and y (n, ho, wo, cout), channels-last, instead
+// of (n, cin, h, w) and (n, cout, ho, wo).
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // an error without launching where the tile's shared memory passes 227 KB.
 extern "C" int tpupose_int8_stem(const void* x, int in_type, const int8_t* wk,
@@ -1198,7 +1511,7 @@ extern "C" int tpupose_int8_stem(const void* x, int in_type, const int8_t* wk,
                                  int n, int cin, int h, int w, int cout,
                                  int kh, int kw, int stride, int pad_h,
                                  int pad_w, int dil, int ho, int wo, int kpad,
-                                 int rows, int cols, void* stream) {
+                                 int rows, int cols, int nhwc, void* stream) {
   const Shape s{n, cin, h, w, cout, kh, kw, stride, pad_h, pad_w, dil, ho, wo,
                 cin * kh * kw, kpad};
   if (static_cast<long long>(n) * ho * wo == 0 || cout == 0) return 0;
@@ -1207,9 +1520,15 @@ extern "C" int tpupose_int8_stem(const void* x, int in_type, const int8_t* wk,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (in_type) {
-    case kF32: return dispatch_stem<kF32>(out_type, x, wk, inv, mul, add, y, s, rows, cols, st);
-    case kBF16: return dispatch_stem<kBF16>(out_type, x, wk, inv, mul, add, y, s, rows, cols, st);
-    case kI8: return dispatch_stem<kI8>(out_type, x, wk, inv, mul, add, y, s, rows, cols, st);
+    case kF32:
+      return dispatch_stem_layout<kF32>(nhwc, out_type, x, wk, inv, mul, add, y, s, rows,
+                                        cols, st);
+    case kBF16:
+      return dispatch_stem_layout<kBF16>(nhwc, out_type, x, wk, inv, mul, add, y, s, rows,
+                                         cols, st);
+    case kI8:
+      return dispatch_stem_layout<kI8>(nhwc, out_type, x, wk, inv, mul, add, y, s, rows,
+                                       cols, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

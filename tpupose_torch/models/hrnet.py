@@ -1,11 +1,13 @@
-"""HRNet top-down 2D pose network as an nn.Module (NCHW inside).
+"""HRNet top-down 2D pose network as an nn.Module (in its input's layout).
 
 Counterpart of `tpupose/models/hrnet.py`. Module names equal the official
 `pose_hrnet` state_dict keys (conv1/bn1/.../layer1.N.convK/transitionK/
 stageK.M.branches.B.L/fuse_layers.I.J/final_layer), so an official `.pth`
 loads with no renaming. The forward takes an (N, 3, H, W) normalized image
-and returns (N, J, H/4, W/4) f32 heatmaps, the layout the decode kernel
-reads.
+and returns (N, J, H/4, W/4) f32 heatmaps in the input's layout: the
+served path gives it a channels-last view of its NHWC crops (the JAX
+package's NHWC) and makes the heatmaps NCHW-contiguous once, the layout
+the decode kernel reads.
 """
 from __future__ import annotations
 
@@ -207,7 +209,8 @@ def _transition(cin, cout):
 
 
 class HRNet(nn.Module):
-    """pose_hrnet: (N, 3, H, W) -> (N, J, H/4, W/4) f32 heatmaps."""
+    """pose_hrnet: (N, 3, H, W) -> (N, J, H/4, W/4) f32 heatmaps, in the
+    input's layout."""
 
     def __init__(self, cfg: HRNetConfig):
         super().__init__()
@@ -268,11 +271,15 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def normalize_image(x, value_scale=255.0):
     """RGB (..., 3) in [0, value_scale] -> ImageNet-normalized. Floating
-    inputs keep their dtype (a bf16 crop stays bf16); integers become f32."""
+    inputs keep their dtype (a bf16 crop stays bf16); integers become f32.
+    The result is contiguous whatever x's strides: its first operation
+    writes it so, at no extra pass (the crop products leave W-major
+    memory, and HRNet reads the crops' channels-last view)."""
     if not x.is_floating_point():
         x = x.to(torch.float32)
     dt = x.dtype
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
-    x = x / torch.tensor(value_scale, dtype=dt, device=x.device)
+    x = torch.div(x, torch.tensor(value_scale, dtype=dt, device=x.device),
+                  out=torch.empty(x.shape, dtype=dt, device=x.device))
     return (x - mean.to(dt)) * (1.0 / std).to(dt)

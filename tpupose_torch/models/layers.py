@@ -1,9 +1,14 @@
 """Conv-net primitives for the port's networks.
 
-Counterpart of `tpupose/models/layers.py`. Inside the networks activations
-are NCHW and conv weights OIHW (PyTorch's layout); module and parameter
-names follow torch state_dict conventions (`weight`, `bias`,
-`running_mean`, `running_var`), as the JAX package's trees do.
+Counterpart of `tpupose/models/layers.py`. Activations have PyTorch's
+logical (N, C, H, W) shape and conv weights (O, I, H, W); module and
+parameter names follow torch state_dict conventions (`weight`, `bias`,
+`running_mean`, `running_var`), as the JAX package's trees do. Every layer
+follows the memory layout of its input (`ops.layout`): a channels-last
+input (the JAX package's NHWC, what `Pipeline` serves) gives a
+channels-last output, an NCHW input an NCHW one. `to_channels_last`
+restrides a model's float conv weights once, so that the served convs find
+their weights in the input's layout.
 
 * `Conv2d` pads k//2 on both sides (torch padding, also at stride 2) and
   computes in the input's dtype, casting its weights as the JAX
@@ -28,15 +33,31 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpupose_torch.ops.int8_conv import int8_conv, pack_weight
+from tpupose_torch.ops.layout import memory_format_of
 
 
 def conv_apply(weight, bias, x, stride=1, dilation=1):
-    """Conv with torch padding (k//2 per side) in x's dtype."""
+    """Conv with torch padding (k//2 per side) in x's dtype and layout (the
+    weight is copied only where its layout differs from x's)."""
     kh, kw = weight.shape[2], weight.shape[3]
+    w = weight.to(x.dtype).contiguous(memory_format=memory_format_of(x))
     return F.conv2d(
-        x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+        x, w, None if bias is None else bias.to(x.dtype),
         stride=stride, padding=(kh // 2, kw // 2), dilation=dilation,
     )
+
+
+@torch.no_grad()
+def to_channels_last(model: nn.Module) -> nn.Module:
+    """Restride every float conv weight of `model` to channels-last, in
+    place, and return the model: the served layout, done once. Values,
+    shapes and state_dict keys stay the same; int8 buffers (`weight_q`) are
+    left contiguous, so that a bundle written from the model holds the same
+    bytes as one from an NCHW model."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last)
+    return model
 
 
 class BNStatRecorder:
@@ -134,8 +155,8 @@ class SyncBNStatRecorder(BNStatRecorder):
 
 
 def bn_apply(bn, x, eps=1e-5):
-    """Batch norm (NCHW) with frozen statistics, or with the batch's own
-    while a `BNStatRecorder` is active."""
+    """Batch norm over dimension 1 with frozen statistics, or with the
+    batch's own while a `BNStatRecorder` is active."""
     if BNStatRecorder.active is not None:
         m, v = BNStatRecorder.active.observe(bn, x)
     else:
@@ -324,18 +345,20 @@ def fold_batchnorm(model: nn.Module, dtype=None) -> nn.Module:
 
 
 def max_pool(x, window=2, stride=2):
-    """Max pool with TF 'SAME' padding (NCHW), like the JAX reduce_window."""
+    """Max pool with TF 'SAME' padding, like the JAX reduce_window, in x's
+    layout (`F.pad` may return another)."""
+    fmt = memory_format_of(x)
     pads = []
     for size in (x.shape[3], x.shape[2]):
         out = -(-size // stride)
         total = max((out - 1) * stride + window - size, 0)
         pads += [total // 2, total - total // 2]
-    x = F.pad(x, pads, value=-torch.inf)
+    x = F.pad(x, pads, value=-torch.inf).contiguous(memory_format=fmt)
     return F.max_pool2d(x, window, stride)
 
 
 def upsample_nearest(x, factor):
-    """Nearest-neighbour upsample by an integer factor (NCHW)."""
+    """Nearest-neighbour upsample by an integer factor (x's layout)."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 

@@ -52,6 +52,7 @@ from tpupose_torch.models.layers import (
     QuantConv2d,
 )
 from tpupose_torch.ops.int8_conv import int8_conv
+from tpupose_torch.ops.layout import memory_format_of
 from tpupose_torch.runtime.graphs import CapturedUpdate, capturable
 
 __all__ = [
@@ -162,8 +163,10 @@ def _quantize_conv(conv, absmax, weight_mse=False):
             w_scale = best_s
         else:
             w_scale = _div127(a)
+        # contiguous whatever the float weight's layout: the same buffers, and
+        # bundle bytes, from a channels-last model as from an NCHW one
         weight_q = torch.clamp(torch.round(w / w_scale[:, None, None, None]),
-                               -127, 127).to(torch.int8)
+                               -127, 127).to(torch.int8).contiguous()
         x_scale = max(float(absmax) / 127.0, 1e-12)
         bias = None if conv.bias is None else conv.bias.detach().to(torch.float32).clone()
         return QuantConv2d(
@@ -231,7 +234,10 @@ def _dequant_conv(p, xq, dtype):
 def quantized_basic_block(block, x):
     """int8-resident HRNet basic block (conv1 -> relu -> conv2 -> +skip ->
     relu): conv1's epilogue requantizes straight to conv2's int8 input, so
-    the intermediate moves as int8. The residual stays in x's dtype."""
+    the intermediate moves as int8. The residual stays in x's dtype. On a
+    channels-last x the int8 intermediate is channels-last too, and conv2
+    reads it without a quantize pass (no K2a on the card), as the JAX
+    package's int8-resident blocks read their NHWC int8 input."""
     c1, c2 = block.conv1, block.conv2
     z = _dequant_conv(c2, _requant_conv(c1, c2, x), x.dtype)
     skip = x if block.downsample is None else block.downsample(x)
@@ -240,7 +246,8 @@ def quantized_basic_block(block, x):
 
 def quantized_bottleneck(block, x):
     """int8-resident bottleneck (conv1 -> relu -> conv2 -> relu -> conv3):
-    both inter-conv tensors stay int8."""
+    both inter-conv tensors stay int8 (channels-last for a channels-last x:
+    conv2 and conv3 run without K2a on the card)."""
     c1, c2, c3 = block.conv1, block.conv2, block.conv3
     out = _dequant_conv(c3, _requant_conv(c2, c3, _requant_conv(c1, c2, x)), x.dtype)
     skip = x if block.downsample is None else block.downsample(x)
@@ -310,10 +317,10 @@ def fake_quant_conv_apply(conv: FakeQuantConv2d, x):
     their per-output-channel absmax / 127 scale (gradient-stopped) with
     straight-through gradients, the input at `fq_x_scale` with LSQ
     gradients, an f32 convolution, the bias added in f32, and the result in
-    x's dtype."""
+    x's dtype and layout."""
     w = conv.weight.to(torch.float32)  # OIHW
     ws = torch.clamp(_div127(torch.amax(torch.abs(w.detach()), dim=(1, 2, 3))), min=1e-12)
-    wq = _ste_qdq(w, ws[:, None, None, None])
+    wq = _ste_qdq(w, ws[:, None, None, None]).contiguous(memory_format=memory_format_of(x))
     xq = _lsq_qdq(x.to(torch.float32), conv.fq_x_scale)
     kh, kw = w.shape[2], w.shape[3]
     y = F.conv2d(xq, wq, None, conv.stride, (kh // 2, kw // 2), conv.dilation)
@@ -368,8 +375,9 @@ def distill_qat(apply_fn, folded, batches, steps=200, lr=1e-5, skip_ids=None, lo
       skip_ids: convs to keep float (default: none beyond uncalibrated).
       log: optional callable(step, loss), called every steps // 10 steps.
 
-    Returns the requantized int8 serving module. The loss is
-    `distill_loss`. Every parameter of the fake-quant copy trains: weights,
+    Returns the requantized int8 serving module, its float convs' weights
+    NCHW (the training layout; `Pipeline` restrides what it serves). The
+    loss is `distill_loss`. Every parameter of the fake-quant copy trains: weights,
     biases, the float convs and each `fq_x_scale`.
 
     A step is one `runtime.graphs.CapturedUpdate`, the port's counterpart
@@ -382,10 +390,12 @@ def distill_qat(apply_fn, folded, batches, steps=200, lr=1e-5, skip_ids=None, lo
     """
     with torch.no_grad():
         # clones are normal tensors even where the batches were made under
-        # inference_mode, which autograd could not save for backward
-        batches = [b.clone() for b in batches]
+        # inference_mode, which autograd could not save for backward; NCHW,
+        # as every training path trains (a served model's channels-last
+        # batches included)
+        batches = [b.clone(memory_format=torch.contiguous_format) for b in batches]
     scales = calibrate(lambda x: apply_fn(folded, x), *batches)
-    fq = fake_quant_convs(folded, scales, skip_ids or ())
+    fq = fake_quant_convs(folded, scales, skip_ids or ()).to(memory_format=torch.contiguous_format)
     with torch.no_grad():
         targets = [[t.to(torch.float32) for t in _as_list(apply_fn(folded, b))]
                    for b in batches]

@@ -1,11 +1,13 @@
-"""YOLOv3 person detector as an nn.Module (NCHW inside).
+"""YOLOv3 person detector as an nn.Module (in its input's layout).
 
 Counterpart of `tpupose/models/yolov3.py`: Darknet-53 backbone, three
 detection scales with the COCO anchors, person-class decode, top-K and
 greedy NMS. Convolutions keep darknet file order (`conv0` .. `conv74`),
 each a module with `conv` (and `bn` where darknet has batch norm), so the
 state_dict keys are `conv{i}.conv.weight`, `conv{i}.conv.bias` and
-`conv{i}.bn.*`, as in the JAX package's trees.
+`conv{i}.bn.*`, as in the JAX package's trees. `detect_people` hands the
+network a channels-last view of its NHWC images (`ops.layout`), so that
+the network computes in the JAX package's NHWC.
 """
 from __future__ import annotations
 
@@ -132,7 +134,8 @@ class ConvBlock(nn.Module):
 
 class YOLOv3(nn.Module):
     """Backbone + heads: (N, 3, S, S) in [0, 1] -> three raw f32 head
-    outputs (N, A*(5+C), S/32, S/32), (stride 16), (stride 8)."""
+    outputs (N, A*(5+C), S/32, S/32), (stride 16), (stride 8), in the
+    input's layout."""
 
     def __init__(self, cfg: YoloConfig):
         super().__init__()
@@ -187,9 +190,10 @@ def yolov3_init(cfg: YoloConfig, generator: torch.Generator) -> YOLOv3:
 
 
 def decode_detections(cfg: YoloConfig, heads, class_id=0):
-    """Raw NCHW head outputs -> (N, P, 4) xyxy boxes in input pixels and
-    (N, P) scores = objectness * class probability (anchor order as the JAX
-    package's NHWC reshape)."""
+    """Raw (N, A*(5+C), h, w) head outputs, NCHW or channels-last -> (N, P,
+    4) xyxy boxes in input pixels and (N, P) scores = objectness * class
+    probability (anchor order as the JAX package's NHWC reshape; on a
+    channels-last head the NHWC permute is free)."""
     size = cfg.input_size
     all_boxes, all_scores = [], []
     for head, anchors in zip(heads, cfg.anchors):
@@ -217,11 +221,13 @@ def decode_detections(cfg: YoloConfig, heads, class_id=0):
 
 
 def prepare_yolo_images(cfg: YoloConfig, x):
-    """(N, H, W, 3) floats in [0, 1] -> (N, S, S, 3) network input."""
+    """(N, H, W, 3) floats in [0, 1] -> (N, S, S, 3) network input,
+    contiguous: the resize's products leave W-major memory, and the
+    network reads the images' channels-last view (`detect_people`)."""
     s = cfg.input_size
     if cfg.letterbox:
-        return letterbox_resize(x, s, fill=0.5)
-    return resize_bilinear(x, (s, s))
+        return letterbox_resize(x, s, fill=0.5).contiguous()
+    return resize_bilinear(x, (s, s)).contiguous()
 
 
 def yolo_box_mapping(cfg: YoloConfig, image_hw, device=None):
@@ -255,7 +261,8 @@ def detect_people(model: YOLOv3, cfg: YoloConfig, images, image_hw,
       boxes (N, K, 4) in original-image pixels (clipped), scores (N, K),
       valid (N, K) bool.
     """
-    heads = model(images.permute(0, 3, 1, 2).contiguous(), compute_dtype)
+    # a channels-last view of the NHWC images: no layout copy
+    heads = model(images.permute(0, 3, 1, 2), compute_dtype)
     boxes, scores = decode_detections(cfg, heads)
     k = cfg.max_candidates
     # Stable sort: equal scores keep the lower index first, as lax.top_k.

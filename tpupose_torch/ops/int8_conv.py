@@ -3,7 +3,9 @@
 Counterpart of the int8 conv ops of `tpupose/models/quantize.py`
 (`_quant_input`, `_int8_conv`, the dequantize epilogue of
 `quantized_conv_apply`, `_requant_relu`), which the JAX package leaves to
-XLA. Activations are NCHW, weights OIHW int8. One call computes
+XLA. Activations are (N, C, H, W) tensors, NCHW or channels-last
+(`ops.layout`); the output has the input's layout. Weights are OIHW int8.
+One call computes
 
     acc = conv(q(x), weight_q)        int32, stride s, dilation d, pad k//2
     q(x) = clamp(round(x * inv), -127, 127) for a float x (0 for NaN),
@@ -19,18 +21,29 @@ with `mul` and `add` per output channel (`add` may be None).
   the epilogue, each rounding as the JAX package does.
 * `int8_conv_cuda` runs the hand-written kernels of
   `tpupose_torch/csrc/int8_conv.cu` on the weights in the layout they read
-  (`pack_weight`). For Cin % 16 == 0 (every conv of the main path but the
-  two RGB stems) that is two launches: K2a quantizes x once into a
-  channels-last int8 copy (`quantize_nhwc_plain` is its plain version) and
-  K2b, an implicit GEMM over it, computes the conv and the epilogue. A conv
-  whose Cin*kh*kw fits one K step of 32 (`stem_path`: the stems' 3 x 3 x 3)
-  goes to the stem kernel, which quantizes an input halo once into shared
-  memory (`stem_tile` sizes its blocks); any other Cin to the gather
-  kernel, which quantizes as it loads NCHW. `quantize_nhwc_cuda`,
-  `gemm_nhwc_cuda` and `gather_conv_cuda` launch K2a, K2b and the gather
-  kernel alone. `launches` counts K2b, stem and gather launches, one per
-  conv; `stem_launches` the stem kernel's alone; `quantize_launches` K2a
-  launches.
+  (`pack_weight`), by the input's layout:
+  - NCHW (contiguous). For Cin % 16 == 0 (every conv of the main path but
+    the two RGB stems) two launches: K2a quantizes x once into a
+    channels-last int8 copy through a shared-memory transpose
+    (`quantize_nhwc_plain` is its plain version) and K2b, an implicit GEMM
+    over it, computes the conv and the epilogue into an NCHW output. A conv
+    whose Cin*kh*kw fits one K step of 32 (`stem_path`: the stems' 3 x 3 x
+    3) goes to the stem kernel, which quantizes an input halo once into
+    shared memory (`stem_tile` sizes its blocks); any other Cin to the
+    gather kernel, which quantizes as it loads NCHW.
+  - Channels-last, the served layout. For Cin % 16 == 0, K2a's elementwise
+    mode quantizes the NHWC input into an NHWC int8 copy, or, for an int8
+    input, nothing runs and K2b reads the input in place; K2b writes a
+    channels-last output. The stem kernel's NHWC mode reads the stems'
+    channels-last input and writes a channels-last output. Any other Cin
+    raises: the gather kernel reads NCHW only, and takes a channels-last
+    input only through the caller's own conversion.
+  `quantize_nhwc_cuda`, `gemm_nhwc_cuda` and `gather_conv_cuda` launch K2a,
+  K2b and the gather kernel alone. `launches` counts K2b, stem and gather
+  launches, one per conv; `stem_launches` the stem kernel's alone;
+  `nhwc_launches` the K2b and stem launches that wrote a channels-last
+  output; `quantize_launches` K2a launches, `quantize_cl_launches` those of
+  its elementwise mode.
 * `int8_conv` is what the models call: a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel, which raises rather than fall back.
 """
@@ -41,13 +54,21 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from tpupose_torch.ops.layout import is_channels_last, memory_format_of
+
 #: Launches of K2b and of the gather kernel, one per conv run on the card
 #: (reset freely; read by chip_smoke.py).
 launches = 0
 #: Launches of K2a, the quantize-to-channels-last pass (reset freely).
 quantize_launches = 0
+#: Launches of K2a's elementwise mode on a channels-last input, also
+#: counted in `quantize_launches` (reset freely).
+quantize_cl_launches = 0
 #: Launches of the stem kernel, also counted in `launches` (reset freely).
 stem_launches = 0
+#: Launches of K2b and of the stem kernel that wrote a channels-last
+#: output, also counted in `launches` (reset freely).
+nhwc_launches = 0
 
 #: Tile of the kernel's weight operand: rows padded to BLOCK_N, K to BLOCK_K.
 BLOCK_N = 64
@@ -118,9 +139,10 @@ def quantize_input(x, inv):
 
 
 def quantize_nhwc_plain(x, inv):
-    """K2a's plain version: (N, C, H, W) f32 / bf16 / int8 -> (N, H, W, Cp)
-    int8, Cp = C rounded up to 16, pad channels 0. A float x is quantized
-    as `quantize_input`; an int8 x is copied through."""
+    """K2a's plain version, in either of its modes: (N, C, H, W) f32 / bf16
+    / int8, NCHW or channels-last -> (N, H, W, Cp) int8, Cp = C rounded up
+    to 16, pad channels 0. A float x is quantized as `quantize_input`; an
+    int8 x is copied through."""
     xq = x if x.dtype == torch.int8 else quantize_input(x, inv)
     n, c, h, w = xq.shape
     out = torch.zeros((n, h, w, _round_up(c, CHANNELS)), dtype=torch.int8,
@@ -131,12 +153,15 @@ def quantize_nhwc_plain(x, inv):
 
 def conv_exact(xq, weight_q, stride=1, dilation=1):
     """int8 x int8 -> int32 conv, exact: float64 on int8 values. cuDNN is
-    kept out on the card, whose algorithms may transform the operands."""
+    kept out on the card, whose algorithms may transform the operands. The
+    result has xq's layout."""
     kh, kw = weight_q.shape[2], weight_q.shape[3]
+    fmt = memory_format_of(xq)
     with torch.backends.cudnn.flags(enabled=False):
-        y = F.conv2d(xq.to(torch.float64), weight_q.to(torch.float64),
+        y = F.conv2d(xq.to(torch.float64),
+                     weight_q.to(torch.float64).contiguous(memory_format=fmt),
                      stride=stride, padding=(kh // 2, kw // 2), dilation=dilation)
-    return y.to(torch.int32)
+    return y.to(torch.int32).contiguous(memory_format=fmt)
 
 
 def epilogue(acc, mul, add, out_dtype):
@@ -152,7 +177,8 @@ def epilogue(acc, mul, add, out_dtype):
 
 
 def int8_conv_plain(x, weight_q, inv, mul, add, out_dtype, stride=1, dilation=1):
-    """The plain torch version of the kernel (see the module docstring)."""
+    """The plain torch version of the kernel (see the module docstring),
+    its result in x's layout."""
     xq = x if x.dtype == torch.int8 else quantize_input(x, inv)
     return epilogue(conv_exact(xq, weight_q, stride, dilation), mul, add, out_dtype)
 
@@ -169,9 +195,10 @@ def _kernel(name, argtypes):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GATHER_ARGS = [_P, _I] + [_P] * 5 + [_I] * 15 + [_P]
-_STEM_ARGS = [_P, _I] + [_P] * 5 + [_I] * 17 + [_P]
+_STEM_ARGS = [_P, _I] + [_P] * 5 + [_I] * 18 + [_P]
 _QUANTIZE_ARGS = [_P, _I, _P, _P] + [_I] * 5 + [_P]
-_GEMM_ARGS = [_P] * 5 + [_I] * 15 + [_P]
+_QUANTIZE_CL_ARGS = [_P, _I, _P, _P, ctypes.c_longlong, _P]
+_GEMM_ARGS = [_P] * 5 + [_I] * 16 + [_P]
 
 
 def _check_launch(rc, what):
@@ -188,18 +215,22 @@ def _check_inv(x, inv):
 def quantize_nhwc_cuda(x, inv):
     """One launch of K2a: `quantize_nhwc_plain` on the card.
 
-    x: (N, C, H, W) contiguous f32, bf16 or int8 on a CUDA device; inv: one
-    f32 1 / x_scale on it (ignored for an int8 x). Returns the (N, H, W, Cp)
-    int8 copy. Launches on the current stream, does not synchronize, and
-    raises on a failed launch.
+    x: (N, C, H, W) f32, bf16 or int8 on a CUDA device, either contiguous
+    NCHW (the transposing mode, any C) or channels-last with C % 16 == 0
+    (the elementwise mode); inv: one f32 1 / x_scale on it (ignored for an
+    int8 x). Returns the (N, H, W, Cp) int8 copy. Launches on the current
+    stream, does not synchronize, and raises on any other input and on a
+    failed launch.
     """
-    global quantize_launches
+    global quantize_launches, quantize_cl_launches
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"quantize_nhwc_cuda needs CUDA tensors, got {dev}")
-    if x.dtype not in _CODES or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"quantize_nhwc_cuda needs a contiguous NCHW f32 / bf16 / "
-                         f"int8 input, got {tuple(x.shape)} {x.dtype}")
+    nhwc = is_channels_last(x) and channels_last(x.shape[1])
+    if x.dtype not in _CODES or x.dim() != 4 or not (x.is_contiguous() or nhwc):
+        raise ValueError(f"quantize_nhwc_cuda needs a contiguous NCHW, or a channels-last "
+                         f"16k-channel, f32 / bf16 / int8 input, got {tuple(x.shape)} "
+                         f"{x.dtype} strides {x.stride()}")
     _check_inv(x, inv)
     n, c, h, w = x.shape
     cp = _round_up(c, CHANNELS)
@@ -209,13 +240,18 @@ def quantize_nhwc_cuda(x, inv):
     y = torch.empty((n, h, w, cp), dtype=torch.int8, device=dev)
     if y.numel() == 0:
         return y
-    fn = _kernel("tpupose_quantize_nhwc", _QUANTIZE_ARGS)
+    inv_p = None if x.dtype == torch.int8 else inv.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), _CODES[x.dtype],
-                None if x.dtype == torch.int8 else inv.data_ptr(), y.data_ptr(),
-                n, c, h, w, cp, torch.cuda.current_stream().cuda_stream)
+        if nhwc:
+            rc = _kernel("tpupose_quantize_nhwc_cl", _QUANTIZE_CL_ARGS)(
+                x.data_ptr(), _CODES[x.dtype], inv_p, y.data_ptr(), y.numel(), stream)
+        else:
+            rc = _kernel("tpupose_quantize_nhwc", _QUANTIZE_ARGS)(
+                x.data_ptr(), _CODES[x.dtype], inv_p, y.data_ptr(), n, c, h, w, cp, stream)
     _check_launch(rc, "int8_conv quantize (K2a)")
     quantize_launches += 1
+    quantize_cl_launches += nhwc
     return y
 
 
@@ -247,13 +283,21 @@ def _conv_geometry(what, dev, cin, h, w, weight_k, kernel_hw, mul, add, stride,
     return ho, wo, kpad
 
 
+def _output(n, cout, ho, wo, out_dtype, dev, nhwc_out):
+    """A new (N, Cout, Ho, Wo) tensor, channels-last where `nhwc_out`."""
+    fmt = torch.channels_last if nhwc_out else torch.contiguous_format
+    return torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev, memory_format=fmt)
+
+
 def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
-                   dilation=1):
-    """One launch of K2b: the int8 conv of K2a's (N, H, W, Cin) int8 output
-    (Cin % 16 == 0) with the epilogue, to a new (N, Cout, Ho, Wo) tensor.
-    Arguments as `int8_conv_cuda`'s. Launches on the current stream, does
-    not synchronize, and raises on a failed launch."""
-    global launches
+                   dilation=1, nhwc_out=False):
+    """One launch of K2b: the int8 conv of an (N, H, W, Cin) int8 tensor
+    (Cin % 16 == 0: K2a's output, or the NHWC view of an int8 channels-last
+    activation) with the epilogue, to a new (N, Cout, Ho, Wo) tensor, NCHW,
+    or channels-last where `nhwc_out`. Other arguments as
+    `int8_conv_cuda`'s. Launches on the current stream, does not
+    synchronize, and raises on a failed launch."""
+    global launches, nhwc_launches
     dev = xq.device
     if dev.type != "cuda":
         raise ValueError(f"gemm_nhwc_cuda needs CUDA tensors, got {dev}")
@@ -268,7 +312,7 @@ def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
     ho, wo, kpad = _conv_geometry("gemm_nhwc_cuda", dev, cin, h, w, weight_k,
                                   kernel_hw, mul, add, stride, dilation)
     cout = mul.shape[0]
-    y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev)
+    y = _output(n, cout, ho, wo, out_dtype, dev, nhwc_out)
     if n == 0:
         return y
     fn = _kernel("tpupose_int8_conv_nhwc", _GEMM_ARGS)
@@ -276,51 +320,61 @@ def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
         rc = fn(xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(),
                 None if add is None else add.data_ptr(), y.data_ptr(),
                 _CODES[out_dtype], n, cin, h, w, cout, kh, kw, stride, kh // 2,
-                kw // 2, dilation, ho, wo, kpad, torch.cuda.current_stream().cuda_stream)
+                kw // 2, dilation, ho, wo, kpad, int(nhwc_out),
+                torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(rc, "int8_conv GEMM (K2b)")
     launches += 1
+    nhwc_launches += nhwc_out
     return y
 
 
-def _nchw_input(what, x, inv, out_dtype):
-    """Checks an NCHW conv input; returns its device."""
+def _cuda_input(what, x, inv, out_dtype, nchw=True):
+    """Checks a conv input, a contiguous NCHW one where `nchw`; returns its
+    device."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {dev}")
     if x.dtype not in _CODES or out_dtype not in _CODES:
         raise TypeError(f"{what} takes f32 / bf16 / int8, got {x.dtype} -> {out_dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous NCHW input, got {tuple(x.shape)}")
+    if x.dim() != 4 or (nchw and not x.is_contiguous()):
+        raise ValueError(f"{what} needs a contiguous NCHW input, got {tuple(x.shape)} "
+                         f"strides {x.stride()}")
     _check_inv(x, inv)
     return dev
 
 
-def _nchw_launch(what, dev, stem, x, weight_k, kernel_hw, inv, mul, add, out_dtype,
-                 stride, dilation):
+def _direct_launch(what, dev, stem, x, weight_k, kernel_hw, inv, mul, add, out_dtype,
+                   stride, dilation, nhwc=False):
     """One launch of the stem kernel (`stem`) or of the gather kernel on an
-    NCHW input that `_nchw_input` has passed (on `dev`), to a new
-    (N, Cout, Ho, Wo) tensor."""
-    global launches, stem_launches
+    input that `_cuda_input` has passed (on `dev`), NCHW, or channels-last
+    where `nhwc` (the stem kernel's NHWC mode), to a new (N, Cout, Ho, Wo)
+    tensor in the input's layout."""
+    global launches, stem_launches, nhwc_launches
     n, cin, h, w = x.shape
     kh, kw = kernel_hw
     ho, wo, kpad = _conv_geometry(what, dev, cin, h, w, weight_k, kernel_hw, mul, add,
                                   stride, dilation)
     cout = mul.shape[0]
-    y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev)
+    y = _output(n, cout, ho, wo, out_dtype, dev, nhwc)
     if n == 0:
         return y
     args = (x.data_ptr(), _CODES[x.dtype], weight_k.data_ptr(),
             None if x.dtype == torch.int8 else inv.data_ptr(), mul.data_ptr(),
             None if add is None else add.data_ptr(), y.data_ptr(),
             _CODES[out_dtype], n, cin, h, w, cout, kh, kw, stride, kh // 2,
-            kw // 2, dilation, ho, wo, kpad) + (stem_tile(ho, wo) if stem else ())
+            kw // 2, dilation, ho, wo, kpad)
+    if stem:
+        args += (*stem_tile(ho, wo), int(nhwc))
+    elif nhwc:
+        raise ValueError(f"{what}: the gather kernel reads NCHW only")
     fn = (_kernel("tpupose_int8_stem", _STEM_ARGS) if stem
           else _kernel("tpupose_int8_conv", _GATHER_ARGS))
     with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(rc, "int8_conv stem" if stem else "int8_conv gather")
     launches += 1
     stem_launches += stem
+    nhwc_launches += nhwc
     return y
 
 
@@ -329,19 +383,23 @@ def gather_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
     """One launch of the gather kernel, which takes any Cin (the main path
     sends it none since the stems have their own kernel; chip_smoke.py
     times it there). Arguments as `int8_conv_cuda`'s."""
-    dev = _nchw_input("gather_conv_cuda", x, inv, out_dtype)
-    return _nchw_launch("gather_conv_cuda", dev, False, x, weight_k, kernel_hw, inv, mul,
-                        add, out_dtype, stride, dilation)
+    dev = _cuda_input("gather_conv_cuda", x, inv, out_dtype)
+    return _direct_launch("gather_conv_cuda", dev, False, x, weight_k, kernel_hw, inv, mul,
+                          add, out_dtype, stride, dilation)
 
 
 def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
                    dilation=1):
-    """One int8 conv on the card: K2a then K2b where `channels_last(Cin)`,
-    one launch of the stem kernel where `stem_path(Cin, kh, kw)`, else one
-    launch of the gather kernel.
+    """One int8 conv on the card, its output in x's layout. NCHW x: K2a
+    then K2b where `channels_last(Cin)`, one launch of the stem kernel where
+    `stem_path(Cin, kh, kw)`, else one launch of the gather kernel.
+    Channels-last x: K2a's elementwise mode (none for an int8 x) then K2b,
+    both NHWC, where `channels_last(Cin)`; the stem kernel's NHWC mode
+    where `stem_path(Cin, kh, kw)`; else it raises.
 
     Args:
-      x: (N, Cin, H, W) contiguous f32, bf16 or int8 on a CUDA device.
+      x: (N, Cin, H, W) f32, bf16 or int8 on a CUDA device, contiguous NCHW
+        or channels-last.
       weight_k: `pack_weight(weight_q)`, on the same device.
       kernel_hw: (kh, kw) of weight_q.
       inv: 1-element f32 tensor 1 / x_scale (ignored for an int8 x).
@@ -349,25 +407,37 @@ def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
       out_dtype: torch.float32 / torch.bfloat16 (dequantize) or torch.int8
         (requantize-relu).
     Launches on the current stream, does not synchronize, and raises on
-    anything the kernels do not take and on a failed launch of either pass.
+    anything the kernels do not take (an input neither contiguous NCHW nor
+    channels-last among it) and on a failed launch of either pass.
     """
-    dev = _nchw_input("int8_conv_cuda", x, inv, out_dtype)
+    nhwc = is_channels_last(x)
+    dev = _cuda_input("int8_conv_cuda", x, inv, out_dtype, nchw=not nhwc)
     cin = x.shape[1]
     if channels_last(cin):
         _conv_geometry("int8_conv_cuda", dev, cin, x.shape[2], x.shape[3], weight_k,
                        kernel_hw, mul, add, stride, dilation)
-        return gemm_nhwc_cuda(quantize_nhwc_cuda(x, inv), weight_k, kernel_hw, mul,
-                              add, out_dtype, stride, dilation)
-    return _nchw_launch("int8_conv_cuda", dev, stem_path(cin, *kernel_hw), x, weight_k,
-                        kernel_hw, inv, mul, add, out_dtype, stride, dilation)
+        # an int8 channels-last activation is K2b's operand as it is
+        xq = (x.permute(0, 2, 3, 1) if nhwc and x.dtype == torch.int8
+              else quantize_nhwc_cuda(x, inv))
+        return gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride,
+                              dilation, nhwc_out=nhwc)
+    stem = stem_path(cin, *kernel_hw)
+    if nhwc and not stem:
+        raise ValueError(f"int8_conv_cuda: no kernel takes a channels-last input of "
+                         f"{cin} channels (the gather kernel reads NCHW); convert it "
+                         f"with .contiguous() first")
+    return _direct_launch("int8_conv_cuda", dev, stem, x, weight_k, kernel_hw, inv, mul, add,
+                          out_dtype, stride, dilation, nhwc=nhwc)
 
 
 def int8_conv(x, weight_q, weight_k, inv, mul, add, out_dtype, stride=1,
               dilation=1):
     """Dispatch for the models: the plain version for a CPU tensor, the
-    CUDA kernel for a CUDA tensor (raising on failure)."""
+    CUDA kernel for a CUDA tensor (raising on failure and on an input
+    neither contiguous NCHW nor channels-last); the output has x's
+    layout."""
     if x.device.type == "cpu":
         return int8_conv_plain(x, weight_q, inv, mul, add, out_dtype, stride,
                                dilation)
-    return int8_conv_cuda(x.contiguous(), weight_k, tuple(weight_q.shape[2:]),
-                          inv, mul, add, out_dtype, stride, dilation)
+    return int8_conv_cuda(x, weight_k, tuple(weight_q.shape[2:]), inv, mul, add,
+                          out_dtype, stride, dilation)

@@ -17,9 +17,10 @@ exact, so packed and unpacked convs agree to the order of their sums, and
 exactly in int8's int32 sums.
 
 The JAX package packed for the TPU's 128-wide lanes, where C = 48 pads to
-128. In NHWC packing is a free reshape; in the port's NCHW it is a
-permute-copy each way (`pack_width`, `unpack_width`), paid at every stage
-module's branch 0. Whether packing pays on a GPU is a measurement
+128. In NHWC packing is a free reshape, and so it is here on a
+channels-last tensor (the served layout): `pack_width` and `unpack_width`
+return views of it. An NCHW tensor is permute-copied each way, at every
+stage module's branch 0. Whether packing pays on a GPU is a measurement
 (`chip_smoke.py` phase 16); nothing packs unless asked.
 """
 from __future__ import annotations
@@ -30,20 +31,28 @@ import dataclasses
 import torch
 from torch import nn
 
+from tpupose_torch.ops.layout import is_channels_last
+
 
 def pack_width(x):
-    """(N, C, H, W) -> (N, 2C, H, W/2); channel p*C + c = column 2J + p.
-    A copy (NCHW is not the layout in which packing is a reshape)."""
+    """(N, C, H, W) -> (N, 2C, H, W/2); channel p*C + c = column 2J + p. A
+    view of a channels-last x (the JAX package's reshape of its NHWC
+    array), channels-last; a copy of an NCHW x, NCHW."""
     n, c, h, w = x.shape
     if w % 2:
         raise ValueError(f"width {w} must be even to pack")
+    if is_channels_last(x):
+        return x.permute(0, 2, 3, 1).view(n, h, w // 2, 2 * c).permute(0, 3, 1, 2)
     return x.reshape(n, c, h, w // 2, 2).permute(0, 4, 1, 2, 3).reshape(n, 2 * c, h, w // 2)
 
 
 def unpack_width(y):
-    """Inverse of `pack_width`: (N, 2C, H, W/2) -> (N, C, H, W)."""
+    """Inverse of `pack_width`: (N, 2C, H, W/2) -> (N, C, H, W), a view of a
+    channels-last y, a copy of an NCHW one."""
     n, c2, h, wp = y.shape
     c = c2 // 2
+    if is_channels_last(y):
+        return y.permute(0, 2, 3, 1).view(n, h, 2 * wp, c).permute(0, 3, 1, 2)
     return y.reshape(n, 2, c, h, wp).permute(0, 2, 3, 4, 1).reshape(n, c, h, 2 * wp)
 
 

@@ -8,6 +8,14 @@ frame of a clip as one batch; stage B runs the tracker over the frames, on
 CUDA as a captured graph of the tracker step replayed each frame
 (`tracking.tracker.make_step_fn`, `track_clip`). The pipeline lives on one
 device, CUDA unless the caller passes another.
+
+Stage A runs channels-last from the frames to the heatmaps, the layout of
+the JAX package's NHWC stage A (`ops.layout`): `Pipeline` restrides its
+models' conv weights once (`models.layers.to_channels_last`, when it takes
+the models, after `pack_models` and after `quantize_models`), and the
+networks get channels-last views of the NHWC images and crops, so no layer
+copies a layout. The heatmaps are made NCHW-contiguous once for the decode
+kernel.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch
 
 from tpupose_torch.geometry import CameraSet, make_camera_set
 from tpupose_torch.models.hrnet import HRNet, HRNetConfig, normalize_image
+from tpupose_torch.models.layers import to_channels_last
 from tpupose_torch.models.yolov3 import (
     YOLOv3,
     YoloConfig,
@@ -70,8 +79,8 @@ def _clip_detections(det_cfg, pose_cfg, tcfg, detector, pose_model, images,
     boxes, _, valid = detect_people(detector, det_cfg, ximg, (h, w), compute_dtype)
     k = boxes.shape[1]
     eboxes, crops = _pose_crops(pose_cfg, x, boxes)
-    heat = pose_model(crops, compute_dtype)  # f32 NCHW
-    kps = decode_heatmaps_auto(heat, eboxes, refine=pose_cfg.decode_refine)
+    heat = pose_model(crops, compute_dtype)  # f32, in the crops' layout
+    kps = decode_heatmaps_auto(heat.contiguous(), eboxes, refine=pose_cfg.decode_refine)
     kps = kps.reshape(n, k, pose_cfg.num_joints, 3)
     d = tcfg.max_dets
     if k >= d:
@@ -99,13 +108,13 @@ def _box_iou(box, others):
 def _pose_crops(pose_cfg, x, boxes):
     """(N, H, W, 3) bf16 frames in [0, 1] and (N, K, 4) boxes -> the
     aspect-expanded (N*K, 4) boxes and the (N*K, 3, h, w) normalized crops
-    HRNet reads."""
+    HRNet reads, a channels-last view of the NHWC crops."""
     in_h, in_w = pose_cfg.input_size
     n, k = boxes.shape[:2]
     eboxes = expand_box_to_aspect(boxes.reshape(-1, 4), in_h / in_w)
     crops = crop_and_resize(x, eboxes.reshape(n, k, 4), (in_h, in_w))
     crops = normalize_image(crops.reshape(n * k, in_h, in_w, 3), value_scale=1.0)
-    return eboxes.contiguous(), crops.permute(0, 3, 1, 2).contiguous()
+    return eboxes.contiguous(), crops.permute(0, 3, 1, 2)
 
 
 class Pipeline:
@@ -119,6 +128,10 @@ class Pipeline:
       state: initial TrackerState (default: empty).
       device: torch device; None means CUDA, which must be present.
       compute_dtype: the networks' compute dtype (bf16 serving default).
+
+    The models are moved to `device` and their conv weights restrided to
+    channels-last in place (`models.layers.to_channels_last`), the layout
+    stage A serves in.
     """
 
     def __init__(self, cams: CameraSet, tracker_cfg: TrackerConfig,
@@ -134,8 +147,10 @@ class Pipeline:
         self.tracker_cfg = tracker_cfg
         self.det_cfg = det_cfg
         self.pose_cfg = pose_cfg
-        self.detector = None if detector is None else detector.to(self.device).eval()
-        self.pose_model = None if pose_model is None else pose_model.to(self.device).eval()
+        self.detector = (None if detector is None
+                         else to_channels_last(detector.to(self.device).eval()))
+        self.pose_model = (None if pose_model is None
+                           else to_channels_last(pose_model.to(self.device).eval()))
         self.state = (init_state(tracker_cfg, self.device) if state is None
                       else state.to(self.device))
 
@@ -172,7 +187,7 @@ class Pipeline:
 
         if self.pose_cfg is None or self.pose_cfg.pack_branch0:
             return
-        self.pose_model = pack_hrnet_branch0(self.pose_model)
+        self.pose_model = to_channels_last(pack_hrnet_branch0(self.pose_model))
         self.pose_cfg = dataclasses.replace(self.pose_cfg, pack_branch0=True)
 
     # -- int8 serving ------------------------------------------------------------
@@ -254,7 +269,7 @@ class Pipeline:
             ximg = prepare_yolo_images(self.det_cfg, xf)
             boxes, _, valid = detect_people(det_f, self.det_cfg, ximg, (h, w), dt)
             eboxes, crops = _pose_crops(self.pose_cfg, xf, boxes)
-            det_in = ximg.permute(0, 3, 1, 2).contiguous()
+            det_in = ximg.permute(0, 3, 1, 2)  # channels-last, as served
 
         def apply(model, batch):
             return model(batch, dt)
@@ -310,8 +325,8 @@ class Pipeline:
             print(msg + (" -> FAILED (continuing: on_drift='warn')"
                          if failed else " -> ok"))
 
-        self.detector = det_q
-        self.pose_model = pose_q
+        self.detector = to_channels_last(det_q)
+        self.pose_model = to_channels_last(pose_q)
 
     def _quant_self_check(self, det_f, pose_f, det_q, pose_q, ximg, hw, crops,
                           eboxes, valid):
@@ -320,7 +335,7 @@ class Pipeline:
         dt = self.compute_dtype
         with torch.inference_mode():
             def decode(model):
-                return decode_heatmaps_auto(model(crops, dt), eboxes,
+                return decode_heatmaps_auto(model(crops, dt).contiguous(), eboxes,
                                             refine=self.pose_cfg.decode_refine)
 
             kps_ref = decode(pose_f).cpu().numpy()  # (n*k, J, 3)
@@ -379,7 +394,7 @@ class Pipeline:
         c, k = boxes.shape[:2]
         with torch.inference_mode():
             eboxes, crops = _pose_crops(self.pose_cfg, x.to(torch.bfloat16) / 255.0, boxes)
-            kps = decode_heatmaps_auto(self.pose_model(crops, self.compute_dtype),
+            kps = decode_heatmaps_auto(self.pose_model(crops, self.compute_dtype).contiguous(),
                                        eboxes, refine=self.pose_cfg.decode_refine)
         return kps.reshape(c, k, self.pose_cfg.num_joints, 3), box_valid
 
