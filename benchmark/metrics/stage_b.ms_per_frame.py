@@ -1,0 +1,10 @@
+"""Stage B's ms a frame: the benchmark's span around `tracking.track_clip`
+(the captured tracker step replayed a frame, K3 inside), ended by a device
+sync, summed over the traced window's calls and divided by their frames."""
+
+
+def read(t):
+    spans = [(s, f) for name, s, f in t.window_spans if name == "stage_b"]
+    if not spans:
+        return None
+    return 1e3 * sum(s for s, _ in spans) / sum(f for _, f in spans)
