@@ -3120,6 +3120,14 @@ def family_of(name):
                 "other")
 
 
+def device_events(torch, prof):
+    """The kernels and copies of a torch.profiler session: its device-side
+    events less the program's `span:*` ranges, which the profiler mirrors
+    onto the device's timeline."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("span:")]
+
+
 def profiled_families(torch, fn):
     """Device ms by kernel family (PROFILE_FAMILIES) of fn() under
     torch.profiler, the PROFILE_TOP longest kernels of each, the device's busy ms
@@ -3132,8 +3140,7 @@ def profiled_families(torch, fn):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = device_events(torch, prof)
     except Exception as e:  # a machine may refuse CUPTI: report, do not gate
         return f"not measured: {type(e).__name__}: {e}"
     if not events:
@@ -3990,8 +3997,7 @@ def profiled_device_events(torch, fn):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = device_events(torch, prof)
     except Exception as e:  # a machine may refuse CUPTI: report, do not gate
         return f"not measured: {type(e).__name__}: {e}"
     if not events:

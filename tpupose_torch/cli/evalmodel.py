@@ -3,11 +3,15 @@
     python -m tpupose_torch.cli.evalmodel --dataset CampusSeq1
     python -m tpupose_torch.cli.evalmodel --synthetic     # no data/weights
     python -m tpupose_torch.cli.evalmodel --device cpu --synthetic
+    python -m tpupose_torch.cli.evalmodel --synthetic --profile DIR
 
 Counterpart of `tpupose/cli/evalmodel.py`: the same flags, YAML configs
 (`configs/<ds>/model_configs.yaml`), artifacts (predictions pkl +
 per-camera 2D JSON) and PCP / Panoptic score tables. Runs on CUDA unless
-`--device` names another device.
+`--device` names another device. `--profile DIR` runs the loop under
+`torch.profiler`, writes DIR/trace.json with the program's spans
+(`utils.timing.span`) beside the kernels, and after the report prints one
+line per span name: its device ms a frame.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from tpupose_torch.eval import (
     write_3d_result,
 )
 from tpupose_torch.pipeline.facade import Pipeline, resolve_device
-from tpupose_torch.utils.timing import StageTimer
+from tpupose_torch.utils.timing import StageTimer, profiler_trace, span_report
 
 
 def main(argv=None):
@@ -86,6 +90,11 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda, which "
                              "must be present; cpu for a host without a card)")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="run the loop under torch.profiler: write "
+                             "DIR/trace.json, the program's spans on the "
+                             "kernels' clock, and print each span's device ms "
+                             "a frame after the report")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -149,9 +158,10 @@ def main(argv=None):
 
         source = chained()
 
-    multi_poses3d, annotations = run_eval_loop(
-        cfg, pipe, source, timer, clip=args.clip
-    )
+    with profiler_trace(args.profile):
+        multi_poses3d, annotations = run_eval_loop(
+            cfg, pipe, source, timer, clip=args.clip
+        )
 
     pkl = result_path(cfg)
     write_3d_result(multi_poses3d, pkl)
@@ -168,6 +178,8 @@ def main(argv=None):
         print(res["table"])
         print(f"Average PCP: {res['average'] * 100:.2f}")
     print(timer.report(num_views=len(cfg.dataset.folders_order)))
+    if args.profile:
+        print(span_report(len(multi_poses3d)))
 
 
 def _probe_image_size(cfg):
@@ -196,7 +208,8 @@ def _run_synthetic(args, timer, device):
     from tpupose_torch.eval import coco2shelf3d, evaluate_pcp
     from tpupose_torch.tracking.tracker import FrameOutput
 
-    scene, pipe, outs = synthetic_tracks(args.frames, timer, device)
+    with profiler_trace(args.profile):
+        scene, pipe, outs = synthetic_tracks(args.frames, timer, device)
     multi_poses3d, annotations = {}, []
     for t in range(scene.num_frames):
         out_t = FrameOutput(*(x[t] for x in outs))
@@ -211,6 +224,8 @@ def _run_synthetic(args, timer, device):
     print(res["table"])
     print(f"Average PCP: {res['average'] * 100:.2f}")
     print(timer.report(num_views=scene.num_cameras))
+    if args.profile:
+        print(span_report(scene.num_frames))
 
 
 if __name__ == "__main__":

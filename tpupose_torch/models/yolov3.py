@@ -25,6 +25,7 @@ from tpupose_torch.models.layers import (
 )
 from tpupose_torch.ops.image import letterbox_resize, resize_bilinear
 from tpupose_torch.ops.nms import nms
+from tpupose_torch.utils import timing
 
 
 def _conv_specs(num_classes=80, width_mult=1.0):
@@ -261,20 +262,22 @@ def detect_people(model: YOLOv3, cfg: YoloConfig, images, image_hw,
       boxes (N, K, 4) in original-image pixels (clipped), scores (N, K),
       valid (N, K) bool.
     """
-    # a channels-last view of the NHWC images: no layout copy
-    heads = model(images.permute(0, 3, 1, 2), compute_dtype)
-    boxes, scores = decode_detections(cfg, heads)
-    k = cfg.max_candidates
-    # Stable sort: equal scores keep the lower index first, as lax.top_k.
-    top_scores, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    top_scores, idx = top_scores[:, :k], idx[:, :k]
-    top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
-    valid = top_scores > cfg.score_thresh
-    keep = nms(top_boxes, top_scores, valid, cfg.nms_thresh)
-    oh, ow = image_hw
-    scale, offset = yolo_box_mapping(cfg, image_hw, device=boxes.device)
-    out_boxes = (top_boxes - offset) * scale
-    zero = torch.zeros(4, dtype=torch.float32, device=boxes.device)
-    hi = torch.tensor([ow, oh, ow, oh], dtype=torch.float32, device=boxes.device)
-    out_boxes = torch.minimum(torch.maximum(out_boxes, zero), hi)
-    return out_boxes, top_scores, valid & keep
+    with timing.span("stage_a.yolov3", images):
+        # a channels-last view of the NHWC images: no layout copy
+        heads = model(images.permute(0, 3, 1, 2), compute_dtype)
+    with timing.span("stage_a.nms", images):
+        boxes, scores = decode_detections(cfg, heads)
+        k = cfg.max_candidates
+        # Stable sort: equal scores keep the lower index first, as lax.top_k.
+        top_scores, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+        top_scores, idx = top_scores[:, :k], idx[:, :k]
+        top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+        valid = top_scores > cfg.score_thresh
+        keep = nms(top_boxes, top_scores, valid, cfg.nms_thresh)
+        oh, ow = image_hw
+        scale, offset = yolo_box_mapping(cfg, image_hw, device=boxes.device)
+        out_boxes = (top_boxes - offset) * scale
+        zero = torch.zeros(4, dtype=torch.float32, device=boxes.device)
+        hi = torch.tensor([ow, oh, ow, oh], dtype=torch.float32, device=boxes.device)
+        out_boxes = torch.minimum(torch.maximum(out_boxes, zero), hi)
+        return out_boxes, top_scores, valid & keep

@@ -20,6 +20,7 @@ from tpupose_torch.models.yolov3 import YoloConfig
 from tpupose_torch.parallel.streams import captured_multistream_step
 from tpupose_torch.pipeline.facade import _clip_detections
 from tpupose_torch.tracking.tracker import TrackerConfig
+from tpupose_torch.utils import timing
 
 
 def _auto_chunk(s: int, f: int, c: int, target_images: int = 160) -> int:
@@ -58,7 +59,7 @@ def make_multistream_clip_fn(det_cfg: YoloConfig, pose_cfg: HRNetConfig,
         if f % cf:
             cf = f
         d, j = tcfg.max_dets, tcfg.num_joints
-        with torch.inference_mode():
+        with torch.inference_mode(), timing.clip():
             dets, mask = [], []
             for k in range(0, f, cf):
                 dd, mm = _clip_detections(
@@ -72,7 +73,7 @@ def make_multistream_clip_fn(det_cfg: YoloConfig, pose_cfg: HRNetConfig,
             frame_ids = torch.as_tensor(frame_ids).transpose(0, 1)
             states_s, outs = captured_multistream_step(
                 tcfg, cams_s, states_s, dets[0], mask[0], frame_ids[0]).clip(
-                cams_s, states_s, dets, mask, frame_ids)
+                cams_s, states_s, dets, mask, frame_ids, span="stage_b.clip")
         return states_s, type(outs)(*(x.transpose(0, 1) for x in outs))
 
     return fn

@@ -41,6 +41,7 @@ from tpupose_torch.tracking.tracker import (
     make_step_fn,
     track_clip,
 )
+from tpupose_torch.utils import timing
 
 
 # Fewest sample frames for which int8 activation-scale calibration and the
@@ -71,25 +72,31 @@ def _clip_detections(det_cfg, pose_cfg, tcfg, detector, pose_model, images,
     Returns:
       dets: (N, D, J, 3) (x, y, score); mask: (N, D) bool.
     """
-    n, h, w, _ = images.shape
-    # bf16 preprocessing, as the JAX package: uint8 values are exact in
-    # bf16 and the resample products accumulate in f32.
-    x = images.to(torch.bfloat16) / 255.0
-    ximg = prepare_yolo_images(det_cfg, x)
-    boxes, _, valid = detect_people(detector, det_cfg, ximg, (h, w), compute_dtype)
-    k = boxes.shape[1]
-    eboxes, crops = _pose_crops(pose_cfg, x, boxes)
-    heat = pose_model(crops, compute_dtype)  # f32, in the crops' layout
-    kps = decode_heatmaps_auto(heat.contiguous(), eboxes, refine=pose_cfg.decode_refine)
-    kps = kps.reshape(n, k, pose_cfg.num_joints, 3)
-    d = tcfg.max_dets
-    if k >= d:
-        return kps[:, :d], valid[:, :d]
-    dets = kps.new_zeros((n, d, tcfg.num_joints, 3))
-    dets[:, :k] = kps
-    mask = valid.new_zeros((n, d))
-    mask[:, :k] = valid
-    return dets, mask
+    with timing.span("stage_a.batch", images):
+        n, h, w, _ = images.shape
+        with timing.span("stage_a.resize", images):
+            # bf16 preprocessing, as the JAX package: uint8 values are exact in
+            # bf16 and the resample products accumulate in f32.
+            x = images.to(torch.bfloat16) / 255.0
+            ximg = prepare_yolo_images(det_cfg, x)
+        boxes, _, valid = detect_people(detector, det_cfg, ximg, (h, w), compute_dtype)
+        k = boxes.shape[1]
+        with timing.span("stage_a.crop", images):
+            eboxes, crops = _pose_crops(pose_cfg, x, boxes)
+        with timing.span("stage_a.hrnet", images):
+            heat = pose_model(crops, compute_dtype)  # f32, in the crops' layout
+        with timing.span("stage_a.k1", images):
+            kps = decode_heatmaps_auto(heat.contiguous(), eboxes,
+                                       refine=pose_cfg.decode_refine)
+            kps = kps.reshape(n, k, pose_cfg.num_joints, 3)
+            d = tcfg.max_dets
+            if k >= d:
+                return kps[:, :d], valid[:, :d]
+            dets = kps.new_zeros((n, d, tcfg.num_joints, 3))
+            dets[:, :k] = kps
+            mask = valid.new_zeros((n, d))
+            mask[:, :k] = valid
+            return dets, mask
 
 
 def _box_iou(box, others):
@@ -192,6 +199,7 @@ class Pipeline:
 
     # -- int8 serving ------------------------------------------------------------
 
+    @timing.setup_phase("quantize")
     def quantize_models(self, sample_images, qat_steps=0, qat_lr=1e-5,
                         qat_batch=8, qat_log=None, check_px=2.5,
                         on_drift="escalate", escalate_steps=900,
@@ -230,7 +238,8 @@ class Pipeline:
           * ``"warn"``: print the measured drift and keep the int8 models.
 
         `last_quant_report` holds the numbers of the last check, also when
-        it raised.
+        it raised. The whole call is the set-up phase "quantize"
+        (`utils.timing.setup_phase`).
         """
         from tpupose_torch.models.quantize import (
             QuantizationDriftError,
@@ -453,11 +462,12 @@ class Pipeline:
         Returns:
           (FrameOutput stacked over F, detections, det_mask).
         """
-        dets, mask = self.process_clip_nn(clip_images)
-        frame_ids = self._as_input(frame_ids, torch.int32)
-        with torch.inference_mode():
-            self.state, outs = track_clip(self.tracker_cfg, self.cams,
-                                          self.state, dets, mask, frame_ids)
+        with timing.clip():
+            dets, mask = self.process_clip_nn(clip_images)
+            frame_ids = self._as_input(frame_ids, torch.int32)
+            with torch.inference_mode():
+                self.state, outs = track_clip(self.tracker_cfg, self.cams,
+                                              self.state, dets, mask, frame_ids)
         return outs, dets, mask
 
     def harvest(self, out: FrameOutput, frame_id, timestamp=None):

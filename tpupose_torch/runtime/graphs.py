@@ -85,6 +85,8 @@ import time
 
 import torch
 
+from tpupose_torch.utils import timing
+
 #: Byte alignment of each field in a flat buffer: a field starts where an
 #: allocation of its own would, as far as any kernel's vectorization can
 #: tell, so that a step reads its inputs as the eager step does.
@@ -375,12 +377,14 @@ class CapturedStep:
             out = self._out_type(*self._out_layout.views(self._out_flat.clone()))
             return self._hand_out_state(), out
 
-    def clip(self, cams, state, dets, mask, frame_ids):
+    def clip(self, cams, state, dets, mask, frame_ids, span=None):
         """F frames in order (dets, mask, frame_ids with a leading F): the
         final state and the outputs stacked over F. The clip's inputs are
         packed once, so that a frame costs one copy in, one replay and one
-        copy out."""
-        with torch.inference_mode():
+        copy out. `span` names the clip's span (`utils.timing.span`), if
+        the caller gives it one."""
+        with torch.inference_mode(), (timing.span(span, self._state_flat) if span
+                                      else contextlib.nullcontext()):
             frames = dets.shape[0]
             packed = self._in_layout.empty((frames,), device=self.device)
             for dst, src in zip(self._in_layout.views(packed), (dets, mask, frame_ids)):

@@ -39,6 +39,7 @@ from tpupose_torch.geometry import (
 from tpupose_torch.ops.lap import masked_lap
 from tpupose_torch.ops.smoothing import smooth_last_pose
 from tpupose_torch.runtime.graphs import captured_step
+from tpupose_torch.utils import timing
 
 NEVER = -(10**8)  # "no 2D pose stored" timestamp sentinel
 
@@ -713,5 +714,6 @@ def track_clip(cfg: TrackerConfig, cams: CameraSet, state: TrackerState,
     """
     dets, det_mask = torch.as_tensor(dets), torch.as_tensor(det_mask)
     frame_ids = torch.as_tensor(frame_ids)
-    return _captured(cfg, cams, state, dets[0], det_mask[0], frame_ids[0]).clip(
-        cams, state, dets, det_mask, frame_ids)
+    with timing.clip():
+        return _captured(cfg, cams, state, dets[0], det_mask[0], frame_ids[0]).clip(
+            cams, state, dets, det_mask, frame_ids, span="stage_b.clip")
