@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only graphs           # phase 19 alone
     python3 chip_smoke.py --only train            # phase 13 alone, then its profile
     python3 chip_smoke.py --only profile          # phase 20 alone: the stage-A profile
+    python3 chip_smoke.py --only epilogue         # phase 21 alone: the conv epilogue
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
 memory holds none of phase 5's models, 16 in two parts, (c) after 8
@@ -67,7 +68,8 @@ backend flags), each held against its eager body:
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
      720x1280 uint8 frames; the decode launch count, K3's (one association
-     and one init LAP a camera, a frame), the stage A / stage B split, peak
+     and one init LAP a camera, a frame), the conv epilogue's (379 a clip,
+     STEP_LAUNCHES), the stage A / stage B split, peak
      memory, host syncs; a forward pre-hook on every conv counts the inputs
      that are not channels-last (0 expected); stage A timed STAGE_A_RUNS
      times after the clips; and the layouts against each other on the first
@@ -79,8 +81,9 @@ backend flags), each held against its eager body:
   6. the int8 main path: `Pipeline.quantize_models` on 8 frames of one view
      (on_drift="warn": random weights drift by design, so the self-check
      report is printed and not gated on), then `process_clip` twice on the
-     same clip; K1, K2, K2a and stem-kernel launch counts (364 K2, 362 K2a
-     and 2 stem per clip expected, every one in its channels-last mode),
+     same clip; K1, K2, K2a, stem-kernel and conv-epilogue launch counts
+     (364 K2, 362 K2a, 2 stem and 363 epilogue per clip expected, every K2
+     and K2a launch in its channels-last mode),
      no NCHW conv input, stage A (STAGE_A_RUNS times), K2's and K2a's
      device ms in one stage A, peak memory, and the int8-vs-bf16 keypoint
      shift (for information); then every quantized conv on SUB_CROPS crops
@@ -216,9 +219,9 @@ backend flags), each held against its eager body:
      bench.py's multistream leg: 2 streams of 128 frames of 5 random
      720x1280 views, YOLOv3-416 and HRNet-W48 folded to bf16, then int8
      through `quantize_convs` + `uncalibrated_scales`; fps, the stage A /
-     stage B split (each alone to a sync), K1 / K2 / K2a / K3 launches
-     counted from 0 (8, 0, 0, 768 in bf16; 8, 8 x 364, 8 x 362, 768 in
-     int8), no NCHW conv input, peak memory, host syncs; each stream's
+     stage B split (each alone to a sync), K1 / K2 / K2a / K3 / conv
+     epilogue launches counted from 0 (8, 0, 0, 768, 8 x 379 in bf16; 8,
+     8 x 364, 8 x 362, 768, 8 x 363 in int8), no NCHW conv input, peak memory, host syncs; each stream's
      stage B equal to
      `track_clip` on its own stage-A detections, and (bf16, information)
      the share of its masks equal to `process_clip_nn`'s on the same frames.
@@ -335,8 +338,14 @@ backend flags), each held against its eager body:
      (PROFILE_ORDER), then one stage A of each under torch.profiler: device
      ms by kernel family (PROFILE_FAMILIES: cuDNN conv, its layout
      transposes, K2a, K2b, stem, elementwise, copies, crop matmuls, NMS /
-     top-K, K1, ...), the PROFILE_TOP longest kernels of each, busy ms and
-     the idle share.
+     top-K, K1, the conv epilogue, ...), the PROFILE_TOP longest kernels of
+     each, busy ms and the idle share.
+ 21. the conv epilogue (`epilogue`): the one-pass kernel of `ops.epilogue`
+     bit for bit against its plain version at EPILOGUE_SHAPES, its ms
+     beside its byte bound and the plain version's ms; as context, cuDNN's
+     fused conv-bias-add-ReLU (`torch.cudnn_convolution_add_relu`, never
+     called by the port) at branch 0's conv, its first call's seconds and
+     its steady ms, against `F.conv2d` plus the kernel.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
@@ -344,7 +353,7 @@ the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
 `--only ingest`, phase 17, its checkpoint files written anew from phase
 10's seed; with `--only parallel`, phase 18; with `--only graphs`, phase 19;
 with `--only train`, phase 13 and then 13 (f); with `--only profile`, phase
-20.
+20; with `--only epilogue`, phase 21.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
@@ -362,7 +371,10 @@ association shape, with `device_us`, `host_us` and `op_host_us`; its
 `bound_ms` is the latency bound, `bound_by` "latency", and the
 bytes-or-operations bound of the other rows stands beside it as
 `rate_bound_ms`; `in_graphs` its launches held per replay and replayed
-in this process's graphs), the nvidia-smi line, and last `{"ok": true,
+in this process's graphs; the conv epilogue's `launches` are phase 5's two
+bf16 clips', `int8_clip_launches` phase 6's two int8 clips', and
+`packed_launches` phase 16 (c)'s packed clip's, each held against
+STEP_LAUNCHES, and its times are phase 21's), the nvidia-smi line, and last `{"ok": true,
 "device": {...}}`. It needs a CUDA card and the repository around it;
 without either it exits non-zero and prints no result. The f32
 comparisons run with TF32 off (so do phase 11's f32 fake-quant
@@ -956,6 +968,7 @@ def phase_main_path(torch, gen, card):
     from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
     from tpupose_torch.models.layers import fold_batchnorm
     from tpupose_torch.models.yolov3 import YoloConfig, yolov3_init
+    from tpupose_torch.ops import epilogue
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import lap
     from tpupose_torch.pipeline import Pipeline
@@ -1000,6 +1013,7 @@ def phase_main_path(torch, gen, card):
     torch.cuda.reset_peak_memory_stats()
     th.launches = 0
     lap.launches = 0
+    epilogue.launches = 0
     replays = card_replays()
     clip_ms, syncs = [], 0
     with nchw_conv_inputs(torch, pipe.detector, pipe.pose_model) as layouts:
@@ -1010,11 +1024,14 @@ def phase_main_path(torch, gen, card):
             torch.cuda.synchronize()
             clip_ms.append((time.perf_counter() - t0) * 1e3)
             syncs += counted["syncs"]
-    launches, k3_launches = th.launches, lap.launches
+    launches, k3_launches, epi_launches = th.launches, lap.launches, epilogue.launches
     replays = card_replays() - replays
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches < 1:
         fail("the main path never launched the heatmap decode kernel")
+    if epi_launches != 2 * STEP_LAUNCHES["bf16"]["epilogue.launches"]:
+        fail(f"two clips launched the conv epilogue {epi_launches} times, expected "
+             f"{2 * STEP_LAUNCHES['bf16']['epilogue.launches']}")
     if replays != 2 * frames:
         fail(f"two clips replayed the tracker's graph {replays} times, expected {2 * frames}")
     if k3_launches != 2 * frames * (1 + views):
@@ -1035,8 +1052,8 @@ def phase_main_path(torch, gen, card):
         "conv_inputs": layouts, "layouts": layout_agreement(torch, pipe, clip),
         "stage_b_ms": stage_b_ms,
         "stage_b_ms_per_frame": stage_b_ms / frames, "stage_b_eager_ms": stage_b_eager_ms,
-        "decode_launches": launches, "k3_launches": k3_launches, "clips": 2,
-        "graph_replays": replays,
+        "decode_launches": launches, "k3_launches": k3_launches,
+        "epilogue_launches": epi_launches, "clips": 2, "graph_replays": replays,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "peak_mem_gib": peak_gib,
     }, (pipe, clip, frame_ids, dets, mask)
@@ -1129,6 +1146,7 @@ def phase_int8_path(torch, card, main):
     import io
     from contextlib import redirect_stdout
 
+    from tpupose_torch.ops import epilogue
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import int8_conv as k2
     from tpupose_torch.ops import lap
@@ -1170,6 +1188,7 @@ def phase_int8_path(torch, card, main):
     k2.quantize_launches = k2.quantize_cl_launches = 0
     k2.stem_launches = k2.nhwc_launches = 0
     lap.launches = 0
+    epilogue.launches = 0
     replays = card_replays()
     clip_ms, syncs = [], 0
     with nchw_conv_inputs(torch, pipe.detector, pipe.pose_model) as layouts:
@@ -1183,7 +1202,11 @@ def phase_int8_path(torch, card, main):
     k1_launches, k2_launches, k3_launches = th.launches, k2.launches, lap.launches
     k2a_launches, stem_launches = k2.quantize_launches, k2.stem_launches
     k2a_cl_launches, nhwc_launches = k2.quantize_cl_launches, k2.nhwc_launches
+    epi_launches = epilogue.launches
     check_channels_last(layouts, "int8 clip path")
+    if epi_launches != 2 * STEP_LAUNCHES["int8"]["epilogue.launches"]:
+        fail(f"two int8 clips launched the conv epilogue {epi_launches} times, expected "
+             f"{2 * STEP_LAUNCHES['int8']['epilogue.launches']}")
     if (k2a_cl_launches, nhwc_launches) != (k2a_launches, k2_launches):
         fail(f"two int8 clips: {k2a_cl_launches} of {k2a_launches} K2a launches in the "
              f"channels-last mode and {nhwc_launches} of {k2_launches} K2 launches with an "
@@ -1212,7 +1235,7 @@ def phase_int8_path(torch, card, main):
         "fps": frames * 1e3 / ms, "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
         "k2_launches": k2_launches, "k2_launches_per_clip": k2_launches / 2,
         "quantize_launches": k2a_launches, "quantize_launches_per_clip": k2a_launches / 2,
-        "stem_launches": stem_launches,
+        "stem_launches": stem_launches, "epilogue_launches": epi_launches,
         "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
         "graph_replays": replays, "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
         "k2a_ms_in_stage_a": k2a_ms, "k2b_and_stem_ms_in_stage_a": k2_ms - k2a_ms,
@@ -1456,9 +1479,10 @@ def packed_heatmaps(torch, unpacked, packed):
 def pack_one(torch, pipe, clip, frame_ids, mode):
     """Phase 16 (c) for one pipeline: `process_clip` before and after
     `Pipeline.pack_models` from a fresh tracker, the packed clip's K1 / K2
-    / K2a / stem launches counted from 0, then stage A (`process_clip_nn`,
-    to a sync) unpacked and packed in turns; int8 also K2's summed time in
-    each stage A. The pipeline is left unpacked."""
+    / K2a / stem / epilogue launches counted from 0, then stage A
+    (`process_clip_nn`, to a sync) unpacked and packed in turns; int8 also
+    K2's summed time in each stage A. The pipeline is left unpacked."""
+    from tpupose_torch.ops import epilogue
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import int8_conv as k2
 
@@ -1472,14 +1496,16 @@ def pack_one(torch, pipe, clip, frame_ids, mode):
     pipe.track_restart()
     torch.cuda.synchronize()
     th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
+    epilogue.launches = 0
     outs_p, dets_p, mask_p = pipe.process_clip(frame_ids, clip)
     torch.cuda.synchronize()
     launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
-                "k2_stem": k2.stem_launches}
+                "k2_stem": k2.stem_launches, "epilogue": epilogue.launches}
     expect = STEP_LAUNCHES[mode]
-    if (launches["k1"], launches["k2"], launches["k2a"], launches["k2_stem"]) != (
+    if tuple(launches.values()) != (
             expect["heatmap.launches"], expect["int8_conv.launches"],
-            expect["int8_conv.quantize_launches"], expect["int8_conv.stem_launches"]):
+            expect["int8_conv.quantize_launches"], expect["int8_conv.stem_launches"],
+            expect["epilogue.launches"]):
         fail(f"the packed {mode} clip launched {launches}, expected {expect}")
     if not torch.equal(mask_p, mask_u):
         fail(f"packed {mode} clip: detection masks differ from the unpacked clip")
@@ -1646,15 +1672,22 @@ def phase_tracker(torch, card):
 
 CLI_FRAMES, CLI_CLIP, CLI_CALIB = 68, 32, 8  # 2 clips + 4 trailing frames
 CLI_HEIGHT, CLI_WIDTH = 720, 1280
-#: K1, K2 and K2a launches per `process_clip` or `process_frame` call (one
-#: stage A batch each): one decode, and in int8 the 364 quantized convs of
-#: YOLOv3-416 and HRNet-W48, 362 of them through K2a and the 2 RGB stems
-#: through the stem kernel (phase 6's counts).
+#: K1, K2, K2a and conv-epilogue launches per `process_clip` or
+#: `process_frame` call (one stage A batch each): one decode; in int8 the 364
+#: quantized convs of YOLOv3-416 and HRNet-W48, 362 of them through K2a and
+#: the 2 RGB stems through the stem kernel (phase 6's counts); and one
+#: epilogue an engaged call site, packed branch 0 or not: in bf16 HRNet's 292
+#: convs of 8k outputs and 15 fuse rows' own branches, YOLOv3's 72 convs
+#: with BN; in int8 16 fewer, the call sites whose only term is a float
+#: conv's bias (HRNet's downsample and the fuse rows' first terms), which K2
+#: adds.
 STEP_LAUNCHES = {
     "bf16": {"heatmap.launches": 1, "int8_conv.launches": 0,
-             "int8_conv.quantize_launches": 0, "int8_conv.stem_launches": 0},
+             "int8_conv.quantize_launches": 0, "int8_conv.stem_launches": 0,
+             "epilogue.launches": 307 + 72},
     "int8": {"heatmap.launches": 1, "int8_conv.launches": 364,
-             "int8_conv.quantize_launches": 362, "int8_conv.stem_launches": 2},
+             "int8_conv.quantize_launches": 362, "int8_conv.stem_launches": 2,
+             "epilogue.launches": 291 + 72},
 }
 
 
@@ -1885,11 +1918,12 @@ def phase_cli_path(torch, card):
     from tpupose_torch.data.config import config_from_raw
     from tpupose_torch.data.synthetic import make_scene
     from tpupose_torch.models.layers import fold_batchnorm
+    from tpupose_torch.ops import epilogue
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import int8_conv as k2
 
     counters = [(th, "launches"), (k2, "launches"), (k2, "quantize_launches"),
-                (k2, "stem_launches")]
+                (k2, "stem_launches"), (epilogue, "launches")]
     out = {"card": card, "config": "configs/Shelf/model_configs.yaml with MAX_CANDIDATES 4: "
            "YOLOv3-416 + HRNet-W48 384x288 from .weights / .pth, BN folded, bf16; "
            f"{CLI_FRAMES} frames x 5 views x {CLI_HEIGHT}x{CLI_WIDTH} uint8, --clip {CLI_CLIP}"}
@@ -3100,6 +3134,7 @@ PROFILE_FAMILIES = (
     ("K1", ("heatmap_decode_kernel",)),
     ("K2a", ("quantize_nhwc",)),
     ("K2b", ("int8_conv_nhwc_kernel",)),
+    ("epilogue", ("bias_act_nhwc",)),
     ("stem", ("int8_stem_kernel",)),
     ("gather", ("int8_conv_kernel",)),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw", "NchwToNhwc", "NhwcToNchw")),
@@ -3228,6 +3263,101 @@ def phase_stage_a_profile(torch, card):
             for layout, which in (("channels_last", "C"), ("nchw", "N"))}
         del pipe, served
         torch.cuda.empty_cache()
+    return out
+
+
+#: Calls in one timed sample of phase 21, so that the host's wrapper time
+#: hides behind the card's queue, as on the main path.
+EPILOGUE_CALLS = 10
+
+
+def queued_ms(fn, calls=EPILOGUE_CALLS):
+    """Median ms of one fn() by CUDA events around `calls` calls in a row."""
+    return cuda_time_ms(lambda: [fn() for _ in range(calls)], reps=10) / calls
+
+
+#: (name, output shape, up, act, act_first) of phase 21, each with a bias
+#: and a skip: HRNet-W48's branch 0 at 640 crops (a basic block's last
+#: conv), its stage-4 fuse row 0 reading branch 3 upsampled 8x, and
+#: YOLOv3-416's shortcut at 52x52 on 160 images.
+EPILOGUE_SHAPES = (
+    ("hrnet_branch0_skip_relu", (640, 48, 96, 72), 0, "relu", False),
+    ("hrnet_fuse_up8_skip_relu", (640, 48, 96, 72), 3, "relu", False),
+    ("yolo_shortcut_52_leaky", (160, 256, 52, 52), 0, "leaky", True),
+)
+
+
+def cudnn_fused_conv(torch, gen, epilogue):
+    """cuDNN's fused conv-bias-add-ReLU at branch 0's 3x3 48->48 conv on
+    640 crops, bf16 channels-last: its first call's seconds (the fusion
+    engine's set-up) and steady ms, against `F.conv2d` alone, `F.conv2d`
+    plus the epilogue kernel, and the composed passes; or the error as a
+    string. Context for moving the epilogue into the conv: the port never
+    calls the fused op."""
+    import torch.nn.functional as F
+
+    b16, cl = torch.bfloat16, torch.channels_last
+    mk = dict(generator=gen, device="cuda")
+    x = torch.randn((640, 48, 96, 72), **mk).to(b16).contiguous(memory_format=cl)
+    z = torch.randn((640, 48, 96, 72), **mk).to(b16).contiguous(memory_format=cl)
+    wgt = (torch.randn((48, 48, 3, 3), **mk) * 0.07).to(b16).contiguous(memory_format=cl)
+    bias = torch.randn(48, **mk).to(b16)
+
+    def fused():
+        return torch.cudnn_convolution_add_relu(x, wgt, z, 1.0, bias, (1, 1), (1, 1),
+                                                (1, 1), 1)
+
+    def ours():
+        return epilogue.bias_act_cuda(F.conv2d(x, wgt, None, padding=1), bias, z, 0, "relu")
+
+    out = {"shape": [640, 48, 96, 72, 48, 3, 1]}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fused()
+        torch.cuda.synchronize()
+        out["first_call_s"] = time.perf_counter() - t0
+        out["ms"] = queued_ms(fused)
+        out["max_abs_diff_vs_ours"] = float((y.float() - ours().float()).abs().max())
+    except Exception as e:  # a cuDNN without the fusion engine: report, do not gate
+        out["fused"] = f"not measured: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    out["conv_ms"] = queued_ms(lambda: F.conv2d(x, wgt, None, padding=1))
+    out["conv_plus_epilogue_ms"] = queued_ms(ours)
+    out["composed_ms"] = queued_ms(lambda: F.relu(F.conv2d(x, wgt, bias, padding=1) + z))
+    return out
+
+
+def phase_epilogue(torch, card):
+    """Phase 21: the one-pass conv epilogue at EPILOGUE_SHAPES in bf16, the
+    kernel against its plain version (the composed PyTorch passes) bit for
+    bit and by its largest absolute difference, each one's ms by CUDA events
+    (`queued_ms`), the kernel's byte bound (src, skip and output once each),
+    then `cudnn_fused_conv`."""
+    from tpupose_torch.ops import epilogue
+
+    b16, cl = torch.bfloat16, torch.channels_last
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    mk = dict(generator=gen, device="cuda")
+    out = {"card": card, "shapes": {}, "max_abs_err": 0.0}
+    for name, shape, up, act, act_first in EPILOGUE_SHAPES:
+        n, c, h, w = shape
+        src = torch.randn((n, c, h >> up, w >> up), **mk).to(b16).contiguous(memory_format=cl)
+        skip = torch.randn(shape, **mk).to(b16).contiguous(memory_format=cl)
+        args = (src, torch.randn(c, **mk).to(b16), skip, up, act, act_first)
+        got, ref = epilogue.bias_act_cuda(*args), epilogue.bias_act_plain(*args)
+        err = float((got.float() - ref.float()).abs().max())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+            fail(f"epilogue kernel differs from its plain version at {name} (max abs {err})")
+        moved = (src.numel() + skip.numel() + got.numel() + c) * 2
+        out["shapes"][name] = {
+            "shape": list(shape), "up": up, "act": act, "act_first": act_first,
+            "ms": queued_ms(lambda: epilogue.bias_act_cuda(*args)),
+            "plain_ms": queued_ms(lambda: epilogue.bias_act_plain(*args)),
+            "max_abs_err": err, **bound(moved, 4 * got.numel(), H100_F32_OPS_PER_S)}
+        del src, skip, args, got, ref
+        torch.cuda.empty_cache()
+    out["cudnn_fused"] = cudnn_fused_conv(torch, gen, epilogue)
     return out
 
 
@@ -3756,6 +3886,7 @@ def multistream_clip(torch, float_models):
         uncalibrated_scales,
         yolo_skip_ids,
     )
+    from tpupose_torch.ops import epilogue
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import int8_conv as k2
     from tpupose_torch.ops import lap
@@ -3785,12 +3916,13 @@ def multistream_clip(torch, float_models):
         quantize_convs(pose, uncalibrated_scales(pose, hrnet_skip_ids(pose))))
     chunk = throughput._auto_chunk(s, f, views)
     n_chunks = f // chunk
-    # K1, K2, K2a: one stage-A batch a chunk; K3: one association and one
-    # init LAP a camera, a step
+    # K1, K2, K2a, the epilogue: one stage-A batch a chunk; K3: one
+    # association and one init LAP a camera, a step
     expect = {mode: {"k1": n_chunks * c["heatmap.launches"],
                      "k2": n_chunks * c["int8_conv.launches"],
                      "k2a": n_chunks * c["int8_conv.quantize_launches"],
                      "k2_stem": n_chunks * c["int8_conv.stem_launches"],
+                     "epilogue": n_chunks * c["epilogue.launches"],
                      "k3": f * (1 + views)} for mode, c in STEP_LAUNCHES.items()}
     inner = throughput._clip_detections
     out = {"config": "S=2 streams x 128 frames x 5 views of 720x1280 uint8; YOLOv3-416 "
@@ -3810,7 +3942,7 @@ def multistream_clip(torch, float_models):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
-            lap.launches = 0
+            lap.launches = epilogue.launches = 0
             before = set(card_steps())
             t0 = time.perf_counter()
             with counted_syncs() as counted, nchw_conv_inputs(torch, det_m, pose_m) as layouts:
@@ -3822,7 +3954,8 @@ def multistream_clip(torch, float_models):
             throughput._clip_detections = inner
         check_channels_last(layouts, f"multistream clip ({mode})")
         launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
-                    "k2_stem": k2.stem_launches, "k3": lap.launches}
+                    "k2_stem": k2.stem_launches, "epilogue": epilogue.launches,
+                    "k3": lap.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
         # a graph captured in this run ran its warm-up's K3 launches too
         warmup = graph_k3_warmups(before)
@@ -4733,11 +4866,11 @@ def main():
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
         elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {
-                "k2", "k3", "ingest", "parallel", "graphs", "train", "profile"}:
+                "k2", "k3", "ingest", "parallel", "graphs", "train", "profile", "epilogue"}:
             only = set(args[1:])
         else:
             fail("usage: chip_smoke.py [--learned-seeds SEED ... | "
-                 "--only k2|k3|ingest|parallel|graphs|train|profile ...]", 2)
+                 "--only k2|k3|ingest|parallel|graphs|train|profile|epilogue ...]", 2)
     try:
         import torch
     except ImportError:
@@ -4788,6 +4921,8 @@ def main():
             emit("train_profile", **phase_train_profile(torch, card))
         if "profile" in only:
             emit("stage_a_profile", **phase_stage_a_profile(torch, card))
+        if "epilogue" in only:
+            emit("epilogue", **phase_epilogue(torch, card))
         return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
@@ -4844,6 +4979,8 @@ def main():
     emit("graphs_captured", card=card, graphs=captured)
     emit("train_profile", **phase_train_profile(torch, card))
     emit("stage_a_profile", **phase_stage_a_profile(torch, card))
+    epi = phase_epilogue(torch, card)
+    emit("epilogue", **epi)
 
     quarter = k1["modes"]["quarter"]
     conv, packed = k2["timed"]["hrnet_branch0_3x3_48"], k2["timed"]["hrnet_branch0_packed_3x3_96"]
@@ -4957,6 +5094,19 @@ def main():
             "launches": sum(g["replays"] * g["held_launches"]["lap.launches"]
                             for g in captured),
             "graphs": len(captured)},
+    }, {
+        "name": "bias_act_nhwc", "route": "cuda",
+        "source": "tpupose_torch/csrc/epilogue.cu",
+        "replaces": None,  # XLA fused the convs' epilogues on the TPU
+        "launches": main_path["epilogue_launches"], "max_abs_err": epi["max_abs_err"],
+        **{f: epi["shapes"]["hrnet_branch0_skip_relu"][f]
+           for f in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "library_ms": None, "shapes": epi["shapes"], "cudnn_fused": epi["cudnn_fused"],
+        "int8_clip_launches": int8["epilogue_launches"],
+        "packed_launches": {m: pack[m]["launches"]["epilogue"] for m in ("bf16", "int8")},
+        "cli_launches": {m: c["epilogue.launches"] for m, c in cli_launches.items()},
+        "bundle_launches": bundles["int8"]["loop"]["launches"]["epilogue.launches"],
+        "multistream_launches": {m: c["epilogue"] for m, c in ms_launches.items()},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

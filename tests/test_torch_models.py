@@ -26,6 +26,7 @@ from tpupose_torch.models.convert import (
     hrnet_state_dict_from_jax,
     yolo_state_dict_from_jax,
 )
+from tpupose_torch.ops import epilogue
 
 torch.set_num_threads(1)
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -77,7 +78,7 @@ def test_conv_bn_layers_match_jax():
     np.testing.assert_array_equal(
         tl.upsample_nearest(xt, 2).permute(0, 2, 3, 1).numpy(),
         np.asarray(jl.upsample_nearest(jnp.asarray(x), 2)))
-    np.testing.assert_allclose(tl.leaky_relu(xt).numpy(),
+    np.testing.assert_allclose(epilogue.bias_act_plain(xt, act="leaky").numpy(),
                                np.asarray(jl.leaky_relu(jnp.asarray(x))).transpose(0, 3, 1, 2),
                                rtol=1e-7)
 

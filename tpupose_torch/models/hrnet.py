@@ -14,15 +14,17 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpupose_torch.models import quantize
 from tpupose_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
+    conv_out,
+    finish,
     he_normal_init_,
-    upsample_nearest,
+    residual,
+    tensor_out,
 )
 from tpupose_torch.ops.packing import pack_width, unpack_width
 
@@ -90,6 +92,12 @@ def _conv_bn(cin, cout, k, stride=1):
     return nn.Sequential(Conv2d(cin, cout, k, stride=stride), BatchNorm2d(cout))
 
 
+def _conv_bn_relu(seq, x):
+    """A transition's Sequential(conv, bn) on x, then ReLU, its epilogue one
+    pass where served (`layers.conv_out`)."""
+    return finish(conv_out(seq[0], seq[1], x), act="relu")
+
+
 def _fusable(block, convs, bns):
     """Every conv quantized and no live BN between them (folded BNs are
     nn.Identity): the condition for an int8-resident block."""
@@ -109,10 +117,9 @@ class BasicBlock(nn.Module):
     def forward(self, x, resident=False):
         if resident and _fusable(self, ("conv1", "conv2"), ("bn1", "bn2")):
             return quantize.quantized_basic_block(self, x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        skip = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + skip)
+        y = finish(conv_out(self.conv1, self.bn1, x), act="relu")
+        y = conv_out(self.conv2, self.bn2, y)
+        return finish(y, skip=residual(self, x), act="relu")
 
 
 class Bottleneck(nn.Module):
@@ -132,11 +139,10 @@ class Bottleneck(nn.Module):
     def forward(self, x, resident=False):
         if resident and _fusable(self, ("conv1", "conv2", "conv3"), ("bn1", "bn2", "bn3")):
             return quantize.quantized_bottleneck(self, x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        skip = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + skip)
+        y = finish(conv_out(self.conv1, self.bn1, x), act="relu")
+        y = finish(conv_out(self.conv2, self.bn2, y), act="relu")
+        y = conv_out(self.conv3, self.bn3, y)
+        return finish(y, skip=residual(self, x), act="relu")
 
 
 class HighResolutionModule(nn.Module):
@@ -181,31 +187,34 @@ class HighResolutionModule(nn.Module):
             if pack0 and b == 0:
                 x = unpack_width(x)
             ys.append(x)
+        # each row sums its terms in branch order into `acc`, the skip of
+        # the next term's epilogue: a coarser branch's 1x1 conv is read
+        # through a nearest upsample, a finer one's stride-2 chain ends in
+        # its last conv, and the last term's epilogue applies the ReLU
         outs = []
         for i, row in enumerate(self.fuse_layers):
             acc = None
             for j, yj in enumerate(ys):
                 if j == i:
-                    y = yj
+                    term = tensor_out(yj)
                 elif j > i:
-                    y = upsample_nearest(row[j](yj), 2 ** (j - i))
+                    term = conv_out(row[j][0], row[j][1], yj)
                 else:
                     y = yj
-                    chain = row[j]
-                    for k, step in enumerate(chain):
-                        y = step(y)
-                        if k != len(chain) - 1:
-                            y = F.relu(y)
-                acc = y if acc is None else acc + y
-            outs.append(F.relu(acc))
+                    for step in row[j][:-1]:
+                        y = finish(conv_out(step[0], step[1], y), act="relu")
+                    term = conv_out(row[j][-1][0], row[j][-1][1], y)
+                acc = finish(term, skip=acc, up=max(j - i, 0),
+                             act="relu" if j == len(ys) - 1 else None)
+            outs.append(acc)
         return outs
 
 
 def _transition(cin, cout):
     """A stride-2 transition to a new branch: Sequential(Sequential(conv,
-    bn, relu)), keys transitionK.B.0.{0,1}."""
-    return nn.Sequential(nn.Sequential(Conv2d(cin, cout, 3, stride=2),
-                                       BatchNorm2d(cout), nn.ReLU()))
+    bn)), keys transitionK.B.0.{0,1}; the forward applies its ReLU
+    (`_conv_bn_relu`)."""
+    return nn.Sequential(_conv_bn(cin, cout, 3, stride=2))
 
 
 class HRNet(nn.Module):
@@ -226,7 +235,7 @@ class HRNet(nn.Module):
             cin = cfg.layer1_planes * Bottleneck.expansion
         self.layer1 = nn.Sequential(*blocks)
         self.transition1 = nn.ModuleList([
-            nn.Sequential(Conv2d(cin, w[0], 3), BatchNorm2d(w[0]), nn.ReLU()),
+            _conv_bn(cin, w[0], 3),
             _transition(cin, w[1]),
         ])
         self.transition2 = nn.ModuleList([None, None, _transition(w[1], w[2])])
@@ -243,18 +252,18 @@ class HRNet(nn.Module):
 
     def forward(self, x, compute_dtype=torch.bfloat16):
         x = x.to(compute_dtype)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = finish(conv_out(self.conv1, self.bn1, x), act="relu")
+        x = finish(conv_out(self.conv2, self.bn2, x), act="relu")
         resident, pack0 = self.cfg.int8_resident, self.cfg.pack_branch0
         for block in self.layer1:
             x = block(x, resident)
-        xs = [self.transition1[0](x), self.transition1[1](x)]
+        xs = [_conv_bn_relu(self.transition1[0], x), _conv_bn_relu(self.transition1[1][0], x)]
         for module in self.stage2:
             xs = module(xs, resident, pack0)
-        xs = xs + [self.transition2[2](xs[-1])]
+        xs = xs + [_conv_bn_relu(self.transition2[2][0], xs[-1])]
         for module in self.stage3:
             xs = module(xs, resident, pack0)
-        xs = xs + [self.transition3[3](xs[-1])]
+        xs = xs + [_conv_bn_relu(self.transition3[3][0], xs[-1])]
         for module in self.stage4:
             xs = module(xs, resident, pack0)
         return self.final_layer(xs[0]).to(torch.float32)

@@ -25,15 +25,21 @@ their weights in the input's layout.
 * While a `BNStatRecorder` is active, `bn_apply` normalizes by the batch
   statistics of its input and records them (`quantize.calibrate_bn_stats`);
   a `SyncBNStatRecorder` takes them over a process group's whole batch.
+* `conv_out` and `finish` run a conv and what follows it (bias, nearest
+  upsample, residual, activation): served, as one pass of `ops.epilogue`
+  after the conv; on autograd's path, as the composed ops.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpupose_torch.ops import epilogue
 from tpupose_torch.ops.int8_conv import int8_conv, pack_weight
-from tpupose_torch.ops.layout import memory_format_of
+from tpupose_torch.ops.layout import is_channels_last, memory_format_of
 
 
 def conv_apply(weight, bias, x, stride=1, dilation=1):
@@ -220,10 +226,13 @@ class Conv2d(nn.Conv2d):
     def __init__(self, cin, cout, k, stride=1, bias=False):
         super().__init__(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 
-    def forward(self, x):
+    def forward(self, x, add_bias=True):
+        """The conv of x; `add_bias=False` leaves the bias to the caller
+        (`conv_out`)."""
         if ActRecorder.active is not None:
             ActRecorder.active.observe(self, x)
-        return conv_apply(self.weight, self.bias, x, self.stride, self.dilation)
+        return conv_apply(self.weight, self.bias if add_bias else None, x, self.stride,
+                          self.dilation)
 
 
 class QuantConv2d(nn.Module):
@@ -344,6 +353,74 @@ def fold_batchnorm(model: nn.Module, dtype=None) -> nn.Module:
     return model
 
 
+class ConvOut(NamedTuple):
+    """A conv's output before its epilogue (`finish`): `y`, the `bias` that
+    the epilogue still adds (None where y holds it), and whether the
+    epilogue runs as one pass (`fused`) or as the composed ops."""
+
+    y: torch.Tensor
+    bias: torch.Tensor | None = None
+    fused: bool = False
+
+
+def _served(x, channels):
+    """Grad off, a channels-last x, and `channels` a multiple of the
+    epilogue's granule: what the one-pass epilogue needs of a tensor."""
+    return (not torch.is_grad_enabled() and is_channels_last(x)
+            and channels % epilogue.CHANNELS == 0)
+
+
+def tensor_out(t):
+    """A tensor that is no conv's output (a fuse layer's own branch, an
+    int8-resident block's last conv) as a `ConvOut`, for `finish`."""
+    return ConvOut(t, None, _served(t, t.shape[1]))
+
+
+def bias_in_epilogue(device):
+    """True where the one-pass epilogue takes over a float conv's bias: on
+    CUDA, where PyTorch adds it after cuDNN's conv in a pass of its own. On
+    the CPU oneDNN adds it inside the conv, and there it stays, so that each
+    device keeps the arithmetic it had."""
+    return device.type == "cuda"
+
+
+def conv_out(conv, bn, x):
+    """`conv` then `bn` (None, a folded BN's nn.Identity, or a live BN) on
+    x, as a `ConvOut` for `finish`.
+
+    The one-pass epilogue engages where nothing needs the composed ops:
+    grad off (serving: training and QAT keep autograd's ops), the BN
+    folded, a serving conv (`Conv2d` or `QuantConv2d`, not a
+    `FakeQuantConv2d`), a channels-last input and a multiple of 8 output
+    channels (not the detection heads' 255, nor HRNet's 17 joints). There a
+    float conv leaves its bias to the epilogue where `bias_in_epilogue`
+    says so; a `QuantConv2d`'s bias is in K2's epilogue already.
+    """
+    cout = conv.weight_q.shape[0] if isinstance(conv, QuantConv2d) else conv.out_channels
+    if not (type(conv) in (Conv2d, QuantConv2d) and (bn is None or isinstance(bn, nn.Identity))
+            and _served(x, cout)):
+        y = conv(x)
+        return ConvOut(y if bn is None else bn(y))
+    if isinstance(conv, QuantConv2d) or conv.bias is None or not bias_in_epilogue(x.device):
+        return ConvOut(conv(x), None, True)
+    return ConvOut(conv(x, add_bias=False), conv.bias, True)
+
+
+def finish(out, skip=None, act=None, act_first=False, up=0):
+    """act(out.y + out.bias, upsampled by 2**up, + skip), with the
+    activation before the skip where `act_first` (`ops.epilogue`): one pass
+    where `out.fused`, else the composed ops, in the order the networks
+    always ran them."""
+    run = epilogue.bias_act if out.fused else epilogue.bias_act_plain
+    return run(out.y, out.bias, skip, up, act, act_first)
+
+
+def residual(block, x):
+    """A residual block's skip: x, or its `downsample` (conv, bn) on x, the
+    bias added in an epilogue pass of its own where served."""
+    return x if block.downsample is None else finish(conv_out(*block.downsample, x))
+
+
 def max_pool(x, window=2, stride=2):
     """Max pool with TF 'SAME' padding, like the JAX reduce_window, in x's
     layout (`F.pad` may return another)."""
@@ -360,10 +437,6 @@ def max_pool(x, window=2, stride=2):
 def upsample_nearest(x, factor):
     """Nearest-neighbour upsample by an integer factor (x's layout)."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
-
-
-def leaky_relu(x, slope=0.1):
-    return F.leaky_relu(x, negative_slope=slope)
 
 
 @torch.no_grad()

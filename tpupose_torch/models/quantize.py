@@ -50,6 +50,9 @@ from tpupose_torch.models.layers import (
     Conv2d,
     FakeQuantConv2d,
     QuantConv2d,
+    finish,
+    residual,
+    tensor_out,
 )
 from tpupose_torch.ops.int8_conv import int8_conv
 from tpupose_torch.ops.layout import memory_format_of
@@ -240,8 +243,7 @@ def quantized_basic_block(block, x):
     package's int8-resident blocks read their NHWC int8 input."""
     c1, c2 = block.conv1, block.conv2
     z = _dequant_conv(c2, _requant_conv(c1, c2, x), x.dtype)
-    skip = x if block.downsample is None else block.downsample(x)
-    return F.relu(z + skip)
+    return finish(tensor_out(z), skip=residual(block, x), act="relu")
 
 
 def quantized_bottleneck(block, x):
@@ -250,8 +252,7 @@ def quantized_bottleneck(block, x):
     conv2 and conv3 run without K2a on the card)."""
     c1, c2, c3 = block.conv1, block.conv2, block.conv3
     out = _dequant_conv(c3, _requant_conv(c2, c3, _requant_conv(c1, c2, x)), x.dtype)
-    skip = x if block.downsample is None else block.downsample(x)
-    return F.relu(out + skip)
+    return finish(tensor_out(out), skip=residual(block, x), act="relu")
 
 
 def uncalibrated_scales(model: nn.Module, skip=()):

@@ -19,8 +19,9 @@ from torch import nn
 from tpupose_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
+    conv_out,
+    finish,
     he_normal_init_,
-    leaky_relu,
     upsample_nearest,
 )
 from tpupose_torch.ops.image import letterbox_resize, resize_bilinear
@@ -118,7 +119,9 @@ def conv_in_channels(cfg: YoloConfig):
 
 
 class ConvBlock(nn.Module):
-    """Darknet conv: conv + BN + leaky ReLU, or a plain biased conv."""
+    """Darknet conv: conv + BN + leaky ReLU, or a plain biased conv. With
+    `skip`, Darknet's shortcut `skip + act(conv(x))`, its epilogue one pass
+    where served (`layers.conv_out`)."""
 
     def __init__(self, cin, cout, k, stride, bn):
         super().__init__()
@@ -126,11 +129,9 @@ class ConvBlock(nn.Module):
         self.bn = BatchNorm2d(cout) if bn else None
         self.act = bn
 
-    def forward(self, x):
-        y = self.conv(x)
-        if self.act:
-            y = leaky_relu(self.bn(y))
-        return y
+    def forward(self, x, skip=None):
+        return finish(conv_out(self.conv, self.bn, x), skip=skip,
+                      act="leaky" if self.act else None, act_first=True)
 
 
 class YOLOv3(nn.Module):
@@ -146,15 +147,15 @@ class YOLOv3(nn.Module):
                                                          conv_in_channels(cfg))):
             setattr(self, f"conv{i}", ConvBlock(cin, cout, k, s, bn))
 
-    def run(self, i, x):
-        return getattr(self, f"conv{i}")(x)
+    def run(self, i, x, skip=None):
+        return getattr(self, f"conv{i}")(x, skip)
 
     def forward(self, x, compute_dtype=torch.bfloat16):
         x = x.to(compute_dtype)
 
         def res_chain(x, i, n):
             for _ in range(n):
-                x = x + self.run(i + 1, self.run(i, x))
+                x = self.run(i + 1, self.run(i, x), skip=x)
                 i += 2
             return x, i
 
