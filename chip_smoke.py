@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only train            # phase 13 alone, then its profile
     python3 chip_smoke.py --only profile          # phase 20 alone: the stage-A profile
     python3 chip_smoke.py --only epilogue         # phase 21 alone: the conv epilogue
+    python3 chip_smoke.py --only vitpose          # phase 22 alone: ViTPose-H on the main path
 
 Phases, in order (but 11 and 15 run after 8, so that phase 10's peak
 memory holds none of phase 5's models, 16 in two parts, (c) after 8
@@ -346,6 +347,16 @@ backend flags), each held against its eager body:
      fused conv-bias-add-ReLU (`torch.cudnn_convolution_add_relu`, never
      called by the port) at branch 0's conv, its first call's seconds and
      its steady ms, against `F.conv2d` plus the kernel.
+ 22. ViTPose-H on the main path (`vitpose`), at `vitpose-h-clip32`'s
+     shapes, YOLOv3-416 and ViTPose-H from a seed, BN folded (jittered),
+     bf16: (a) the head's two transposed convs served by `deconv_out` on
+     the backbone's features of 640 crops, each output channels-last and
+     taken by the epilogue kernel, held bit for bit against the composed
+     passes; (b) K1 at ViTPose's 640 x 17 x 64 x 48 maps, phase 3's
+     comparison; (c) a 32-frame clip of 5 random 776x1032 views through
+     `Pipeline.process_clip` (a warm-up clip first), the epilogue's, the
+     fused attention's and K1's launches counted from 0 over one clip
+     against VITPOSE_LAUNCHES, its outputs checked as phase 5's.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
@@ -353,7 +364,7 @@ the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
 `--only ingest`, phase 17, its checkpoint files written anew from phase
 10's seed; with `--only parallel`, phase 18; with `--only graphs`, phase 19;
 with `--only train`, phase 13 and then 13 (f); with `--only profile`, phase
-20; with `--only epilogue`, phase 21.
+20; with `--only epilogue`, phase 21; with `--only vitpose`, phase 22.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
@@ -374,7 +385,9 @@ bytes-or-operations bound of the other rows stands beside it as
 in this process's graphs; the conv epilogue's `launches` are phase 5's two
 bf16 clips', `int8_clip_launches` phase 6's two int8 clips', and
 `packed_launches` phase 16 (c)'s packed clip's, each held against
-STEP_LAUNCHES, and its times are phase 21's), the nvidia-smi line, and last `{"ok": true,
+STEP_LAUNCHES, and its times are phase 21's; K1's and the epilogue's
+launches in phase 22 (c)'s ViTPose-H clip as `vitpose_launches`, held
+against VITPOSE_LAUNCHES), the nvidia-smi line, and last `{"ok": true,
 "device": {...}}`. It needs a CUDA card and the repository around it;
 without either it exits non-zero and prints no result. The f32
 comparisons run with TF32 off (so do phase 11's f32 fake-quant
@@ -629,8 +642,8 @@ def nchw_model(torch, model):
     return NCHW()
 
 
-def phase_kernel(th, torch, gen):
-    n, j, h, w = 640, 17, 96, 72
+def phase_kernel(th, torch, gen, shape=(640, 17, 96, 72)):
+    n, j, h, w = shape
     heat = planted_heatmaps(n, j, h, w, gen)
     xy = torch.rand((n, 2), generator=gen, device="cuda") * 1100.0
     wh = 20.0 + torch.rand((n, 2), generator=gen, device="cuda") * 500.0
@@ -1689,6 +1702,13 @@ STEP_LAUNCHES = {
              "int8_conv.quantize_launches": 362, "int8_conv.stem_launches": 2,
              "epilogue.launches": 291 + 72},
 }
+
+
+#: Launches of one ViTPose-H stage-A batch (a 32-frame clip of 5 views, 640
+#: crops): the epilogue's at YOLOv3-416's 72 call sites and the head's two
+#: transposed convs, the fused attention's one a block, K1's one (phase 22).
+VITPOSE_LAUNCHES = {"epilogue.launches": 72 + 2, "attention.launches": 32,
+                    "heatmap.launches": 1}
 
 
 def jitter_bn(torch, model, gen):
@@ -3361,6 +3381,88 @@ def phase_epilogue(torch, card):
     return out
 
 
+def phase_vitpose(th, torch, gen, card):
+    """Phase 22: ViTPose-H on the main path at `vitpose-h-clip32`'s shapes:
+    (a) the head's transposed convs and their epilogue, (b) K1 at 64x48,
+    (c) the launches of one clip (VITPOSE_LAUNCHES)."""
+    from tpupose_torch.data.synthetic import make_scene
+    from tpupose_torch.geometry import make_camera_set
+    from tpupose_torch.models.layers import deconv_out, finish, fold_batchnorm
+    from tpupose_torch.models.vitpose import vitpose_h_config, vitpose_init
+    from tpupose_torch.models.yolov3 import YoloConfig, yolov3_init
+    from tpupose_torch.ops import attention, epilogue
+    from tpupose_torch.pipeline import Pipeline
+    from tpupose_torch.tracking.tracker import TrackerConfig
+
+    t_phase = time.perf_counter()
+    cfg = vitpose_h_config()
+    with torch.device("cuda"):
+        pose = vitpose_init(cfg, torch.Generator(device="cuda").manual_seed(22))
+    pose = fold_batchnorm(jitter_bn(torch, pose, gen), dtype=torch.bfloat16)
+    out = {"card": card, "config": "YOLOv3-416 (max_candidates=4) + ViTPose-H 256x192, "
+                                   "BN folded, bf16; 32 frames x 5 views x 776x1032 uint8"}
+
+    # (a) the head's transposed convs on the backbone's features of 640 crops
+    crops = torch.randn((MAIN_CROPS, 3, *cfg.input_size), generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    heads, seq = [], pose.keypoint_head.deconv_layers
+    with torch.no_grad():
+        x = pose.backbone(crops)
+        for i in range(0, len(seq), 3):
+            conv = deconv_out(seq[i], seq[i + 1], x)
+            if not (conv.fused and conv.y.is_contiguous(memory_format=torch.channels_last)):
+                fail(f"ViTPose head: the transposed conv {i} gave a {tuple(conv.y.shape)} "
+                     f"output the epilogue does not serve (fused={conv.fused})")
+            before = epilogue.launches
+            got = finish(conv, act="relu")
+            ref = epilogue.bias_act_plain(conv.y, conv.bias, act="relu")
+            if epilogue.launches - before != 1:
+                fail(f"ViTPose head: the transposed conv {i}'s epilogue took the composed ops")
+            err = float((got.float() - ref.float()).abs().max())
+            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                fail(f"ViTPose head: the epilogue differs from its plain version after the "
+                     f"transposed conv {i} (max abs {err})")
+            heads.append({"layer": f"deconv_layers.{i}", "shape": list(got.shape),
+                          "max_abs_err": err})
+            x = got
+    out["head_epilogue"] = heads
+    del crops, x, got, ref, conv
+    torch.cuda.empty_cache()
+
+    # (b) K1 at ViTPose's heatmap size
+    out["k1"] = phase_kernel(th, torch, gen, (MAIN_CROPS, cfg.num_joints, *cfg.heatmap_size))
+
+    # (c) one clip through the served path, launches counted from 0
+    views, frames, height, width = 5, 32, 776, 1032
+    det_cfg = YoloConfig(max_candidates=4)
+    tcfg = TrackerConfig(num_cameras=views, max_dets=4, max_tracks=12, max_hyp=24)
+    detector = fold_batchnorm(yolov3_init(det_cfg, torch.Generator().manual_seed(0)),
+                              dtype=torch.bfloat16)
+    scene = make_scene(num_frames=1, num_cameras=views, num_actors=3, seed=0)
+    pipe = Pipeline(make_camera_set(scene.P, scene.K, scene.RT, width, height), tcfg, det_cfg,
+                    detector, cfg, pose)
+    clip = torch.randint(0, 256, (frames, views, height, width, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    frame_ids = torch.arange(frames, dtype=torch.int32)
+    pipe.process_clip(frame_ids, clip)  # warm-up
+    torch.cuda.synchronize()
+    th.launches = epilogue.launches = attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs, dets, mask = pipe.process_clip(frame_ids, clip)
+    torch.cuda.synchronize()
+    clip_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"epilogue.launches": epilogue.launches, "attention.launches": attention.launches,
+                "heatmap.launches": th.launches}
+    if launches != VITPOSE_LAUNCHES:
+        fail(f"a ViTPose-H clip launched {launches}, expected {VITPOSE_LAUNCHES}")
+    check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
+    out.update(launches=launches, clip_ms=clip_ms, fps=frames * 1e3 / clip_ms,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               detections_valid=int(mask.sum()), seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def phase_train(torch, card):
     """Phase 13: HRNet-W48 384x288 training at full width on blob batches,
     every step a captured CUDA graph after its warm-ups: (a) the JAX
@@ -4866,11 +4968,13 @@ def main():
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
         elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {
-                "k2", "k3", "ingest", "parallel", "graphs", "train", "profile", "epilogue"}:
+                "k2", "k3", "ingest", "parallel", "graphs", "train", "profile", "epilogue",
+                "vitpose"}:
             only = set(args[1:])
         else:
             fail("usage: chip_smoke.py [--learned-seeds SEED ... | "
-                 "--only k2|k3|ingest|parallel|graphs|train|profile|epilogue ...]", 2)
+                 "--only k2|k3|ingest|parallel|graphs|train|profile|epilogue|vitpose ...]",
+                 2)
     try:
         import torch
     except ImportError:
@@ -4923,6 +5027,8 @@ def main():
             emit("stage_a_profile", **phase_stage_a_profile(torch, card))
         if "epilogue" in only:
             emit("epilogue", **phase_epilogue(torch, card))
+        if "vitpose" in only:
+            emit("vitpose", **phase_vitpose(th, torch, gen, card))
         return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
@@ -4981,6 +5087,8 @@ def main():
     emit("stage_a_profile", **phase_stage_a_profile(torch, card))
     epi = phase_epilogue(torch, card)
     emit("epilogue", **epi)
+    vitpose = phase_vitpose(th, torch, gen, card)
+    emit("vitpose", **vitpose)
 
     quarter = k1["modes"]["quarter"]
     conv, packed = k2["timed"]["hrnet_branch0_3x3_48"], k2["timed"]["hrnet_branch0_packed_3x3_96"]
@@ -5002,6 +5110,8 @@ def main():
         "e2e_launches": e2e["k1_launches"],
         "multistream_launches": {m: c["k1"] for m, c in ms_launches.items()},
         "parallel_launches_per_rank": [c["k1"] for c in par_launches],
+        "vitpose_launches": vitpose["launches"]["heatmap.launches"],
+        "vitpose_max_abs_err": vitpose["k1"]["max_abs_err"],
     }, {
         "name": "int8_conv", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -5107,6 +5217,8 @@ def main():
         "cli_launches": {m: c["epilogue.launches"] for m, c in cli_launches.items()},
         "bundle_launches": bundles["int8"]["loop"]["launches"]["epilogue.launches"],
         "multistream_launches": {m: c["epilogue"] for m, c in ms_launches.items()},
+        "vitpose_launches": vitpose["launches"]["epilogue.launches"],
+        "vitpose_head": vitpose["head_epilogue"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

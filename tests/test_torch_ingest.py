@@ -30,6 +30,21 @@ def test_fabricate_equals_jax(tmp_path, kw):
             assert filecmp.cmp(g, r, shallow=False), g
 
 
+def test_fabricate_any_frame_size(tmp_path):
+    """A frame size that is no multiple of 16 (the Shelf rig's 1032x776 is
+    not); the files repeat every 16 frames, byte for byte."""
+    from PIL import Image
+
+    paths = ib.fabricate_jpeg_dataset(str(tmp_path), num_frames=18, num_views=2, width=40,
+                                      height=24)
+    for row in paths:
+        for p in row:
+            with Image.open(p) as img:
+                assert img.size == (40, 24)
+    assert filecmp.cmp(paths[1][1], paths[17][1], shallow=False)
+    assert not filecmp.cmp(paths[1][1], paths[2][1], shallow=False)
+
+
 def test_bench_decode_counts_every_image(tmp_path):
     paths = ib.fabricate_jpeg_dataset(str(tmp_path), **SMALL)
     out = ib.bench_decode(paths, threads_list=(1, 3), prefetch=2)

@@ -21,33 +21,43 @@ import torch
 
 from tpupose_torch.data.config import Config, tracker_config_from
 from tpupose_torch.data.dataset import load_filenames, load_images
-from tpupose_torch.pipeline.facade import Pipeline
+from tpupose_torch.pipeline import registry_defs  # noqa: F401  (fills the registries)
+from tpupose_torch.pipeline.facade import Pipeline, needs_hrnet
 from tpupose_torch.tracking.tracker import FrameOutput
+from tpupose_torch.utils.registry import POSE_MODELS
 from tpupose_torch.utils.timing import StageTimer
 
 
 def build_pipeline_real(cfg: Config, camera_parameter, width, height,
-                        bundle: str | None = None, device=None) -> Pipeline:
+                        bundle: str | None = None, device=None,
+                        int8: bool = False) -> Pipeline:
     """A Pipeline serving the config's models, `device` as `Pipeline`'s.
 
     Without `bundle`: the config's checkpoints, the darknet `.weights`
-    detector and the `pose_hrnet` `.pth` pose model, BN folded into bf16
+    detector and the pose net's checkpoint (a `pose_hrnet` `.pth`, or an
+    mmpose ViTPose one for POSE_MODEL "ViTPose"), BN folded into bf16
     weights (`cli.convert.load_checkpoints`). With `bundle`: the modules a
     `python -m tpupose_torch.cli.convert` run wrote (bf16, or already
     int8), after `load_bundle` has checked its manifest against the
-    config; no checkpoint is read and nothing is folded."""
+    config; no checkpoint is read and nothing is folded. A ViTPose pose
+    net has no bundle and no int8 path yet: `bundle` or `int8` (the
+    caller's `--int8`) raise for it, before a checkpoint is read."""
     from tpupose_torch.cli.convert import load_bundle, load_checkpoints
 
+    det_cfg = yolo_config_from(cfg)
+    pose_cfg = pose_config_from(cfg)
+    if bundle:
+        needs_hrnet(pose_cfg, "--bundle")
+    if int8:
+        needs_hrnet(pose_cfg, "--int8")
     cams = Pipeline.camera_set_from_parameter_dict(
         camera_parameter, width, height, num_cameras=len(cfg.dataset.folders_order)
     )
     tcfg = tracker_config_from(cfg, num_cameras=cams.num_cameras)
-    det_cfg = yolo_config_from(cfg)
-    pose_cfg = hrnet_config_from(cfg)
     if bundle:
         detector, pose_model = load_bundle(bundle, det_cfg, pose_cfg)
     else:
-        detector, pose_model, _ = load_checkpoints(cfg, det_cfg, pose_cfg)
+        detector, pose_model, _ = load_checkpoints(cfg, det_cfg)
     return Pipeline(cams, tcfg, det_cfg, detector, pose_cfg, pose_model, device=device)
 
 
@@ -79,20 +89,14 @@ def yolo_config_from(cfg: Config):
 
 
 def hrnet_config_from(cfg: Config):
-    from tpupose_torch.models.hrnet import HRNetConfig
+    """The `HRNetConfig` of the config's pose model section."""
+    return POSE_MODELS.get("hrpose")(cfg.pose_model, load=False)[0]
 
-    p = cfg.pose_model
-    return HRNetConfig(
-        width=p.c,
-        num_joints=p.num_joints,
-        input_size=tuple(p.resolution),
-        stem_channels=p.stem_channels,
-        layer1_blocks=p.layer1_blocks,
-        layer1_planes=p.layer1_planes,
-        stage_modules=tuple(p.stage_modules),
-        stage_blocks=p.stage_blocks,
-        decode_refine=p.decode_refine,
-    )
+
+def pose_config_from(cfg: Config):
+    """The pose net's configuration, by the YAML's POSE_MODEL through the
+    `POSE_MODELS` registry ("HRPose" or "ViTPose")."""
+    return POSE_MODELS.get(cfg.pipeline.pose_model)(cfg.pose_model, load=False)[0]
 
 
 def device_prefetch(frame_source, device, depth: int = 2):

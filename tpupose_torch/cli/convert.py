@@ -157,23 +157,22 @@ def load_bundle(bundle_dir, det_cfg, pose_cfg):
             _restore(paths["pose"], lambda: HRNet(pose_cfg)))
 
 
-def load_checkpoints(cfg, det_cfg, pose_cfg):
-    """The config's darknet `.weights` detector and `pose_hrnet` `.pth`
-    pose model on the CPU, BN folded into bf16 weights (exact for frozen
-    statistics, half the weight traffic, and the form `quantize_models`
-    expects). Returns (detector, pose_model, darknet header)."""
-    from tpupose_torch.models.convert import (
-        darknet_array_to_state_dict,
-        load_hrnet_torch_checkpoint,
-        read_darknet_file,
-    )
+def load_checkpoints(cfg, det_cfg):
+    """The config's darknet `.weights` detector and pose net checkpoint (a
+    `pose_hrnet` `.pth` or an mmpose ViTPose one, by POSE_MODEL through the
+    `POSE_MODELS` registry) on the CPU, BN folded into bf16 weights (exact
+    for frozen statistics, half the weight traffic, and the form
+    `quantize_models` expects). Returns (detector, pose_model, darknet
+    header)."""
+    from tpupose_torch.models.convert import darknet_array_to_state_dict, read_darknet_file
     from tpupose_torch.models.layers import fold_batchnorm
     from tpupose_torch.models.yolov3 import YOLOv3
+    from tpupose_torch.utils.registry import POSE_MODELS
 
     header, data = read_darknet_file(cfg.detect_model.weight)
     detector = YOLOv3(det_cfg)
     detector.load_state_dict(darknet_array_to_state_dict(data, det_cfg), strict=True)
-    pose_model = load_hrnet_torch_checkpoint(cfg.pose_model.checkpoint_file, pose_cfg)
+    _, pose_model = POSE_MODELS.get(cfg.pipeline.pose_model)(cfg.pose_model)
     return (fold_batchnorm(detector, dtype=torch.bfloat16),
             fold_batchnorm(pose_model, dtype=torch.bfloat16), header)
 
@@ -193,12 +192,13 @@ def convert_checkpoints(cfg, out, int8=False, calib_images=None, camera_paramete
     the bundle equals the in-process int8 models on those frames.
     `provenance` adds entries to the manifest's. Returns (manifest,
     detector, pose_model), the modules as written."""
-    from tpupose_torch.cli.common import hrnet_config_from, yolo_config_from
+    from tpupose_torch.cli.common import pose_config_from, yolo_config_from
     from tpupose_torch.data.config import tracker_config_from
-    from tpupose_torch.pipeline.facade import Pipeline
+    from tpupose_torch.pipeline.facade import Pipeline, needs_hrnet
 
-    det_cfg, pose_cfg = yolo_config_from(cfg), hrnet_config_from(cfg)
-    detector, pose_model, header = load_checkpoints(cfg, det_cfg, pose_cfg)
+    det_cfg, pose_cfg = yolo_config_from(cfg), pose_config_from(cfg)
+    needs_hrnet(pose_cfg, "a serving bundle")
+    detector, pose_model, header = load_checkpoints(cfg, det_cfg)
     dtype, quantized, calib_frames = "bfloat16", False, 0
     if int8:
         if calib_images is None or camera_parameter is None:

@@ -132,7 +132,7 @@ def main(argv=None):
         images0 = first[2]
         pipe = build_pipeline_real(
             cfg, camera_parameter, images0.shape[2], images0.shape[1],
-            bundle=args.bundle, device=device,
+            bundle=args.bundle, device=device, int8=args.int8,
         )
         head = [first]
         if args.int8 and not skip_int8_calibration(args):

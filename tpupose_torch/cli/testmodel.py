@@ -76,7 +76,8 @@ def main(argv=None):
     first = next(source)
     images0 = first[2]
     pipe = build_pipeline_real(cfg, camera_parameter, images0.shape[2],
-                               images0.shape[1], bundle=args.bundle, device=device)
+                               images0.shape[1], bundle=args.bundle, device=device,
+                               int8=args.int8)
     if args.int8 and not skip_int8_calibration(args):
         pipe.quantize_models(images0, on_drift=args.int8_on_drift)
     out_dir = os.path.join(cfg.output, cfg.dataset.test_dataset, "Images")

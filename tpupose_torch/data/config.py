@@ -63,6 +63,13 @@ class PoseModelConfig:
     stage_blocks: int = 4
     #: sub-pixel decode: "quarter" (official HRNet shift) or "parabolic"
     decode_refine: str = "quarter"
+    # ViTPose's backbone widths (POSE_MODEL "ViTPose"; the port's own keys,
+    # absent from the JAX package): ViT-H by default, the tests' reduced
+    # variants otherwise. ViTPose's crop size is RESOLUTION (256x192
+    # published).
+    embed_dim: int = 1280
+    depth: int = 32
+    num_heads: int = 16
 
 
 @dataclasses.dataclass
@@ -203,6 +210,9 @@ def config_from_raw(raw: dict) -> Config:
         stage_modules=tuple(pm.get("STAGE_MODULES", (1, 4, 3))),
         stage_blocks=int(pm.get("STAGE_BLOCKS", 4)),
         decode_refine=str(pm.get("DECODE_REFINE", "quarter")),
+        embed_dim=int(pm.get("EMBED_DIM", 1280)),
+        depth=int(pm.get("DEPTH", 32)),
+        num_heads=int(pm.get("NUM_HEADS", 16)),
     )
 
     # Tolerate the shipped Panoptic YAML's PERSON_M typo (SURVEY.md §2.3).

@@ -1,11 +1,13 @@
-"""Neural backends: HRNet and YOLOv3 as nn.Modules, weight conversion and
-checkpoint loading, int8 post-training quantization; training (`train`)
-and save / resume (`checkpoint`) in their own modules."""
+"""Neural backends: HRNet, ViTPose and YOLOv3 as nn.Modules, weight
+conversion and checkpoint loading, int8 post-training quantization;
+training (`train`) and save / resume (`checkpoint`) in their own
+modules."""
 from tpupose_torch.models.convert import (
     darknet_array_to_state_dict,
     hrnet_state_dict_from_jax,
     load_darknet_weights,
     load_hrnet_torch_checkpoint,
+    load_vitpose_checkpoint,
     read_darknet_file,
     state_dict_from_jax,
     state_dict_to_darknet_array,
@@ -28,6 +30,7 @@ from tpupose_torch.models.quantize import (
     quantize_hrnet,
     quantize_yolo,
 )
+from tpupose_torch.models.vitpose import ViTPose, ViTPoseConfig, vitpose_h_config, vitpose_init
 from tpupose_torch.models.yolov3 import (
     YOLOv3,
     YoloConfig,
@@ -41,6 +44,7 @@ __all__ = [
     "hrnet_state_dict_from_jax",
     "load_darknet_weights",
     "load_hrnet_torch_checkpoint",
+    "load_vitpose_checkpoint",
     "read_darknet_file",
     "state_dict_from_jax",
     "state_dict_to_darknet_array",
@@ -59,6 +63,10 @@ __all__ = [
     "quantize_convs",
     "quantize_hrnet",
     "quantize_yolo",
+    "ViTPose",
+    "ViTPoseConfig",
+    "vitpose_h_config",
+    "vitpose_init",
     "YOLOv3",
     "YoloConfig",
     "decode_detections",

@@ -16,7 +16,9 @@ way, into a torch optimizer's `state_dict`.
 The published checkpoints (`src/configs/*/model_configs.yaml:38-57`) load
 with no JAX: a darknet `.weights` file (`read_darknet_file`,
 `load_darknet_weights`) and a `pose_hrnet` `.pth` state_dict
-(`load_hrnet_torch_checkpoint`), whose keys are the port's HRNet names.
+(`load_hrnet_torch_checkpoint`), whose keys are the port's HRNet names;
+and an mmpose ViTPose checkpoint (`load_vitpose_checkpoint`), whose
+`backbone.*` / `keypoint_head.*` keys are the port's ViTPose names.
 """
 from __future__ import annotations
 
@@ -122,6 +124,22 @@ def load_hrnet_torch_checkpoint(path, cfg):
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in sd.items()}
     model = HRNet(cfg)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_vitpose_checkpoint(path, cfg):
+    """An mmpose ViTPose checkpoint (`{"state_dict": ...}`, the official
+    release's container) as the port's `ViTPose` for `cfg`, loaded with
+    `strict=True`: the official `backbone.*` and `keypoint_head.*` keys are
+    the port's module names. A bare state_dict loads too. Returns the model
+    on the CPU, BN not folded."""
+    from tpupose_torch.models.vitpose import ViTPose
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    model = ViTPose(cfg)
     model.load_state_dict(sd, strict=True)
     return model
 

@@ -25,9 +25,10 @@ their weights in the input's layout.
 * While a `BNStatRecorder` is active, `bn_apply` normalizes by the batch
   statistics of its input and records them (`quantize.calibrate_bn_stats`);
   a `SyncBNStatRecorder` takes them over a process group's whole batch.
-* `conv_out` and `finish` run a conv and what follows it (bias, nearest
-  upsample, residual, activation): served, as one pass of `ops.epilogue`
-  after the conv; on autograd's path, as the composed ops.
+* `conv_out` (`deconv_out` for a transposed conv) and `finish` run a conv
+  and what follows it (bias, nearest upsample, residual, activation):
+  served, as one pass of `ops.epilogue` after the conv; on autograd's
+  path, as the composed ops.
 """
 from __future__ import annotations
 
@@ -318,15 +319,17 @@ def fold_batchnorm(model: nn.Module, dtype=None) -> nn.Module:
     w' = w * s and b' = beta - mean * s (+ b * s if the conv had a bias),
     s = gamma / sqrt(var + eps), computed in f32; the BN becomes
     nn.Identity, so its keys leave the state_dict as the JAX package's
-    folded trees drop them. Pairs are siblings named convN / bnN, conv /
-    bn, or i / i+1 (Sequential). `dtype` then casts every parameter
-    (e.g. torch.bfloat16 serving weights). Returns the model.
+    folded trees drop them. A transposed conv (ViTPose's head) folds the
+    same way, its output channels on the weight's dim 1. Pairs are
+    siblings named convN / bnN, conv / bn, or i / i+1 (Sequential).
+    `dtype` then casts every parameter (e.g. torch.bfloat16 serving
+    weights). Returns the model.
     """
     for module in list(model.modules()):
         children = module._modules
         for name in list(children):
             conv = children[name]
-            if not isinstance(conv, nn.Conv2d):
+            if not isinstance(conv, (nn.Conv2d, nn.ConvTranspose2d)):
                 continue
             if name.startswith("conv") and name != "conv":
                 partner = "bn" + name[4:]
@@ -344,7 +347,10 @@ def fold_batchnorm(model: nn.Module, dtype=None) -> nn.Module:
                 b = bn.bias.float() - bn.running_mean.float() * s
                 if conv.bias is not None:
                     b = b + conv.bias.float() * s
-                w = conv.weight.float() * s[:, None, None, None]
+                if isinstance(conv, nn.ConvTranspose2d):
+                    w = conv.weight.float() * s[None, :, None, None]
+                else:
+                    w = conv.weight.float() * s[:, None, None, None]
             conv.weight = nn.Parameter(w.to(conv.weight.dtype))
             conv.bias = nn.Parameter(b.to(bn.bias.dtype))
             children[partner] = nn.Identity()
@@ -404,6 +410,24 @@ def conv_out(conv, bn, x):
     if isinstance(conv, QuantConv2d) or conv.bias is None or not bias_in_epilogue(x.device):
         return ConvOut(conv(x), None, True)
     return ConvOut(conv(x, add_bias=False), conv.bias, True)
+
+
+def deconv_out(deconv, bn, x):
+    """A transposed conv (`nn.ConvTranspose2d`, ViTPose's head) then `bn`
+    on x, as a `ConvOut` for `finish`: `conv_out`'s rule, the epilogue
+    serving the transposed conv's output as it serves a conv's (grad off,
+    the BN folded, a channels-last output of 8k channels; the bias in it
+    where `bias_in_epilogue` says so)."""
+    w = deconv.weight.to(x.dtype)
+    args = (deconv.stride, deconv.padding)
+    if not (bn is None or isinstance(bn, nn.Identity)):
+        return ConvOut(bn(F.conv_transpose2d(x, w, None, *args)))
+    bias = deconv.bias
+    if bias is not None and bias_in_epilogue(x.device) and _served(x, deconv.out_channels):
+        y = F.conv_transpose2d(x, w, None, *args)
+        return ConvOut(y, bias, _served(y, deconv.out_channels))
+    y = F.conv_transpose2d(x, w, None if bias is None else bias.to(x.dtype), *args)
+    return ConvOut(y, None, _served(y, deconv.out_channels))
 
 
 def finish(out, skip=None, act=None, act_first=False, up=0):

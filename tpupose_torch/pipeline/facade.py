@@ -3,9 +3,10 @@
 Counterpart of `tpupose/pipeline/facade.py`: the clip path, the staged API
 (`person_detect`, `person_pose_detect`, `person_track`, `process_frame`,
 `process_clips_nn`) and int8 serving (`quantize_models` with its drift
-self-check). Stage A (`_clip_detections`) runs YOLOv3 and HRNet over every
-frame of a clip as one batch; stage B runs the tracker over the frames, on
-CUDA as a captured graph of the tracker step replayed each frame
+self-check). Stage A (`_clip_detections`) runs YOLOv3 and the pose net
+(HRNet, or ViTPose: `PoseConfig`) over every frame of a clip as one batch;
+stage B runs the tracker over the frames, on CUDA as a captured graph of
+the tracker step replayed each frame
 (`tracking.tracker.make_step_fn`, `track_clip`). The pipeline lives on one
 device, CUDA unless the caller passes another.
 
@@ -19,11 +20,14 @@ kernel.
 """
 from __future__ import annotations
 
+from typing import Protocol
+
 import numpy as np
 import torch
+from torch import nn
 
 from tpupose_torch.geometry import CameraSet, make_camera_set
-from tpupose_torch.models.hrnet import HRNet, HRNetConfig, normalize_image
+from tpupose_torch.models.hrnet import HRNetConfig, normalize_image
 from tpupose_torch.models.layers import to_channels_last
 from tpupose_torch.models.yolov3 import (
     YOLOv3,
@@ -49,6 +53,26 @@ from tpupose_torch.utils import timing
 MIN_CALIB_SAMPLES = 8
 
 
+class PoseConfig(Protocol):
+    """What stage A reads of a pose net's configuration (`HRNetConfig`,
+    `ViTPoseConfig`); the net itself is a module whose `forward(crops,
+    compute_dtype)` takes (N, 3, h, w) normalized crops and returns f32
+    (N, J, h/4, w/4) heatmaps."""
+
+    input_size: tuple       # (h, w) of a crop
+    num_joints: int
+    decode_refine: str      # K1's sub-pixel refinement
+
+
+def needs_hrnet(pose_cfg, what):
+    """Raise for a pose net other than HRNet where `what` serves HRNet
+    alone."""
+    if pose_cfg is not None and not isinstance(pose_cfg, HRNetConfig):
+        raise NotImplementedError(
+            f"{what} serves HRNet only; the pose net is {type(pose_cfg).__name__} "
+            "(ViTPose has no packed or int8 path yet): serve it in bf16")
+
+
 def resolve_device(device=None) -> torch.device:
     """`device`, or CUDA when None; raises if CUDA is asked for and absent
     (the port never moves to the CPU on its own)."""
@@ -63,7 +87,8 @@ def resolve_device(device=None) -> torch.device:
 def _clip_detections(det_cfg, pose_cfg, tcfg, detector, pose_model, images,
                      compute_dtype=torch.bfloat16):
     """Batched detect -> crop -> pose -> decode for N images, padded to the
-    tracker's max_dets.
+    tracker's max_dets. The pose net's forward is the span `stage_a.hrnet`
+    whichever net it is (HRNet or ViTPose), the name the benchmark reads.
 
     Args:
       images: (N, H, W, 3) uint8 / float RGB (NHWC).
@@ -115,7 +140,7 @@ def _box_iou(box, others):
 def _pose_crops(pose_cfg, x, boxes):
     """(N, H, W, 3) bf16 frames in [0, 1] and (N, K, 4) boxes -> the
     aspect-expanded (N*K, 4) boxes and the (N*K, 3, h, w) normalized crops
-    HRNet reads, a channels-last view of the NHWC crops."""
+    the pose net reads, a channels-last view of the NHWC crops."""
     in_h, in_w = pose_cfg.input_size
     n, k = boxes.shape[:2]
     eboxes = expand_box_to_aspect(boxes.reshape(-1, 4), in_h / in_w)
@@ -131,7 +156,8 @@ class Pipeline:
       cams: CameraSet (moved to `device`).
       tracker_cfg: TrackerConfig.
       det_cfg, detector: YoloConfig and YOLOv3 module (optional for replay).
-      pose_cfg, pose_model: HRNetConfig and HRNet module (optional).
+      pose_cfg, pose_model: the pose net's configuration (`PoseConfig`: an
+        HRNetConfig or a ViTPoseConfig) and its module (optional).
       state: initial TrackerState (default: empty).
       device: torch device; None means CUDA, which must be present.
       compute_dtype: the networks' compute dtype (bf16 serving default).
@@ -144,8 +170,8 @@ class Pipeline:
     def __init__(self, cams: CameraSet, tracker_cfg: TrackerConfig,
                  det_cfg: YoloConfig | None = None,
                  detector: YOLOv3 | None = None,
-                 pose_cfg: HRNetConfig | None = None,
-                 pose_model: HRNet | None = None,
+                 pose_cfg: PoseConfig | None = None,
+                 pose_model: nn.Module | None = None,
                  state: TrackerState | None = None, device=None,
                  compute_dtype=torch.bfloat16):
         self.device = resolve_device(device)
@@ -187,11 +213,13 @@ class Pipeline:
         or on the folded float model; idempotent. The pipeline keeps no
         compiled programs, so nothing built for the unpacked model
         outlives the swap. Whether it pays on the card is measured by
-        `chip_smoke.py` phase 16; nothing calls it by default."""
+        `chip_smoke.py` phase 16; nothing calls it by default. HRNet only:
+        another pose net raises."""
         import dataclasses
 
         from tpupose_torch.ops.packing import pack_hrnet_branch0
 
+        needs_hrnet(self.pose_cfg, "Pipeline.pack_models")
         if self.pose_cfg is None or self.pose_cfg.pack_branch0:
             return
         self.pose_model = to_channels_last(pack_hrnet_branch0(self.pose_model))
@@ -239,7 +267,7 @@ class Pipeline:
 
         `last_quant_report` holds the numbers of the last check, also when
         it raised. The whole call is the set-up phase "quantize"
-        (`utils.timing.setup_phase`).
+        (`utils.timing.setup_phase`). HRNet only: another pose net raises.
         """
         from tpupose_torch.models.quantize import (
             QuantizationDriftError,
@@ -250,6 +278,7 @@ class Pipeline:
             yolo_skip_ids,
         )
 
+        needs_hrnet(self.pose_cfg, "Pipeline.quantize_models")
         if on_drift not in ("escalate", "raise", "warn"):
             raise ValueError(f"on_drift must be escalate/raise/warn, "
                              f"got {on_drift!r}")

@@ -36,16 +36,45 @@ def build_no_detector(cfg):
 
 
 @POSE_MODELS.register("hrpose")
-def build_hrpose(cfg):
+def build_hrpose(cfg, load=True):
     """cfg: data.config.PoseModelConfig -> (HRNetConfig, HRNet module on
-    the CPU with the `pose_hrnet` `.pth` loaded, BN not folded)."""
+    the CPU with the `pose_hrnet` `.pth` loaded, BN not folded; None
+    without `load`)."""
     from tpupose_torch.models.convert import load_hrnet_torch_checkpoint
     from tpupose_torch.models.hrnet import HRNetConfig
 
     pose_cfg = HRNetConfig(
-        width=cfg.c, num_joints=cfg.num_joints, input_size=tuple(cfg.resolution)
+        width=cfg.c,
+        num_joints=cfg.num_joints,
+        input_size=tuple(cfg.resolution),
+        stem_channels=cfg.stem_channels,
+        layer1_blocks=cfg.layer1_blocks,
+        layer1_planes=cfg.layer1_planes,
+        stage_modules=tuple(cfg.stage_modules),
+        stage_blocks=cfg.stage_blocks,
+        decode_refine=cfg.decode_refine,
     )
-    return pose_cfg, load_hrnet_torch_checkpoint(cfg.checkpoint_file, pose_cfg)
+    return pose_cfg, load_hrnet_torch_checkpoint(cfg.checkpoint_file, pose_cfg) if load else None
+
+
+@POSE_MODELS.register("vitpose")
+def build_vitpose(cfg, load=True):
+    """cfg: data.config.PoseModelConfig -> (ViTPoseConfig, ViTPose module
+    on the CPU with the mmpose checkpoint loaded, BN not folded; None
+    without `load`). The port's own entry: the JAX package has no
+    ViTPose."""
+    from tpupose_torch.models.convert import load_vitpose_checkpoint
+    from tpupose_torch.models.vitpose import ViTPoseConfig
+
+    pose_cfg = ViTPoseConfig(
+        embed_dim=cfg.embed_dim,
+        depth=cfg.depth,
+        num_heads=cfg.num_heads,
+        input_size=tuple(cfg.resolution),
+        num_joints=cfg.num_joints,
+        decode_refine=cfg.decode_refine,
+    )
+    return pose_cfg, load_vitpose_checkpoint(cfg.checkpoint_file, pose_cfg) if load else None
 
 
 @MATCHERS.register("iterative")

@@ -35,26 +35,38 @@ def fabricate_jpeg_dataset(root, num_frames=32, num_views=5, width=1280,
                            height=720, quality=90, seed=0):
     """Write photo-like JPEGs; returns frame_paths (list over frames of
     per-view path lists), in the dataset layout
-    `<root>/Camera<k>/frame_<t>.jpg`."""
+    `<root>/Camera<k>/frame_<t>.jpg`. Any width and height: the colour
+    blocks are 16 pixels, the last row and column of them cut at the
+    frame's edge. The drift repeats every 16 frames, and so do the
+    files' bytes: each is encoded once and written again."""
+    import io
+
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     frame_paths = []
+    encoded = {}  # (view, t % 16) -> JPEG bytes
     # One textured base per view; a per-frame brightness drift keeps the
     # files distinct.
     bases = []
     for v in range(num_views):
-        low = rng.normal(128, 40, (height // 16, width // 16, 3))
-        low = np.kron(low, np.ones((16, 16, 1)))
+        low = rng.normal(128, 40, (-(-height // 16), -(-width // 16), 3))
+        low = np.kron(low, np.ones((16, 16, 1)))[:height, :width]
         tex = rng.normal(0, 12, (height, width, 3))
         bases.append(low + tex)
         os.makedirs(os.path.join(root, f"Camera{v}"), exist_ok=True)
     for t in range(num_frames):
         row = []
         for v in range(num_views):
-            img = np.clip(bases[v] + 2.0 * (t % 16), 0, 255).astype(np.uint8)
+            key = (v, t % 16)
+            if key not in encoded:
+                img = np.clip(bases[v] + 2.0 * (t % 16), 0, 255).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, format="JPEG", quality=quality)
+                encoded[key] = buf.getvalue()
             path = os.path.join(root, f"Camera{v}", f"frame_{t:05d}.jpg")
-            Image.fromarray(img).save(path, quality=quality)
+            with open(path, "wb") as f:
+                f.write(encoded[key])
             row.append(path)
         frame_paths.append(row)
     return frame_paths
