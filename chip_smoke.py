@@ -63,8 +63,9 @@ backend flags), each held against its eager body:
      K2 also at width-packed branch 0 (`ops.packing`: 3x3 96->96 at 96x36,
      x640, K = 864), checked as the main path's shapes and timed beside
      the unpacked branch 0, with the bf16 cuDNN conv's bound; every time
-     also channels-last ("nhwc": K2, K2a, K2b, K2 on an int8 input, plain
-     and cuDNN);
+     also channels-last ("nhwc": K2, K2a, K2b, K2 on an int8 input, K2b's
+     requantizing mode on it with its bound (int8 in, int8 out) beside the
+     K2b, E and K2a passes it replaces, plain and cuDNN);
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
@@ -82,14 +83,16 @@ backend flags), each held against its eager body:
   6. the int8 main path: `Pipeline.quantize_models` on 8 frames of one view
      (on_drift="warn": random weights drift by design, so the self-check
      report is printed and not gated on), then `process_clip` twice on the
-     same clip; K1, K2, K2a, stem-kernel and conv-epilogue launch counts
-     (364 K2, 362 K2a, 2 stem and 363 epilogue per clip expected, every K2
-     and K2a launch in its channels-last mode),
+     same clip; K1, K2, K2a, stem-kernel, K2b-requantizing and conv-epilogue
+     launch counts (364 K2, 203 K2a, 2 stem, 159 requantizing and 204
+     epilogue per clip expected, STEP_LAUNCHES; every K2 and K2a launch in
+     its channels-last mode),
      no NCHW conv input, stage A (STAGE_A_RUNS times), K2's and K2a's
      device ms in one stage A, peak memory, and the int8-vs-bf16 keypoint
      shift (for information); then every quantized conv on SUB_CROPS crops
      and SUB_IMAGES images, channels-last, torch.equal to the same conv on
-     the NCHW copy of its input (`int8_layouts_equal`);
+     the NCHW copy of its input, and each of the 159 that requantize to the
+     three passes they replace there (`int8_layouts_equal`);
   7. int8-resident blocks: one HRNet-W48 forward with `int8_resident=True`
      on 8 crops in f32, channels-last, each block held against the generic
      int8 block on the same input within the bound of the JAX package's
@@ -116,8 +119,9 @@ backend flags), each held against its eager body:
      random 720x1280 views (2 clips through `process_clip`, 4 trailing
      frames through `process_frame`), in bf16 and again after
      `quantize_models` on all views of the first 8 frames
-     (on_drift="warn"), each run with K1, K2 and K2a counted from 0 (6, 0,
-     0 in bf16; 6, 6 x 364, 6 x 362 in int8) and K3 (68 x 6) and no NCHW
+     (on_drift="warn"), each run with K1, K2, K2a, stem, requantizing and
+     epilogue launches counted from 0 (6 x STEP_LAUNCHES: 6, 0, 0 in bf16;
+     6, 6 x 364, 6 x 203 in int8) and K3 (68 x 6) and no NCHW
      conv input (the pre-hook of phase 5); each run's
      first clip
      against `process_clip` + `harvest` (poses within 1e-3), the pkl and
@@ -137,7 +141,7 @@ backend flags), each held against its eager body:
      tensor, then eager without deterministic; ms per step of each and
      the 900 + 900-step start-up at each rate (`startup_900_s`); then
      one int8 `process_clip` (1 K1, 364 K2,
-     362 K2a launches). Last, on the tiny configs in f32: the first QAT
+     203 K2a, 159 requantizing launches). Last, on the tiny configs in f32: the first QAT
      step's
      gradients of every fake-quant conv, card against CPU at the same
      input and output gradient, by relative norm (QAT_GRAD_LIMITS); then
@@ -222,7 +226,7 @@ backend flags), each held against its eager body:
      through `quantize_convs` + `uncalibrated_scales`; fps, the stage A /
      stage B split (each alone to a sync), K1 / K2 / K2a / K3 / conv
      epilogue launches counted from 0 (8, 0, 0, 768, 8 x 379 in bf16; 8,
-     8 x 364, 8 x 362, 768, 8 x 363 in int8), no NCHW conv input, peak memory, host syncs; each stream's
+     8 x 364, 8 x 203, 768, 8 x 204 in int8, 8 x 159 requantizing), no NCHW conv input, peak memory, host syncs; each stream's
      stage B equal to
      `track_clip` on its own stage-A detections, and (bf16, information)
      the share of its masks equal to `process_clip_nn`'s on the same frames.
@@ -795,12 +799,14 @@ def phase_k2a(torch, gen, hr_shapes, yo_shapes):
 def time_k2(torch, gen, shape, batch, with_plain=True):
     """Times of one conv shape at `batch`, bf16 in and out, on an NCHW input
     and, under "nhwc", on its channels-last copy (the main path's layout):
-    K2 as the main path calls it, and, on the GEMM path, K2a and K2b alone
-    and K2 on an int8 channels-last input (K2b alone, the int8-resident
-    blocks' route); the plain version and the bf16 cuDNN conv in each
-    layout; each kernel with its bound."""
+    K2 as the main path calls it, and, on the GEMM path, K2a and K2b alone,
+    K2 on an int8 channels-last input (K2b alone, the int8-resident
+    blocks' route) and K2b's requantizing mode on it (beside the K2b, E and
+    K2a passes it replaces); the plain version and the bf16 cuDNN conv in
+    each layout; each kernel with its bound."""
     import torch.nn.functional as F
 
+    from tpupose_torch.ops import epilogue
     from tpupose_torch.ops import int8_conv as k2
 
     b16, cl = torch.bfloat16, torch.channels_last
@@ -846,6 +852,21 @@ def time_k2(torch, gen, shape, batch, with_plain=True):
         nhwc["int8_input"]["k2a_launches"] = k2.quantize_launches - before
         if nhwc["int8_input"]["k2a_launches"]:
             fail(f"K2 on an int8 channels-last input {shape} launched K2a")
+        # K2b's requantizing mode on that int8 input, which reads int8 and
+        # writes the next conv's int8 input, against the three passes it
+        # takes the place of: K2b's bf16 store, E's ReLU, K2a
+        inv_next = torch.tensor([127.0 / 8.0], device="cuda")
+        nhwc["k2b_requant"] = {
+            "ms": cuda_time_ms(lambda: k2.int8_conv_requant_cuda(
+                xi, wk, (k, k), None, mul, add, b16, "relu", inv_next, stride, dil), reps=10),
+            **bound(xq.numel() + wq.numel() + y.numel() + vectors + 4, ops,
+                    H100_INT8_OPS_PER_S)}
+
+        def three_passes():
+            z = k2.int8_conv_cuda(xi, wk, (k, k), None, mul, add, b16, stride, dil)
+            return k2.quantize_nhwc_cuda(epilogue.bias_act_cuda(z, act="relu"), inv_next)
+
+        nhwc["k2b_requant"]["three_passes_ms"] = cuda_time_ms(three_passes, reps=10)
         if with_plain:
             out["k2a"]["plain_ms"] = cuda_time_ms(lambda: k2.quantize_nhwc_plain(x, inv),
                                                   warmup=1, reps=5)
@@ -1199,7 +1220,7 @@ def phase_int8_path(torch, card, main):
     th.launches = 0
     k2.launches = 0
     k2.quantize_launches = k2.quantize_cl_launches = 0
-    k2.stem_launches = k2.nhwc_launches = 0
+    k2.stem_launches = k2.nhwc_launches = k2.requant_launches = 0
     lap.launches = 0
     epilogue.launches = 0
     replays = card_replays()
@@ -1215,6 +1236,7 @@ def phase_int8_path(torch, card, main):
     k1_launches, k2_launches, k3_launches = th.launches, k2.launches, lap.launches
     k2a_launches, stem_launches = k2.quantize_launches, k2.stem_launches
     k2a_cl_launches, nhwc_launches = k2.quantize_cl_launches, k2.nhwc_launches
+    requant_launches = k2.requant_launches
     epi_launches = epilogue.launches
     check_channels_last(layouts, "int8 clip path")
     if epi_launches != 2 * STEP_LAUNCHES["int8"]["epilogue.launches"]:
@@ -1229,10 +1251,14 @@ def phase_int8_path(torch, card, main):
     if (k3_launches, replays) != (2 * frames * (1 + views), 2 * frames):
         fail(f"two int8 clips launched K3 {k3_launches} times in {replays} graph replays, "
              f"expected {2 * frames * (1 + views)} in {2 * frames}")
-    if k1_launches < 1 or (k2_launches, k2a_launches, stem_launches) != (2 * 364, 2 * 362, 2 * 2):
+    expect = STEP_LAUNCHES["int8"]
+    expect = tuple(2 * expect[f"int8_conv.{k}"] for k in (
+        "launches", "quantize_launches", "stem_launches", "requant_launches"))
+    if k1_launches < 1 or (k2_launches, k2a_launches, stem_launches,
+                           requant_launches) != expect:
         fail(f"two int8 clips launched K1 {k1_launches}, K2 {k2_launches}, K2a "
-             f"{k2a_launches} and the stem kernel {stem_launches} times, expected >= 1, "
-             f"728, 724 and 4")
+             f"{k2a_launches}, the stem kernel {stem_launches} and K2b requantizing "
+             f"{requant_launches} times, expected >= 1 and {expect}")
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
     stage_a_runs = stage_a_times(torch, pipe, clip)
     k2_ms, k2_calls, k2a_ms = k2_time_in_stage_a(torch, pipe, clip)
@@ -1249,7 +1275,7 @@ def phase_int8_path(torch, card, main):
         "k2_launches": k2_launches, "k2_launches_per_clip": k2_launches / 2,
         "quantize_launches": k2a_launches, "quantize_launches_per_clip": k2a_launches / 2,
         "stem_launches": stem_launches, "epilogue_launches": epi_launches,
-        "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
+        "requant_launches": requant_launches, "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
         "graph_replays": replays, "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
         "k2a_ms_in_stage_a": k2a_ms, "k2b_and_stem_ms_in_stage_a": k2_ms - k2a_ms,
         "quantize_cl_launches": k2a_cl_launches, "nhwc_launches": nhwc_launches,
@@ -1271,25 +1297,29 @@ def k2_time_in_stage_a(torch, pipe, clip, shape=None):
     from tpupose_torch.ops import int8_conv as k2
 
     events, at_shape = {"k2": [], "k2a": []}, [0]
-    inner = {"k2": k2.int8_conv_cuda, "k2a": k2.quantize_nhwc_cuda}
+    names = {"int8_conv_cuda": "k2", "int8_conv_requant_cuda": "k2",
+             "quantize_nhwc_cuda": "k2a"}
+    inner = {fn: getattr(k2, fn) for fn in names}
 
-    def timed(name):
+    def timed(fn):
         def run(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            y = inner[name](*args, **kw)
+            y = inner[fn](*args, **kw)
             end.record()
-            events[name].append((start, end))
-            at_shape[0] += name == "k2" and tuple(args[0].shape[1:]) == shape
+            events[names[fn]].append((start, end))
+            at_shape[0] += names[fn] == "k2" and tuple(args[0].shape[1:]) == shape
             return y
         return run
 
-    k2.int8_conv_cuda, k2.quantize_nhwc_cuda = timed("k2"), timed("k2a")
+    for fn in names:
+        setattr(k2, fn, timed(fn))
     try:
         pipe.process_clip_nn(clip)
     finally:
-        k2.int8_conv_cuda, k2.quantize_nhwc_cuda = inner["k2"], inner["k2a"]
+        for fn in names:
+            setattr(k2, fn, inner[fn])
     torch.cuda.synchronize()
     ms = {name: sum(s.elapsed_time(e) for s, e in ev) for name, ev in events.items()}
     if shape is None:
@@ -1301,19 +1331,38 @@ def int8_layouts_equal(torch, pipe, clip):
     """Every quantized conv of the int8 models on SUB_CROPS crops and
     SUB_IMAGES images of the clip's first frame, channels-last as served,
     torch.equal to the same conv on the NCHW copy of its input (K2's NCHW
-    routes), its output channels-last."""
+    routes), its output channels-last; a conv that writes the next one's
+    int8 input (K2b's requantizing mode, which has no NCHW route) to the
+    three steps it replaces there: K2 to the intermediate's dtype, the
+    activation's plain ops, the next conv's quantization."""
+    from tpupose_torch.models import layers
     from tpupose_torch.models.layers import QuantConv2d
     from tpupose_torch.models.yolov3 import prepare_yolo_images
-    from tpupose_torch.ops.int8_conv import int8_conv
+    from tpupose_torch.ops.epilogue import bias_act_plain
+    from tpupose_torch.ops.int8_conv import int8_conv, quantize_input
     from tpupose_torch.pipeline.facade import _pose_crops
 
-    checked = {"hrnet": 0, "yolo": 0}
+    checked = {"hrnet": 0, "yolo": 0, "requantizing": 0}
+    inner = layers.int8_conv_requant
+
+    def requant(x, weight_q, weight_k, inv, mul, add, mid, act, inv_next, stride=1,
+                dilation=1):
+        out = inner(x, weight_q, weight_k, inv, mul, add, mid, act, inv_next, stride, dilation)
+        y = int8_conv(x.contiguous(), weight_q, weight_k, inv, mul, add, mid, stride, dilation)
+        ref = quantize_input(bias_act_plain(y, act=act), inv_next)
+        if not out.is_contiguous(memory_format=torch.channels_last):
+            fail("int8 layouts: a requantizing conv's output is not channels-last")
+        if not torch.equal(out, ref):
+            fail(f"int8 layouts: a requantizing conv {tuple(x.shape)} differs from the NCHW "
+                 f"steps in {int((out != ref).sum())} codes")
+        checked["requantizing"] += 1
+        return out
 
     def hook(name):
         def check(mod, args, out):
             x = args[0]
             ref = int8_conv(x.contiguous(), mod.weight_q, mod.weight_k, mod.inv_scale(),
-                            *mod.dequant_vectors(), x.dtype, mod.stride, mod.dilation)
+                            *mod.dequant_vectors(), out.dtype, mod.stride, mod.dilation)
             if not out.is_contiguous(memory_format=torch.channels_last):
                 fail(f"int8 layouts: a {name} conv's output is not channels-last")
             if not torch.equal(out, ref):
@@ -1330,15 +1379,18 @@ def int8_layouts_equal(torch, pipe, clip):
     hooks = [m.register_forward_hook(hook(name))
              for name, model in (("hrnet", pipe.pose_model), ("yolo", pipe.detector))
              for m in model.modules() if isinstance(m, QuantConv2d)]
+    layers.int8_conv_requant = requant
     try:
         with torch.inference_mode():
             pipe.detector(ximg.permute(0, 3, 1, 2), pipe.compute_dtype)
             pipe.pose_model(crops[:SUB_CROPS], pipe.compute_dtype)
     finally:
+        layers.int8_conv_requant = inner
         for h in hooks:
             h.remove()
-    expect = (292, 72)
-    if (checked["hrnet"], checked["yolo"]) != expect:
+    # the requantizing convs run no forward of their own (no hook)
+    expect = (292 - 124, 72 - 35, REQUANT_PAIRS)
+    if (checked["hrnet"], checked["yolo"], checked["requantizing"]) != expect:
         fail(f"int8 layouts: {checked} quantized convs checked, expected {expect}")
     return {"crops": SUB_CROPS, "images": SUB_IMAGES, "convs_equal": checked}
 
@@ -1392,13 +1444,18 @@ def phase_resident(torch, card, pipe, clip):
     cfg = model.cfg
     with torch.inference_mode():
         generic_heat = model(crops, torch.float32)
-    # the resident forward's K2 calls by input dtype, and the K2a passes
+    # the resident forward's K2 calls by input dtype (the fuse chains'
+    # requantizing convs among them), and the K2a passes
     calls, inner = {"int8": 0, "float": 0, "k2a": 0, "k2a_on_int8": 0}, k2.int8_conv_cuda
-    inner_k2a = k2.quantize_nhwc_cuda
+    inner_k2a, inner_requant = k2.quantize_nhwc_cuda, k2.int8_conv_requant_cuda
 
     def counted(*args, **kw):
         calls["int8" if args[0].dtype == torch.int8 else "float"] += 1
         return inner(*args, **kw)
+
+    def counted_requant(*args, **kw):
+        calls["int8" if args[0].dtype == torch.int8 else "float"] += 1
+        return inner_requant(*args, **kw)
 
     def counted_k2a(x, inv):
         calls["k2a"] += 1
@@ -1411,9 +1468,11 @@ def phase_resident(torch, card, pipe, clip):
         with torch.inference_mode():
             model.cfg = dataclasses.replace(cfg, int8_resident=True)
             k2.int8_conv_cuda, k2.quantize_nhwc_cuda = counted, counted_k2a
+            k2.int8_conv_requant_cuda = counted_requant
             resident_heat = model(crops, torch.float32)
     finally:
         k2.int8_conv_cuda, k2.quantize_nhwc_cuda = inner, inner_k2a
+        k2.int8_conv_requant_cuda = inner_requant
         model.cfg = cfg
         for h in hooks:
             h.remove()
@@ -1509,16 +1568,17 @@ def pack_one(torch, pipe, clip, frame_ids, mode):
     pipe.track_restart()
     torch.cuda.synchronize()
     th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
-    epilogue.launches = 0
+    k2.requant_launches = epilogue.launches = 0
     outs_p, dets_p, mask_p = pipe.process_clip(frame_ids, clip)
     torch.cuda.synchronize()
     launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
-                "k2_stem": k2.stem_launches, "epilogue": epilogue.launches}
+                "k2_stem": k2.stem_launches, "k2b_requant": k2.requant_launches,
+                "epilogue": epilogue.launches}
     expect = STEP_LAUNCHES[mode]
     if tuple(launches.values()) != (
             expect["heatmap.launches"], expect["int8_conv.launches"],
             expect["int8_conv.quantize_launches"], expect["int8_conv.stem_launches"],
-            expect["epilogue.launches"]):
+            expect["int8_conv.requant_launches"], expect["epilogue.launches"]):
         fail(f"the packed {mode} clip launched {launches}, expected {expect}")
     if not torch.equal(mask_p, mask_u):
         fail(f"packed {mode} clip: detection masks differ from the unpacked clip")
@@ -1685,22 +1745,30 @@ def phase_tracker(torch, card):
 
 CLI_FRAMES, CLI_CLIP, CLI_CALIB = 68, 32, 8  # 2 clips + 4 trailing frames
 CLI_HEIGHT, CLI_WIDTH = 720, 1280
-#: K1, K2, K2a and conv-epilogue launches per `process_clip` or
-#: `process_frame` call (one stage A batch each): one decode; in int8 the 364
-#: quantized convs of YOLOv3-416 and HRNet-W48, 362 of them through K2a and
-#: the 2 RGB stems through the stem kernel (phase 6's counts); and one
-#: epilogue an engaged call site, packed branch 0 or not: in bf16 HRNet's 292
-#: convs of 8k outputs and 15 fuse rows' own branches, YOLOv3's 72 convs
-#: with BN; in int8 16 fewer, the call sites whose only term is a float
-#: conv's bias (HRNet's downsample and the fuse rows' first terms), which K2
-#: adds.
+#: int8 convs whose activated output one other int8 conv alone reads, so
+#: that K2b writes that conv's int8 input (`layers.chain_out`): HRNet-W48's
+#: 104 basic blocks, 4 bottlenecks' 2 and 12 fuse-chain steps, YOLOv3-416's
+#: 23 residual 1x1s and 3 x 4 conv-set steps (tests/test_torch_int8_requant.py).
+REQUANT_PAIRS = (104 + 4 * 2 + 12) + (23 + 3 * 4)
+#: K1, K2, K2a, K2b-requantizing and conv-epilogue launches per
+#: `process_clip` or `process_frame` call (one stage A batch each): one
+#: decode; in int8 the 364 quantized convs of YOLOv3-416 and HRNet-W48, 2 RGB
+#: stems through the stem kernel, REQUANT_PAIRS of them writing the next
+#: conv's int8 input, which then launches no K2a, so 362 - REQUANT_PAIRS
+#: through K2a (phase 6's counts); and one epilogue an engaged call site,
+#: packed branch 0 or not: in bf16 HRNet's 292 convs of 8k outputs and 15
+#: fuse rows' own branches, YOLOv3's 72 convs with BN; in int8 16 fewer, the
+#: call sites whose only term is a float conv's bias (HRNet's downsample and
+#: the fuse rows' first terms), which K2 adds, and REQUANT_PAIRS fewer, the
+#: activations K2b applies.
 STEP_LAUNCHES = {
     "bf16": {"heatmap.launches": 1, "int8_conv.launches": 0,
              "int8_conv.quantize_launches": 0, "int8_conv.stem_launches": 0,
-             "epilogue.launches": 307 + 72},
+             "int8_conv.requant_launches": 0, "epilogue.launches": 307 + 72},
     "int8": {"heatmap.launches": 1, "int8_conv.launches": 364,
-             "int8_conv.quantize_launches": 362, "int8_conv.stem_launches": 2,
-             "epilogue.launches": 291 + 72},
+             "int8_conv.quantize_launches": 362 - REQUANT_PAIRS,
+             "int8_conv.stem_launches": 2, "int8_conv.requant_launches": REQUANT_PAIRS,
+             "epilogue.launches": 291 + 72 - REQUANT_PAIRS},
 }
 
 
@@ -1943,7 +2011,7 @@ def phase_cli_path(torch, card):
     from tpupose_torch.ops import int8_conv as k2
 
     counters = [(th, "launches"), (k2, "launches"), (k2, "quantize_launches"),
-                (k2, "stem_launches"), (epilogue, "launches")]
+                (k2, "stem_launches"), (k2, "requant_launches"), (epilogue, "launches")]
     out = {"card": card, "config": "configs/Shelf/model_configs.yaml with MAX_CANDIDATES 4: "
            "YOLOv3-416 + HRNet-W48 384x288 from .weights / .pth, BN folded, bf16; "
            f"{CLI_FRAMES} frames x 5 views x {CLI_HEIGHT}x{CLI_WIDTH} uint8, --clip {CLI_CLIP}"}
@@ -2481,14 +2549,19 @@ def phase_int8_qat(torch, card, models, clip, frame_ids):
     pipe.track_restart()
     pipe.process_clip(frame_ids, clip)  # warm-up
     torch.cuda.synchronize()
-    th.launches = k2.launches = k2.quantize_launches = 0
+    th.launches = k2.launches = k2.quantize_launches = k2.requant_launches = 0
     t0 = time.perf_counter()
     outs, dets, mask = pipe.process_clip(frame_ids, clip)
     torch.cuda.synchronize()
     clip_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches}
-    if launches != {"k1": 1, "k2": 364, "k2a": 362}:
-        fail(f"the int8 clip after distill-QAT launched {launches}, expected 1 / 364 / 362")
+    launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
+                "k2b_requant": k2.requant_launches}
+    expect = STEP_LAUNCHES["int8"]
+    expect = {"k1": 1, "k2": expect["int8_conv.launches"],
+              "k2a": expect["int8_conv.quantize_launches"],
+              "k2b_requant": expect["int8_conv.requant_launches"]}
+    if launches != expect:
+        fail(f"the int8 clip after distill-QAT launched {launches}, expected {expect}")
     check_clip_outputs(torch, outs, dets, mask, clip.shape[0], clip.shape[1], tcfg)
     out["clip"] = {"ms": clip_ms, "launches": launches, "detections_valid": int(mask.sum())}
     out["tiny_card_vs_cpu"] = tiny_qat_card_vs_cpu(torch)
@@ -3003,15 +3076,18 @@ def decode_error_px(torch, model, cfg, imgs, kps):
 def k2_held_to_plain(torch, what):
     """While open, each int8 conv that a quantized model runs
     (`layers.int8_conv`, K2 on the card) is held torch.equal to
-    `int8_conv_plain` on the same input, as phase 4 holds K2 (the plain
-    calls launch nothing). Yields a report: the convs held, how many took
-    the gather route, and the number of distinct (input shape, Cout, k,
-    stride, dtype)."""
+    `int8_conv_plain` on the same input, as phase 4 holds K2, and each that
+    writes the next conv's int8 input (`layers.int8_conv_requant`) to
+    `int8_conv_requant_plain` (the plain calls launch nothing). Yields a
+    report: the convs held, how many took the gather route and how many
+    requantized, and the number of distinct (input shape, Cout, k, stride,
+    dtype) of the others."""
     from tpupose_torch.models import layers
     from tpupose_torch.ops import int8_conv as k2
 
-    inner = layers.int8_conv
-    report = {"convs": 0, "stem_convs": 0, "gather_convs": 0, "distinct_shapes": set()}
+    inner, inner_requant = layers.int8_conv, layers.int8_conv_requant
+    report = {"convs": 0, "stem_convs": 0, "gather_convs": 0, "requantizing_convs": 0,
+              "distinct_shapes": set()}
 
     def held(x, weight_q, weight_k, inv, mul, add, out_dtype, stride=1, dilation=1):
         y = inner(x, weight_q, weight_k, inv, mul, add, out_dtype, stride, dilation)
@@ -3029,11 +3105,24 @@ def k2_held_to_plain(torch, what):
                                        str(x.dtype)))
         return y
 
-    layers.int8_conv = held
+    def held_requant(x, weight_q, weight_k, inv, mul, add, mid, act, inv_next, stride=1,
+                     dilation=1):
+        y = inner_requant(x, weight_q, weight_k, inv, mul, add, mid, act, inv_next, stride,
+                          dilation)
+        ref = k2.int8_conv_requant_plain(x, weight_q, inv, mul, add, mid, act, inv_next,
+                                         stride, dilation)
+        if not torch.equal(y, ref):
+            fail(f"{what}: K2b requantizing at {tuple(x.shape)} -> {tuple(y.shape)} differs "
+                 f"from the plain version in {int((y != ref).sum())} codes")
+        report["convs"] += 1
+        report["requantizing_convs"] += 1
+        return y
+
+    layers.int8_conv, layers.int8_conv_requant = held, held_requant
     try:
         yield report
     finally:
-        layers.int8_conv = inner
+        layers.int8_conv, layers.int8_conv_requant = inner, inner_requant
         report["distinct_shapes"] = len(report["distinct_shapes"])
 
 
@@ -4024,6 +4113,7 @@ def multistream_clip(torch, float_models):
                      "k2": n_chunks * c["int8_conv.launches"],
                      "k2a": n_chunks * c["int8_conv.quantize_launches"],
                      "k2_stem": n_chunks * c["int8_conv.stem_launches"],
+                     "k2b_requant": n_chunks * c["int8_conv.requant_launches"],
                      "epilogue": n_chunks * c["epilogue.launches"],
                      "k3": f * (1 + views)} for mode, c in STEP_LAUNCHES.items()}
     inner = throughput._clip_detections
@@ -4044,7 +4134,7 @@ def multistream_clip(torch, float_models):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
-            lap.launches = epilogue.launches = 0
+            k2.requant_launches = lap.launches = epilogue.launches = 0
             before = set(card_steps())
             t0 = time.perf_counter()
             with counted_syncs() as counted, nchw_conv_inputs(torch, det_m, pose_m) as layouts:
@@ -4056,8 +4146,8 @@ def multistream_clip(torch, float_models):
             throughput._clip_detections = inner
         check_channels_last(layouts, f"multistream clip ({mode})")
         launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
-                    "k2_stem": k2.stem_launches, "epilogue": epilogue.launches,
-                    "k3": lap.launches}
+                    "k2_stem": k2.stem_launches, "k2b_requant": k2.requant_launches,
+                    "epilogue": epilogue.launches, "k3": lap.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
         # a graph captured in this run ran its warm-up's K3 launches too
         warmup = graph_k3_warmups(before)

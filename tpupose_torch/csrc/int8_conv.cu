@@ -77,6 +77,32 @@
 //   Cout channels), scalars where a run passes Cout or its alignment; the
 //   loads, the mma pipeline and the epilogue arithmetic are the NCHW
 //   template's.
+//   Requantizing mode (NHWC, `tpupose_int8_conv_nhwc_requant`): where a
+//   conv's activated output is read by one other int8 conv alone (HRNet's
+//   basic-block and bottleneck inner convs, the fuse rows' stride-2 chains,
+//   YOLOv3's residual 1x1s and conv-set runs; `models/layers.py`
+//   `chain_out` decides), K2b writes that conv's int8 channels-last
+//   operand itself, per output element:
+//     v = mid(rn(float(acc) * mul[co] + add[co]))     the dequantize store
+//     v = act(v)                                      E's ReLU or leaky ReLU
+//     q = quantize(v, inv_next)                       K2a, at the next conv's scale
+//   with mid() the rounding to the intermediate's type (bf16 or f32) and
+//   act the epilogue kernel's arithmetic (csrc/epilogue.cu: leaky ReLU
+//   rounds its product to the type). Up to the quantization these are the
+//   operations, in the order and with the round-to-nearest intrinsics, that
+//   K2b's dequantize store, E's activation-only pass and K2a's elementwise
+//   mode apply one after the other, so every value is theirs but a NaN
+//   (from a NaN or an infinite mul or add), which ReLU here turns into 0
+//   and E passes on, and which quantizes to 0 either way. The quantization
+//   rounds to nearest even, saturating, into int32 and clamps there
+//   (`quantize_sat`), one conversion where K2a's rint, float clamp and
+//   conversion take two, the same code for every input: the codes are bit
+//   for bit the three passes'. It takes two of them off the path: at branch 0
+//   the intermediate moved 2 B written by K2b, 2 + 2 by E, 2 + 1 by K2a,
+//   9 B an element, and now moves 1 B written (212.3 M elements: 1.91 GB
+//   down to 0.21 GB); the next conv reads it in place, as it reads the
+//   int8-resident blocks' tensors. The int8-resident blocks' requant-relu
+//   (above) is other arithmetic, the JAX package's, and stays apart.
 //   Left for later: `wgmma` with TMA; a 48-wide N tile for branch 0, whose
 //   Cout of 48 wastes a quarter of a 64-wide tile.
 //
@@ -618,6 +644,47 @@ __device__ __forceinline__ typename Out<OUT>::T finish(int acc, float mul, float
   }
 }
 
+// K2b's requantizing mode (MID: the intermediate's type, kF32 or kBF16;
+// kNoMid for the two modes above). The activations are the epilogue
+// kernel E's (csrc/epilogue.cu `activate`).
+constexpr int kNoMid = -1;
+enum Act { kActNone = 0, kActRelu = 1, kActLeaky = 2 };
+
+template <int MID>
+__device__ __forceinline__ float round_mid(float v) {
+  if constexpr (MID == kBF16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// K2a's `quantize` with one conversion less, since the epilogue's
+// conversions are what its time goes to: rint, the clamp and the
+// conversion as one round-to-nearest-even conversion to int32 (which
+// saturates, so an infinity too) and an integer clamp; the same code for
+// every input, 0 for a NaN.
+__device__ __forceinline__ int quantize_sat(float v, float inv) {
+  const float p = __fmul_rn(v, inv);
+  if (isnan(p)) return 0;
+  return min(max(__float2int_rn(p), -127), 127);
+}
+
+// The dequantized value as the intermediate's type holds it, E's activation
+// of it, and K2a's quantization of that at the next conv's 1 / x_scale.
+// ReLU as fmaxf, which turns a NaN into 0 where E passes it on: either
+// quantizes to code 0.
+template <int MID, int ACT>
+__device__ __forceinline__ int8_t requant(int acc, float mul, float add, bool has_add,
+                                          float inv_next) {
+  float v = __fmul_rn(__int2float_rn(acc), mul);
+  if (has_add) v = __fadd_rn(v, add);
+  v = round_mid<MID>(v);
+  if constexpr (ACT == kActRelu) {
+    v = fmaxf(v, 0.f);
+  } else if constexpr (ACT == kActLeaky) {
+    v = v > 0.f ? v : round_mid<MID>(__fmul_rn(v, 0.1f));
+  }
+  return static_cast<int8_t>(quantize_sat(v, inv_next));
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -677,11 +744,16 @@ constexpr int gemm_smem() {
 // the channel count of the copy (a multiple of 16), s.k = kh*kw*s.cin.
 // NHWC: the output is (N, Ho, Wo, Cout) (a channels-last (N, Cout, Ho, Wo)
 // tensor) instead of NCHW; only the epilogue's staging and stores differ.
-template <int OUT, bool NHWC>
+// MID != kNoMid (NHWC int8 output only): the requantizing mode with
+// activation ACT and the next conv's 1 / x_scale at `inv_next`; the loads,
+// the mma pipeline and the stores are the same.
+template <int OUT, bool NHWC, int MID, int ACT>
 __global__ void __launch_bounds__(kGThreads, 4)
 int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
                       const float* __restrict__ mul, const float* __restrict__ add,
-                      void* __restrict__ y, const Shape s) {
+                      void* __restrict__ y, const Shape s,
+                      const float* __restrict__ inv_next_p) {
+  static_assert(MID == kNoMid || (OUT == kI8 && NHWC), "requantizing is NHWC int8 only");
   using O = typename Out<OUT>::T;
   constexpr int kAPass = kGM / kGRows, kBPass = kGN / kGRows;
   constexpr int kAStage = kGM * kGK, kBStage = kGN * kGK;
@@ -813,6 +885,8 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
   int8_t* const o_s = smem;
   const bool has_add = add != nullptr;
   if constexpr (NHWC) {
+    float inv_next = 0.f;
+    if constexpr (MID != kNoMid) inv_next = __ldg(inv_next_p);
     // Epilogue, staged: o_s[m][co], each pixel's kGN outputs a row padded by
     // 16 bytes (bf16 and int8 fragment writes conflict-free, f32 two-way).
     constexpr int kORowN = kGN * static_cast<int>(sizeof(O)) + 16;
@@ -829,8 +903,13 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int row = wm * 64 + mi * 16 + g + 8 * half;
-            *reinterpret_cast<O*>(o_s + row * kORowN + col * static_cast<int>(sizeof(O))) =
-                finish<OUT>(acc[mi][ni][2 * half + j], cm, ca, has_add);
+            O* const dst =
+                reinterpret_cast<O*>(o_s + row * kORowN + col * static_cast<int>(sizeof(O)));
+            if constexpr (MID != kNoMid) {
+              *dst = requant<MID, ACT>(acc[mi][ni][2 * half + j], cm, ca, has_add, inv_next);
+            } else {
+              *dst = finish<OUT>(acc[mi][ni][2 * half + j], cm, ca, has_add);
+            }
           }
       }
     __syncthreads();
@@ -909,18 +988,34 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
   }
 }
 
-template <int OUT, bool NHWC>
+template <int OUT, bool NHWC, int MID = kNoMid, int ACT = kActNone>
 int launch_gemm(const int8_t* xq, const int8_t* wk, const float* mul,
-                const float* add, void* y, const Shape& s, cudaStream_t stream) {
+                const float* add, void* y, const Shape& s, cudaStream_t stream,
+                const float* inv_next = nullptr) {
   constexpr int kSmem = gemm_smem<OUT, NHWC>();
   // More would need cudaFuncSetAttribute(MaxDynamicSharedMemorySize) first.
   static_assert(kSmem <= 48 * 1024, "K2b's shared memory passes the default 48 KB");
   const long long m_tiles = (static_cast<long long>(s.n) * s.ho * s.wo + kGM - 1) / kGM;
   const long long blocks = m_tiles * ((s.cout + kGN - 1) / kGN);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int8_conv_nhwc_kernel<OUT, NHWC><<<static_cast<unsigned>(blocks), kGThreads, kSmem,
-                                     stream>>>(xq, wk, mul, add, y, s);
+  int8_conv_nhwc_kernel<OUT, NHWC, MID, ACT><<<static_cast<unsigned>(blocks), kGThreads,
+                                               kSmem, stream>>>(xq, wk, mul, add, y, s,
+                                                                inv_next);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MID>
+int launch_requant(int act, const int8_t* xq, const int8_t* wk, const float* mul,
+                   const float* add, void* y, const Shape& s, cudaStream_t stream,
+                   const float* inv_next) {
+  switch (act) {
+    case kActNone:
+      return launch_gemm<kI8, true, MID, kActNone>(xq, wk, mul, add, y, s, stream, inv_next);
+    case kActRelu:
+      return launch_gemm<kI8, true, MID, kActRelu>(xq, wk, mul, add, y, s, stream, inv_next);
+    default:
+      return launch_gemm<kI8, true, MID, kActLeaky>(xq, wk, mul, add, y, s, stream, inv_next);
+  }
 }
 
 template <int OUT>
@@ -1494,6 +1589,36 @@ extern "C" int tpupose_int8_conv_nhwc(const int8_t* xq, const int8_t* wk,
     case kF32: return launch_gemm_layout<kF32>(nhwc_out, xq, wk, mul, add, y, s, st);
     case kBF16: return launch_gemm_layout<kBF16>(nhwc_out, xq, wk, mul, add, y, s, st);
     case kI8: return launch_gemm_layout<kI8>(nhwc_out, xq, wk, mul, add, y, s, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K2b in its requantizing mode: arguments as tpupose_int8_conv_nhwc's, but
+// y is always (n, ho, wo, cout) int8, the next conv's operand; mid_type 0
+// f32 / 1 bf16 is the type the dequantized value is rounded to, act 0 none
+// / 1 ReLU / 2 leaky ReLU at 0.1, and inv_next one f32 on the device, the
+// next conv's 1 / x_scale. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int tpupose_int8_conv_nhwc_requant(const int8_t* xq, const int8_t* wk,
+                                              const float* mul, const float* add, void* y,
+                                              int mid_type, int act, const float* inv_next,
+                                              int n, int cp, int h, int w, int cout,
+                                              int kh, int kw, int stride, int pad_h,
+                                              int pad_w, int dil, int ho, int wo, int kpad,
+                                              void* stream) {
+  const Shape s{n, cp, h, w, cout, kh, kw, stride, pad_h, pad_w, dil, ho, wo,
+                cp * kh * kw, kpad};
+  if (static_cast<long long>(n) * ho * wo == 0 || cout == 0) return 0;
+  if (cp % 16 != 0 || kpad % kBK != 0 || kpad < s.k || inv_next == nullptr ||
+      act < kActNone || act > kActLeaky)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wk) |
+       reinterpret_cast<uintptr_t>(y)) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mid_type) {
+    case kF32: return launch_requant<kF32>(act, xq, wk, mul, add, y, s, st, inv_next);
+    case kBF16: return launch_requant<kBF16>(act, xq, wk, mul, add, y, s, st, inv_next);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,6 +20,7 @@ from tpupose_torch.models import quantize
 from tpupose_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
+    chain_out,
     conv_out,
     finish,
     he_normal_init_,
@@ -117,8 +118,7 @@ class BasicBlock(nn.Module):
     def forward(self, x, resident=False):
         if resident and _fusable(self, ("conv1", "conv2"), ("bn1", "bn2")):
             return quantize.quantized_basic_block(self, x)
-        y = finish(conv_out(self.conv1, self.bn1, x), act="relu")
-        y = conv_out(self.conv2, self.bn2, y)
+        y = chain_out(x, (self.conv1, self.bn1), (self.conv2, self.bn2), act="relu")
         return finish(y, skip=residual(self, x), act="relu")
 
 
@@ -139,9 +139,8 @@ class Bottleneck(nn.Module):
     def forward(self, x, resident=False):
         if resident and _fusable(self, ("conv1", "conv2", "conv3"), ("bn1", "bn2", "bn3")):
             return quantize.quantized_bottleneck(self, x)
-        y = finish(conv_out(self.conv1, self.bn1, x), act="relu")
-        y = finish(conv_out(self.conv2, self.bn2, y), act="relu")
-        y = conv_out(self.conv3, self.bn3, y)
+        y = chain_out(x, (self.conv1, self.bn1), (self.conv2, self.bn2),
+                      (self.conv3, self.bn3), act="relu")
         return finish(y, skip=residual(self, x), act="relu")
 
 
@@ -200,10 +199,8 @@ class HighResolutionModule(nn.Module):
                 elif j > i:
                     term = conv_out(row[j][0], row[j][1], yj)
                 else:
-                    y = yj
-                    for step in row[j][:-1]:
-                        y = finish(conv_out(step[0], step[1], y), act="relu")
-                    term = conv_out(row[j][-1][0], row[j][-1][1], y)
+                    term = chain_out(yj, *((step[0], step[1]) for step in row[j]),
+                                     act="relu")
                 acc = finish(term, skip=acc, up=max(j - i, 0),
                              act="relu" if j == len(ys) - 1 else None)
             outs.append(acc)

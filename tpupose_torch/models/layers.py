@@ -29,6 +29,9 @@ their weights in the input's layout.
   and what follows it (bias, nearest upsample, residual, activation):
   served, as one pass of `ops.epilogue` after the conv; on autograd's
   path, as the composed ops.
+* `chain_out` runs convs in a row, each one's activated output read by the
+  next alone; where `requantizes` says so, a `QuantConv2d`'s epilogue
+  writes the next one's int8 input (`QuantConv2d.requantize`).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpupose_torch.ops import epilogue
-from tpupose_torch.ops.int8_conv import int8_conv, pack_weight
+from tpupose_torch.ops.int8_conv import channels_last, int8_conv, int8_conv_requant, pack_weight
 from tpupose_torch.ops.layout import is_channels_last, memory_format_of
 
 
@@ -273,9 +276,22 @@ class QuantConv2d(nn.Module):
         """(mul, add) of the dequantize epilogue: w_scale * x_scale and bias."""
         return (self.w_scale * self.x_scale).to(torch.float32), self.bias
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
+        """The conv of x, dequantized to `dtype`: x's by default, which an
+        int8 x (the `requantize`d output of the conv before) cannot give."""
         return int8_conv(x, self.weight_q, self.weight_k, self.inv_scale(),
-                         *self.dequant_vectors(), x.dtype, self.stride, self.dilation)
+                         *self.dequant_vectors(), dtype or x.dtype, self.stride,
+                         self.dilation)
+
+    def requantize(self, x, dtype, act, nxt):
+        """`nxt`'s int8 input from this conv's output: the conv of x
+        dequantized to `dtype`, activated by `act` (None, "relu" or
+        "leaky") and quantized at `nxt`'s input scale, in one call
+        (`ops.int8_conv.int8_conv_requant`: K2b's requantizing mode on the
+        card), the codes `nxt` would quantize from `act(self(x, dtype))`."""
+        return int8_conv_requant(x, self.weight_q, self.weight_k, self.inv_scale(),
+                                 *self.dequant_vectors(), dtype, act, nxt.inv_scale(),
+                                 self.stride, self.dilation)
 
 
 class FakeQuantConv2d(Conv2d):
@@ -369,6 +385,11 @@ class ConvOut(NamedTuple):
     fused: bool = False
 
 
+def _folded(bn):
+    """No BN, or a folded one (nn.Identity)."""
+    return bn is None or isinstance(bn, nn.Identity)
+
+
 def _served(x, channels):
     """Grad off, a channels-last x, and `channels` a multiple of the
     epilogue's granule: what the one-pass epilogue needs of a tensor."""
@@ -390,9 +411,10 @@ def bias_in_epilogue(device):
     return device.type == "cuda"
 
 
-def conv_out(conv, bn, x):
+def conv_out(conv, bn, x, dtype=None):
     """`conv` then `bn` (None, a folded BN's nn.Identity, or a live BN) on
-    x, as a `ConvOut` for `finish`.
+    x, as a `ConvOut` for `finish`; `dtype` is a `QuantConv2d`'s output
+    dtype where x is int8 (`chain_out`).
 
     The one-pass epilogue engages where nothing needs the composed ops:
     grad off (serving: training and QAT keep autograd's ops), the BN
@@ -402,14 +424,48 @@ def conv_out(conv, bn, x):
     float conv leaves its bias to the epilogue where `bias_in_epilogue`
     says so; a `QuantConv2d`'s bias is in K2's epilogue already.
     """
-    cout = conv.weight_q.shape[0] if isinstance(conv, QuantConv2d) else conv.out_channels
-    if not (type(conv) in (Conv2d, QuantConv2d) and (bn is None or isinstance(bn, nn.Identity))
-            and _served(x, cout)):
-        y = conv(x)
+    quant = isinstance(conv, QuantConv2d)
+    cout = conv.weight_q.shape[0] if quant else conv.out_channels
+    if not (type(conv) in (Conv2d, QuantConv2d) and _folded(bn) and _served(x, cout)):
+        y = conv(x, dtype) if quant else conv(x)
         return ConvOut(y if bn is None else bn(y))
-    if isinstance(conv, QuantConv2d) or conv.bias is None or not bias_in_epilogue(x.device):
+    if quant:
+        return ConvOut(conv(x, dtype), None, True)
+    if conv.bias is None or not bias_in_epilogue(x.device):
         return ConvOut(conv(x), None, True)
     return ConvOut(conv(x, add_bias=False), conv.bias, True)
+
+
+def requantizes(conv, bn, nxt, nxt_bn, x):
+    """True where `conv`'s activated output, which `nxt` alone reads, goes
+    into `nxt`'s int8 input in `conv`'s own epilogue
+    (`QuantConv2d.requantize`) instead of a dequantized tensor that the
+    one-pass epilogue activates and `nxt` quantizes again. It reads what it
+    can observe, as `conv_out` does: both convs `QuantConv2d`s (not a QAT
+    `FakeQuantConv2d`) whose Cin takes K2b's route
+    (`ops.int8_conv.channels_last`), grad off, both BNs folded, a
+    channels-last x. The CPU's plain version takes the same route."""
+    return (type(conv) is QuantConv2d and type(nxt) is QuantConv2d
+            and _folded(bn) and _folded(nxt_bn) and not torch.is_grad_enabled()
+            and is_channels_last(x) and channels_last(conv.weight_q.shape[1])
+            and channels_last(nxt.weight_q.shape[1]))
+
+
+def chain_out(x, *convs, act=None):
+    """`convs`, (conv, bn) pairs, in a row on x: each one's output
+    activated by `act` and read by the next conv alone. Returns the last
+    one's output as a `ConvOut` for `finish`, which applies its activation
+    and whatever else follows it. Between two convs where `requantizes`
+    says so, the first writes the next one's int8 input itself; elsewhere
+    its output is `finish(conv_out(...), act=act)`. The result is the same
+    bit for bit."""
+    dtype = x.dtype
+    for (conv, bn), (nxt, nxt_bn) in zip(convs, convs[1:]):
+        if requantizes(conv, bn, nxt, nxt_bn, x):
+            x = conv.requantize(x, dtype, act, nxt)
+        else:
+            x = finish(conv_out(conv, bn, x, dtype), act=act)
+    return conv_out(*convs[-1], x, dtype)
 
 
 def deconv_out(deconv, bn, x):

@@ -19,6 +19,7 @@ from torch import nn
 from tpupose_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
+    chain_out,
     conv_out,
     finish,
     he_normal_init_,
@@ -147,15 +148,22 @@ class YOLOv3(nn.Module):
                                                          conv_in_channels(cfg))):
             setattr(self, f"conv{i}", ConvBlock(cin, cout, k, s, bn))
 
-    def run(self, i, x, skip=None):
-        return getattr(self, f"conv{i}")(x, skip)
+    def run(self, i, x, skip=None, to=None):
+        """Darknet conv i on x, or convs i..`to` in a row, each one's output
+        read by the next alone (`layers.chain_out`); `skip` joins the last
+        one's activated output."""
+        if to is None:
+            return getattr(self, f"conv{i}")(x, skip)
+        blocks = [getattr(self, f"conv{j}") for j in range(i, to + 1)]
+        out = chain_out(x, *((b.conv, b.bn) for b in blocks), act="leaky")
+        return finish(out, skip=skip, act="leaky" if blocks[-1].act else None, act_first=True)
 
     def forward(self, x, compute_dtype=torch.bfloat16):
         x = x.to(compute_dtype)
 
         def res_chain(x, i, n):
             for _ in range(n):
-                x = self.run(i + 1, self.run(i, x), skip=x)
+                x = self.run(i, x, skip=x, to=i + 1)
                 i += 2
             return x, i
 
@@ -168,20 +176,15 @@ class YOLOv3(nn.Module):
         route42 = x
         x = self.run(i, x); x, i = res_chain(x, i + 1, 4)
         assert i == 52, i
-        for j in range(52, 57):
-            x = self.run(j, x)
-        branch_a = x
+        branch_a = x = self.run(52, x, to=56)
         det1 = self.run(58, self.run(57, x))
         x = upsample_nearest(self.run(59, branch_a), 2)
         x = torch.cat([x, route42], dim=1)
-        for j in range(60, 65):
-            x = self.run(j, x)
-        branch_b = x
+        branch_b = x = self.run(60, x, to=64)
         det2 = self.run(66, self.run(65, x))
         x = upsample_nearest(self.run(67, branch_b), 2)
         x = torch.cat([x, route25], dim=1)
-        for j in range(68, 73):
-            x = self.run(j, x)
+        x = self.run(68, x, to=72)
         det3 = self.run(74, self.run(73, x))
         return [d.to(torch.float32) for d in (det1, det2, det3)]
 

@@ -42,10 +42,22 @@ with `mul` and `add` per output channel (`add` may be None).
   K2b and the gather kernel alone. `launches` counts K2b, stem and gather
   launches, one per conv; `stem_launches` the stem kernel's alone;
   `nhwc_launches` the K2b and stem launches that wrote a channels-last
-  output; `quantize_launches` K2a launches, `quantize_cl_launches` those of
-  its elementwise mode.
-* `int8_conv` is what the models call: a CPU tensor goes to the plain
-  version, a CUDA tensor to the kernel, which raises rather than fall back.
+  output; `requant_launches` the K2b launches that wrote the next conv's
+  int8 input; `quantize_launches` K2a launches, `quantize_cl_launches`
+  those of its elementwise mode.
+* The requantizing mode, for a conv whose activated output one other int8
+  conv alone reads (`models.layers.chain_out` decides where): one call
+  writes that conv's int8 input,
+
+      out = quantize_input(act(epilogue(acc, mul, add, mid_dtype)), inv_next)
+
+  today's three steps (K2b's dequantize store, the activation-only pass of
+  `ops.epilogue`, the next conv's K2a), which `int8_conv_requant_plain`
+  composes and K2b computes in its epilogue on the card
+  (`int8_conv_requant_cuda`), bit for bit the same codes.
+* `int8_conv` and `int8_conv_requant` are what the models call: a CPU
+  tensor goes to the plain version, a CUDA tensor to the kernel, which
+  raises rather than fall back.
 """
 from __future__ import annotations
 
@@ -54,6 +66,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from tpupose_torch.ops import epilogue as _epilogue
 from tpupose_torch.ops.layout import is_channels_last, memory_format_of
 
 #: Launches of K2b and of the gather kernel, one per conv run on the card
@@ -69,6 +82,10 @@ stem_launches = 0
 #: Launches of K2b and of the stem kernel that wrote a channels-last
 #: output, also counted in `launches` (reset freely).
 nhwc_launches = 0
+#: Launches of K2b in its requantizing mode, which wrote the next conv's
+#: int8 input, also counted in `launches` and `nhwc_launches` (reset
+#: freely).
+requant_launches = 0
 
 #: Tile of the kernel's weight operand: rows padded to BLOCK_N, K to BLOCK_K.
 BLOCK_N = 64
@@ -183,6 +200,18 @@ def int8_conv_plain(x, weight_q, inv, mul, add, out_dtype, stride=1, dilation=1)
     return epilogue(conv_exact(xq, weight_q, stride, dilation), mul, add, out_dtype)
 
 
+def int8_conv_requant_plain(x, weight_q, inv, mul, add, mid_dtype, act, inv_next,
+                            stride=1, dilation=1):
+    """The plain version of the requantizing mode, today's three steps
+    composed: the dequantize epilogue to `mid_dtype`, the activation `act`
+    (None, "relu" or "leaky") as `ops.epilogue.bias_act_plain` applies it,
+    and `quantize_input` at the next conv's `inv_next`. Returns the next
+    conv's int8 input, in x's layout."""
+    y = int8_conv_plain(x, weight_q, inv, mul, add, mid_dtype, stride, dilation)
+    q = quantize_input(_epilogue.bias_act_plain(y, act=act), inv_next)
+    return q.contiguous(memory_format=memory_format_of(y))
+
+
 def _kernel(name, argtypes):
     from tpupose_torch import kernels
 
@@ -199,6 +228,8 @@ _STEM_ARGS = [_P, _I] + [_P] * 5 + [_I] * 18 + [_P]
 _QUANTIZE_ARGS = [_P, _I, _P, _P] + [_I] * 5 + [_P]
 _QUANTIZE_CL_ARGS = [_P, _I, _P, _P, ctypes.c_longlong, _P]
 _GEMM_ARGS = [_P] * 5 + [_I] * 16 + [_P]
+_REQUANT_ARGS = [_P] * 5 + [_I] * 2 + [_P] + [_I] * 14 + [_P]
+_ACTS = {None: 0, "relu": 1, "leaky": 2}
 
 
 def _check_launch(rc, what):
@@ -290,14 +321,17 @@ def _output(n, cout, ho, wo, out_dtype, dev, nhwc_out):
 
 
 def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
-                   dilation=1, nhwc_out=False):
+                   dilation=1, nhwc_out=False, requant=None):
     """One launch of K2b: the int8 conv of an (N, H, W, Cin) int8 tensor
     (Cin % 16 == 0: K2a's output, or the NHWC view of an int8 channels-last
     activation) with the epilogue, to a new (N, Cout, Ho, Wo) tensor, NCHW,
     or channels-last where `nhwc_out`. Other arguments as
-    `int8_conv_cuda`'s. Launches on the current stream, does not
+    `int8_conv_cuda`'s. `requant` = (mid_dtype, act, inv_next) selects the
+    requantizing mode (`int8_conv_requant_cuda`), whose output is the
+    channels-last int8 input of the next conv (`out_dtype` int8 and
+    `nhwc_out` required). Launches on the current stream, does not
     synchronize, and raises on a failed launch."""
-    global launches, nhwc_launches
+    global launches, nhwc_launches, requant_launches
     dev = xq.device
     if dev.type != "cuda":
         raise ValueError(f"gemm_nhwc_cuda needs CUDA tensors, got {dev}")
@@ -307,6 +341,16 @@ def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
                          f"input, got {tuple(xq.shape)} {xq.dtype}")
     if out_dtype not in _CODES:
         raise TypeError(f"gemm_nhwc_cuda writes f32 / bf16 / int8, not {out_dtype}")
+    if requant is not None:
+        mid_dtype, act, inv_next = requant
+        if out_dtype != torch.int8 or not nhwc_out:
+            raise ValueError("gemm_nhwc_cuda: the requantizing mode writes channels-last int8")
+        if mid_dtype not in (torch.float32, torch.bfloat16) or act not in _ACTS:
+            raise ValueError(f"gemm_nhwc_cuda: requantizing through {mid_dtype} with "
+                             f"activation {act!r}")
+        if (inv_next.dtype != torch.float32 or inv_next.device != dev
+                or inv_next.numel() != 1):
+            raise ValueError("gemm_nhwc_cuda: inv_next must be one f32 on the input's device")
     n, h, w, cin = xq.shape
     kh, kw = kernel_hw
     ho, wo, kpad = _conv_geometry("gemm_nhwc_cuda", dev, cin, h, w, weight_k,
@@ -315,16 +359,22 @@ def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
     y = _output(n, cout, ho, wo, out_dtype, dev, nhwc_out)
     if n == 0:
         return y
-    fn = _kernel("tpupose_int8_conv_nhwc", _GEMM_ARGS)
+    add_p = None if add is None else add.data_ptr()
+    geometry = (n, cin, h, w, cout, kh, kw, stride, kh // 2, kw // 2, dilation, ho, wo, kpad)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = fn(xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(),
-                None if add is None else add.data_ptr(), y.data_ptr(),
-                _CODES[out_dtype], n, cin, h, w, cout, kh, kw, stride, kh // 2,
-                kw // 2, dilation, ho, wo, kpad, int(nhwc_out),
-                torch.cuda.current_stream(dev).cuda_stream)
+        if requant is None:
+            rc = _kernel("tpupose_int8_conv_nhwc", _GEMM_ARGS)(
+                xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(), add_p, y.data_ptr(),
+                _CODES[out_dtype], *geometry, int(nhwc_out), stream)
+        else:
+            rc = _kernel("tpupose_int8_conv_nhwc_requant", _REQUANT_ARGS)(
+                xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(), add_p, y.data_ptr(),
+                _CODES[mid_dtype], _ACTS[act], inv_next.data_ptr(), *geometry, stream)
     _check_launch(rc, "int8_conv GEMM (K2b)")
     launches += 1
     nhwc_launches += nhwc_out
+    requant_launches += requant is not None
     return y
 
 
@@ -430,6 +480,32 @@ def int8_conv_cuda(x, weight_k, kernel_hw, inv, mul, add, out_dtype, stride=1,
                           out_dtype, stride, dilation, nhwc=nhwc)
 
 
+def int8_conv_requant_cuda(x, weight_k, kernel_hw, inv, mul, add, mid_dtype, act,
+                           inv_next, stride=1, dilation=1):
+    """One int8 conv on the card in the requantizing mode: K2a's
+    elementwise mode (none for an int8 x) then one launch of K2b, which
+    writes `int8_conv_requant_plain`'s codes, the next conv's channels-last
+    int8 input (N, Cout, Ho, Wo).
+
+    x: (N, Cin, H, W) f32, bf16 or int8 on a CUDA device, channels-last,
+    Cin % 16 == 0; mid_dtype: torch.float32 or torch.bfloat16, the type the
+    dequantized value is rounded to; act: None, "relu" or "leaky";
+    inv_next: one f32 1 / x_scale of the next conv on x's device; other
+    arguments as `int8_conv_cuda`'s. Launches on the current stream, does
+    not synchronize, and raises on any other input and on a failed launch.
+    """
+    dev = _cuda_input("int8_conv_requant_cuda", x, inv, torch.int8, nchw=False)
+    cin = x.shape[1]
+    if not (is_channels_last(x) and channels_last(cin)):
+        raise ValueError(f"int8_conv_requant_cuda needs a channels-last input of 16k "
+                         f"channels, got {tuple(x.shape)} strides {x.stride()}")
+    _conv_geometry("int8_conv_requant_cuda", dev, cin, x.shape[2], x.shape[3], weight_k,
+                   kernel_hw, mul, add, stride, dilation)
+    xq = x.permute(0, 2, 3, 1) if x.dtype == torch.int8 else quantize_nhwc_cuda(x, inv)
+    return gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, torch.int8, stride, dilation,
+                          nhwc_out=True, requant=(mid_dtype, act, inv_next))
+
+
 def int8_conv(x, weight_q, weight_k, inv, mul, add, out_dtype, stride=1,
               dilation=1):
     """Dispatch for the models: the plain version for a CPU tensor, the
@@ -441,3 +517,16 @@ def int8_conv(x, weight_q, weight_k, inv, mul, add, out_dtype, stride=1,
                                dilation)
     return int8_conv_cuda(x, weight_k, tuple(weight_q.shape[2:]), inv, mul, add,
                           out_dtype, stride, dilation)
+
+
+def int8_conv_requant(x, weight_q, weight_k, inv, mul, add, mid_dtype, act, inv_next,
+                      stride=1, dilation=1):
+    """Dispatch of the requantizing mode for the models: the plain version
+    for a CPU tensor, the kernel for a CUDA tensor (raising on failure and
+    on an input it does not take); the next conv's int8 input, in x's
+    layout."""
+    if x.device.type == "cpu":
+        return int8_conv_requant_plain(x, weight_q, inv, mul, add, mid_dtype, act, inv_next,
+                                       stride, dilation)
+    return int8_conv_requant_cuda(x, weight_k, tuple(weight_q.shape[2:]), inv, mul, add,
+                                  mid_dtype, act, inv_next, stride, dilation)
