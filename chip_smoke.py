@@ -8,7 +8,6 @@
     python3 chip_smoke.py --only parallel         # phase 18 alone, one rank per card
     python3 chip_smoke.py --only graphs           # phase 19 alone
     python3 chip_smoke.py --only train            # phase 13 alone, then its profile
-    python3 chip_smoke.py --only profile          # phase 20 alone: the stage-A profile
     python3 chip_smoke.py --only epilogue         # phase 21 alone: the conv epilogue
     python3 chip_smoke.py --only vitpose          # phase 22 alone: ViTPose-H on the main path
 
@@ -54,27 +53,27 @@ backend flags), each held against its eager body:
      images are held against the plain version on those images (the last
      ones sit at the largest offsets), the stems' whole outputs, 64 images
      a part; the stem kernel also at five small Cin-3 convs held whole
-     (Cout 2, 8, 24, 40, 56, a W of 70, strides 1 and 2); then the times of K2, K2a and K2b alone, the plain version and
-     the bf16 cuDNN conv, all on the whole batch, for HRNet branch 0's 3x3
-     48->48 at 96x72 (x640) and YOLO's 3x3 128->256 at 52x52 (x160), and of
-     the stem kernel, the gather kernel (the stems' route before), the
-     plain version and cuDNN at HRNet's stem 3x3 s2 3->64 at 384x288 (x640)
-     and YOLO's 3x3 3->32 at 416x416 (x160), each with its bound; K2a and
-     K2 also at width-packed branch 0 (`ops.packing`: 3x3 96->96 at 96x36,
-     x640, K = 864), checked as the main path's shapes and timed beside
-     the unpacked branch 0, with the bf16 cuDNN conv's bound; every time
-     also channels-last ("nhwc": K2, K2a, K2b, K2 on an int8 input, K2b's
-     requantizing mode on it with its bound (int8 in, int8 out) beside the
-     K2b, E and K2a passes it replaces, plain and cuDNN);
+     (Cout 2, 8, 24, 40, 56, a W of 70, strides 1 and 2); then, on the
+     channels-last input (the main path's layout) of the whole batch, the
+     times of K2, K2a and K2b alone, K2 on an int8 input, K2b's
+     requantizing mode on it (int8 in, int8 out) beside the K2b, E and K2a
+     passes it replaces, the plain version and the bf16 cuDNN conv, for
+     HRNet branch 0's 3x3 48->48 at 96x72 (x640) and YOLO's 3x3 128->256
+     at 52x52 (x160), and of the stem kernel, the gather kernel (on the
+     NCHW input, the only one it reads), the plain version and cuDNN at
+     HRNet's stem 3x3 s2 3->64 at 384x288 (x640) and YOLO's 3x3 3->32 at
+     416x416 (x160), each with its bound; K2a and K2 also at width-packed
+     branch 0 (`ops.packing`: 3x3 96->96 at 96x36, x640, K = 864), checked
+     as the main path's shapes and timed beside the unpacked branch 0,
+     with the bf16 cuDNN conv's bound;
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
      720x1280 uint8 frames; the decode launch count, K3's (one association
      and one init LAP a camera, a frame), the conv epilogue's (379 a clip,
-     STEP_LAUNCHES), the stage A / stage B split, peak
-     memory, host syncs; a forward pre-hook on every conv counts the inputs
-     that are not channels-last (0 expected); stage A timed STAGE_A_RUNS
-     times after the clips; and the layouts against each other on the first
+     STEP_LAUNCHES), peak memory, host syncs; a forward pre-hook on every
+     conv counts the inputs that are not channels-last (0 expected); and
+     the layouts against each other on the first
      LAYOUT_FRAMES frames (`layout_agreement`): in f32 with TF32 off, the
      heatmaps and the detector's heads channels-last against the same
      models in NCHW (`nchw_model`) within LAYOUT_F32_REL in relative norm
@@ -87,8 +86,7 @@ backend flags), each held against its eager body:
      launch counts (364 K2, 203 K2a, 2 stem, 159 requantizing and 204
      epilogue per clip expected, STEP_LAUNCHES; every K2 and K2a launch in
      its channels-last mode),
-     no NCHW conv input, stage A (STAGE_A_RUNS times), K2's and K2a's
-     device ms in one stage A, peak memory, and the int8-vs-bf16 keypoint
+     no NCHW conv input, peak memory, and the int8-vs-bf16 keypoint
      shift (for information); then every quantized conv on SUB_CROPS crops
      and SUB_IMAGES images, channels-last, torch.equal to the same conv on
      the NCHW copy of its input, and each of the 159 that requantize to the
@@ -223,9 +221,8 @@ backend flags), each held against its eager body:
      launches per frame; (d) `make_multistream_clip_fn` at full width,
      bench.py's multistream leg: 2 streams of 128 frames of 5 random
      720x1280 views, YOLOv3-416 and HRNet-W48 folded to bf16, then int8
-     through `quantize_convs` + `uncalibrated_scales`; fps, the stage A /
-     stage B split (each alone to a sync), K1 / K2 / K2a / K3 / conv
-     epilogue launches counted from 0 (8, 0, 0, 768, 8 x 379 in bf16; 8,
+     through `quantize_convs` + `uncalibrated_scales`; K1 / K2 / K2a / K3 /
+     conv epilogue launches counted from 0 (8, 0, 0, 768, 8 x 379 in bf16; 8,
      8 x 364, 8 x 203, 768, 8 x 204 in int8, 8 x 159 requantizing), no NCHW conv input, peak memory, host syncs; each stream's
      stage B equal to
      `track_clip` on its own stage-A detections, and (bf16, information)
@@ -239,7 +236,8 @@ backend flags), each held against its eager body:
      ones in f32 and within 2x bf16's own error of them in bf16, relative
      norms; the decoded keypoints' agreement reported), then
      stage A unpacked and packed in turns (U P P U U P), int8 with K2's
-     time in each; (a) and (b), inside phase 10 on its files and frames:
+     launches at the packed input in each; (a) and (b), inside phase 10 on
+     its files and frames:
      `cli.convert.convert_checkpoints` writes a bf16 bundle, then an int8
      one quantized on the 8 calibration frames with on_drift="warn";
      `build_pipeline_real(bundle=...)` serves each with the checkpoint
@@ -310,41 +308,24 @@ backend flags), each held against its eager body:
      `make_multistream_step_fn(tcfg, mesh, num_streams)`, this rank's
      graph, to the clip function's final state.
  19. the tracker step as a captured CUDA graph (`graphs`,
-     `runtime.graphs`), last, since its profiles leave CUPTI attached:
-     (a) at 4 / 12 / 24 and 16 / 16 / 40, GRAPH_FRAMES frames of a
-     5-view adversarial scene with a false positive a view and drops:
+     `runtime.graphs`): (a) at 4 / 12 / 24 and 16 / 16 / 40, GRAPH_FRAMES
+     frames of a 5-view adversarial scene with a false positive a view and
+     drops:
      `make_step_fn` frame by frame (frame ids as device tensors and as
      ints) and `track_clip` against the eager `tracker_step`,
      torch.equal on every state and output field of every frame (if not,
      the mismatches are reported and the discrete fields must still be
-     equal, the poses within GRAPH_POSE_TOL); stage B ms per frame eager
-     and graphed in turns (GRAPH_TIMED_ORDER, host clock to a sync), the
-     graphed clip's device ms per frame behind a sleep, the host µs of a
-     clip frame, of a `make_step_fn` call and of a bare replay; the
-     eager step's device events of one frame and the graph's of one
-     replay under torch.profiler, each clip's over GRAPH_PROFILED_FRAMES
-     frames with the device's idle share (also against the unprofiled
-     frame time), after every timing of the phase; the graph's nodes by
-     type (`cuGraphGetNodes`), capture seconds and pool bytes; (b)
+     equal, the poses within GRAPH_POSE_TOL); the graph's nodes by type
+     (`cuGraphGetNodes`), capture seconds and pool bytes; (b)
      `make_multistream_step_fn` against the eager vmapped step at S = 1,
      8, 32 streams of different scenes and both capacity sets,
-     GRAPH_MS_FRAMES frames twice (the first runs pay functorch's set-up
-     and the capture), torch.equal on every field, ms per step of each.
-     Last, every tracker graph the run captured, with its replays
-     (`graphs_captured`); then phase 13 (f), `train_profile`: for W48
-     recipes (a) and (b) one eager step and one replay under
-     torch.profiler, kernels launched against the graph's kernel nodes,
-     the device's busy ms and idle share.
- 20. the stage-A profile (`stage_a_profile`), after 13 (f): phase 5's
-     models rebuilt from its seed, in bf16 and in int8 (`quantize_convs`,
-     uncalibrated scales), stage A on a 32-frame clip of 5 random 720x1280
-     views served channels-last and, the same models and clip, in NCHW
-     (`nchw_model`, the layout the port served before): stage A ms in turns
-     (PROFILE_ORDER), then one stage A of each under torch.profiler: device
-     ms by kernel family (PROFILE_FAMILIES: cuDNN conv, its layout
-     transposes, K2a, K2b, stem, elementwise, copies, crop matmuls, NMS /
-     top-K, K1, the conv epilogue, ...), the PROFILE_TOP longest kernels of
-     each, busy ms and the idle share.
+     GRAPH_MS_FRAMES frames twice (the first graphed run captures, the
+     second replays), torch.equal on every field. Last, every tracker graph
+     the run captured, with its replays (`graphs_captured`); then phase 13
+     (f), `train_profile` (its profiles leave CUPTI attached, which slows
+     every later launch on the host): for W48 recipes (a) and (b) one
+     eager step and one replay under torch.profiler, kernels launched
+     against the graph's kernel nodes, the device's busy ms and idle share.
  21. the conv epilogue (`epilogue`): the one-pass kernel of `ops.epilogue`
      bit for bit against its plain version at EPILOGUE_SHAPES, its ms
      beside its byte bound and the plain version's ms; as context, cuDNN's
@@ -360,15 +341,16 @@ backend flags), each held against its eager body:
      comparison; (c) a 32-frame clip of 5 random 776x1032 views through
      `Pipeline.process_clip` (a warm-up clip first), the epilogue's, the
      fused attention's and K1's launches counted from 0 over one clip
-     against VITPOSE_LAUNCHES, its outputs checked as phase 5's.
+     against VITPOSE_LAUNCHES, its outputs checked as phase 5's, its peak
+     memory.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
 the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
 `--only ingest`, phase 17, its checkpoint files written anew from phase
 10's seed; with `--only parallel`, phase 18; with `--only graphs`, phase 19;
-with `--only train`, phase 13 and then 13 (f); with `--only profile`, phase
-20; with `--only epilogue`, phase 21; with `--only vitpose`, phase 22.
+with `--only train`, phase 13 and then 13 (f); with `--only epilogue`,
+phase 21; with `--only vitpose`, phase 22.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
@@ -380,7 +362,7 @@ times and bounds at the packed branch-0 shape beside the unpacked one's
 and phase 16 (c)'s K2 launches at that shape a packed clip; the stem kernel's row
 times HRNet's stem and, under `yolo_stem`, YOLO's; K2's, K2a's and the
 stem kernel's `ms` and `plain_ms` are their channels-last modes' (the main
-path's), the NCHW ones under `nchw`; K3's `launches` are
+path's); K3's `launches` are
 phase 15 (d)'s int8 run's, and its times those of (a) at (d)'s
 association shape, with `device_us`, `host_us` and `op_host_us`; its
 `bound_ms` is the latency bound, `bound_by` "latency", and the
@@ -634,7 +616,7 @@ def nchw_model(torch, model):
     """A copy of `model` with NCHW weights that runs on an NCHW copy of its
     input: the port's stage A as it was before it served channels-last
     (`_pose_crops` and `detect_people` copied the networks' inputs to NCHW),
-    for the layout comparisons and the stage-A profile."""
+    for the layout comparisons."""
     class NCHW(torch.nn.Module):
         def __init__(self):
             super().__init__()
@@ -796,14 +778,15 @@ def phase_k2a(torch, gen, hr_shapes, yo_shapes):
             "distinct_inputs": len(inputs), "max_abs_err": 0.0}
 
 
-def time_k2(torch, gen, shape, batch, with_plain=True):
-    """Times of one conv shape at `batch`, bf16 in and out, on an NCHW input
-    and, under "nhwc", on its channels-last copy (the main path's layout):
-    K2 as the main path calls it, and, on the GEMM path, K2a and K2b alone,
-    K2 on an int8 channels-last input (K2b alone, the int8-resident
-    blocks' route) and K2b's requantizing mode on it (beside the K2b, E and
-    K2a passes it replaces); the plain version and the bf16 cuDNN conv in
-    each layout; each kernel with its bound."""
+def time_k2(torch, gen, shape, batch):
+    """Times of one conv shape at `batch`, bf16 in and out, on a
+    channels-last input (the main path's layout): K2 as the main path
+    calls it, and, on the GEMM path, K2a and K2b alone, K2 on an int8
+    channels-last input (K2b alone, the int8-resident blocks' route) and
+    K2b's requantizing mode on it (beside the K2b, E and K2a passes it
+    replaces); on the stems' route, the gather kernel on the NCHW input,
+    the only layout it reads; the plain version and the bf16 cuDNN conv;
+    each kernel with its bound."""
     import torch.nn.functional as F
 
     from tpupose_torch.ops import epilogue
@@ -812,51 +795,42 @@ def time_k2(torch, gen, shape, batch, with_plain=True):
     b16, cl = torch.bfloat16, torch.channels_last
     cin, h, w, cout, k, stride, dil = shape
     wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, shape, batch, b16, b16)
-    y = k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16, stride, dil)
+    xc = x.contiguous(memory_format=cl)
+    y = k2.int8_conv_cuda(xc, wk, (k, k), inv, mul, add, b16, stride, dil)
     vectors = 2 * cout * 4 + 4
     ops = 2 * y.numel() * cin * k * k
     out = {"shape": [batch, cin, h, w, cout, k, stride],
-           "ms": cuda_time_ms(lambda: k2.int8_conv_cuda(x, wk, (k, k), inv, mul, add, b16,
+           "ms": cuda_time_ms(lambda: k2.int8_conv_cuda(xc, wk, (k, k), inv, mul, add, b16,
                                                         stride, dil), reps=10),
            **bound(x.numel() * 2 + wq.numel() + y.numel() * 2 + vectors, ops,
                    H100_INT8_OPS_PER_S)}
-    xc = x.contiguous(memory_format=cl)
-    nhwc = out["nhwc"] = {
-        "ms": cuda_time_ms(lambda: k2.int8_conv_cuda(xc, wk, (k, k), inv, mul, add, b16,
-                                                     stride, dil), reps=10),
-        **bound(x.numel() * 2 + wq.numel() + y.numel() * 2 + vectors, ops,
-                H100_INT8_OPS_PER_S)}
     if k2.channels_last(cin):
-        xq = k2.quantize_nhwc_cuda(x, inv)
-        out["k2a"] = {"ms": cuda_time_ms(lambda: k2.quantize_nhwc_cuda(x, inv), reps=10),
+        xq = k2.quantize_nhwc_cuda(xc, inv)
+        out["k2a"] = {"ms": cuda_time_ms(lambda: k2.quantize_nhwc_cuda(xc, inv), reps=10),
+                      "plain_ms": cuda_time_ms(lambda: k2.quantize_nhwc_plain(xc, inv),
+                                               warmup=1, reps=5),
                       **bound(x.numel() * 2 + xq.numel(), 4 * x.numel(), H100_F32_OPS_PER_S)}
         out["k2b"] = {"ms": cuda_time_ms(lambda: k2.gemm_nhwc_cuda(
-                          xq, wk, (k, k), mul, add, b16, stride, dil), reps=10),
+                          xq, wk, (k, k), mul, add, b16, stride, dil, nhwc_out=True), reps=10),
                       **bound(xq.numel() + wq.numel() + y.numel() * 2 + vectors, ops,
                               H100_INT8_OPS_PER_S)}
         out["design_bytes"] = out["k2a"]["bytes"] + out["k2b"]["bytes"]
         out["design_bound_ms"] = out["design_bytes"] / H100_BYTES_PER_S * 1e3
-        nhwc["k2a"] = {"ms": cuda_time_ms(lambda: k2.quantize_nhwc_cuda(xc, inv), reps=10),
-                       **{f: out["k2a"][f] for f in ("bound_ms", "bound_by", "bytes", "ops")}}
-        nhwc["k2b"] = {"ms": cuda_time_ms(lambda: k2.gemm_nhwc_cuda(
-                           xq, wk, (k, k), mul, add, b16, stride, dil, nhwc_out=True),
-                           reps=10),
-                       **{f: out["k2b"][f] for f in ("bound_ms", "bound_by", "bytes", "ops")}}
         # an int8 channels-last input: K2b reads it in place, no K2a
         xi = xq.permute(0, 3, 1, 2)
         before = k2.quantize_launches
-        nhwc["int8_input"] = {"ms": cuda_time_ms(lambda: k2.int8_conv_cuda(
-                                  xi, wk, (k, k), None, mul, add, b16, stride, dil), reps=10),
-                              **{f: out["k2b"][f] for f in ("bound_ms", "bound_by", "bytes",
-                                                            "ops")}}
-        nhwc["int8_input"]["k2a_launches"] = k2.quantize_launches - before
-        if nhwc["int8_input"]["k2a_launches"]:
+        out["int8_input"] = {"ms": cuda_time_ms(lambda: k2.int8_conv_cuda(
+                                 xi, wk, (k, k), None, mul, add, b16, stride, dil), reps=10),
+                             **{f: out["k2b"][f] for f in ("bound_ms", "bound_by", "bytes",
+                                                           "ops")}}
+        out["int8_input"]["k2a_launches"] = k2.quantize_launches - before
+        if out["int8_input"]["k2a_launches"]:
             fail(f"K2 on an int8 channels-last input {shape} launched K2a")
         # K2b's requantizing mode on that int8 input, which reads int8 and
         # writes the next conv's int8 input, against the three passes it
         # takes the place of: K2b's bf16 store, E's ReLU, K2a
         inv_next = torch.tensor([127.0 / 8.0], device="cuda")
-        nhwc["k2b_requant"] = {
+        out["k2b_requant"] = {
             "ms": cuda_time_ms(lambda: k2.int8_conv_requant_cuda(
                 xi, wk, (k, k), None, mul, add, b16, "relu", inv_next, stride, dil), reps=10),
             **bound(xq.numel() + wq.numel() + y.numel() + vectors + 4, ops,
@@ -866,31 +840,19 @@ def time_k2(torch, gen, shape, batch, with_plain=True):
             z = k2.int8_conv_cuda(xi, wk, (k, k), None, mul, add, b16, stride, dil)
             return k2.quantize_nhwc_cuda(epilogue.bias_act_cuda(z, act="relu"), inv_next)
 
-        nhwc["k2b_requant"]["three_passes_ms"] = cuda_time_ms(three_passes, reps=10)
-        if with_plain:
-            out["k2a"]["plain_ms"] = cuda_time_ms(lambda: k2.quantize_nhwc_plain(x, inv),
-                                                  warmup=1, reps=5)
-            nhwc["k2a"]["plain_ms"] = cuda_time_ms(lambda: k2.quantize_nhwc_plain(xc, inv),
-                                                   warmup=1, reps=5)
+        out["k2b_requant"]["three_passes_ms"] = cuda_time_ms(three_passes, reps=10)
         del xq, xi
     if k2.stem_path(cin, k, k):  # the stems' route before the stem kernel
         out["gather_ms"] = cuda_time_ms(lambda: k2.gather_conv_cuda(
             x, wk, (k, k), inv, mul, add, b16, stride, dil), reps=10)
-    if with_plain:
-        out["plain_ms"] = cuda_time_ms(
-            lambda: k2.int8_conv_plain(x, wq, inv, mul, add, b16, stride, dil),
-            warmup=1, reps=3)
-        nhwc["plain_ms"] = cuda_time_ms(
-            lambda: k2.int8_conv_plain(xc, wq, inv, mul, add, b16, stride, dil),
-            warmup=1, reps=3)
+    out["plain_ms"] = cuda_time_ms(
+        lambda: k2.int8_conv_plain(xc, wq, inv, mul, add, b16, stride, dil), warmup=1, reps=3)
     wb = torch.randn((cout, cin, k, k), generator=gen, device="cuda").to(b16)
+    wbc = wb.contiguous(memory_format=cl)
     out["bf16_cudnn_ms"] = cuda_time_ms(
-        lambda: F.conv2d(x, wb, stride=stride, padding=k // 2, dilation=dil), reps=10)
+        lambda: F.conv2d(xc, wbc, stride=stride, padding=k // 2, dilation=dil), reps=10)
     out["bf16_cudnn_bound"] = bound(x.numel() * 2 + wb.numel() * 2 + y.numel() * 2, ops,
                                     H100_BF16_OPS_PER_S)
-    wbc = wb.contiguous(memory_format=cl)
-    nhwc["bf16_cudnn_ms"] = cuda_time_ms(
-        lambda: F.conv2d(xc, wbc, stride=stride, padding=k // 2, dilation=dil), reps=10)
     return out
 
 
@@ -975,13 +937,13 @@ def phase_k2(torch, gen, card):
         fail("K2: a channels-last input of 8 channels was not refused")
     except ValueError:
         pass
-    timed = {name: time_k2(torch, gen, shape, batch, with_plain)
-             for name, shape, batch, with_plain in (
-                 ("hrnet_branch0_3x3_48", BRANCH0, MAIN_CROPS, True),
-                 ("hrnet_branch0_packed_3x3_96", BRANCH0_PACKED, MAIN_CROPS, True),
-                 ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES, True),
-                 ("hrnet_stem_3x3_s2_3_64", (3, 384, 288, 64, 3, 2, 1), MAIN_CROPS, True),
-                 ("yolo_stem_3x3_3_32", (3, 416, 416, 32, 3, 1, 1), MAIN_IMAGES, True))}
+    timed = {name: time_k2(torch, gen, shape, batch)
+             for name, shape, batch in (
+                 ("hrnet_branch0_3x3_48", BRANCH0, MAIN_CROPS),
+                 ("hrnet_branch0_packed_3x3_96", BRANCH0_PACKED, MAIN_CROPS),
+                 ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES),
+                 ("hrnet_stem_3x3_s2_3_64", (3, 384, 288, 64, 3, 2, 1), MAIN_CROPS),
+                 ("yolo_stem_3x3_3_32", (3, 416, 416, 32, 3, 1, 1), MAIN_IMAGES))}
     return {"card": card, "checked": checked, "checked_channels_last": checked_cl,
             "checked_on_stem_kernel": stems,
             "checked_on_gather_path": gathered, "stem_max_abs_err": stem_err,
@@ -1006,7 +968,7 @@ def phase_main_path(torch, gen, card):
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import lap
     from tpupose_torch.pipeline import Pipeline
-    from tpupose_torch.tracking.tracker import TrackerConfig, track_clip
+    from tpupose_torch.tracking.tracker import TrackerConfig
 
     views, frames, height, width = 5, 32, 720, 1280
     det_cfg = YoloConfig(max_candidates=4)
@@ -1021,27 +983,8 @@ def phase_main_path(torch, gen, card):
     clip = torch.randint(0, 256, (frames, views, height, width, 3), generator=gen,
                          device="cuda", dtype=torch.uint8)
     frame_ids = torch.arange(frames, dtype=torch.int32)
-
-    t0 = time.perf_counter()
     pipe.process_clip(frame_ids, clip)  # warm-up
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-
-    # stage split: stage A alone, then stage B on its detections
-    t0 = time.perf_counter()
-    dets, mask = pipe.process_clip_nn(clip)
-    torch.cuda.synchronize()
-    stage_a_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        track_clip(tcfg, pipe.cams, pipe.state, dets, mask, frame_ids.cuda())
-    torch.cuda.synchronize()
-    stage_b_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        eager_clip(torch, tcfg, pipe.cams, pipe.state, dets, mask, frame_ids.cuda())
-    torch.cuda.synchronize()
-    stage_b_eager_ms = (time.perf_counter() - t0) * 1e3
 
     # the main path: counts from 0, two clips, counts read right after
     torch.cuda.reset_peak_memory_stats()
@@ -1049,14 +992,12 @@ def phase_main_path(torch, gen, card):
     lap.launches = 0
     epilogue.launches = 0
     replays = card_replays()
-    clip_ms, syncs = [], 0
+    syncs = 0
     with nchw_conv_inputs(torch, pipe.detector, pipe.pose_model) as layouts:
         for _ in range(2):
-            t0 = time.perf_counter()
             with counted_syncs() as counted:
                 outs, dets, mask = pipe.process_clip(frame_ids, clip)
             torch.cuda.synchronize()
-            clip_ms.append((time.perf_counter() - t0) * 1e3)
             syncs += counted["syncs"]
     launches, k3_launches, epi_launches = th.launches, lap.launches, epilogue.launches
     replays = card_replays() - replays
@@ -1074,18 +1015,10 @@ def phase_main_path(torch, gen, card):
 
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
     check_channels_last(layouts, "bf16 clip path")
-    ms = statistics.median(clip_ms)
-    stage_a_runs = stage_a_times(torch, pipe, clip)
     return {
         "config": "YOLOv3-416 (max_candidates=4) + HRNet-W48 384x288, BN folded, "
                   "bf16; 32 frames x 5 views x 720x1280 uint8",
-        "card": card, "first_clip_s": first_s, "clip_ms": clip_ms,
-        "ms_per_clip": ms, "fps": frames * 1e3 / ms,
-        "stage_a_ms": stage_a_ms, "stage_a_runs_ms": stage_a_runs,
-        "stage_a_median_ms": statistics.median(stage_a_runs),
-        "conv_inputs": layouts, "layouts": layout_agreement(torch, pipe, clip),
-        "stage_b_ms": stage_b_ms,
-        "stage_b_ms_per_frame": stage_b_ms / frames, "stage_b_eager_ms": stage_b_eager_ms,
+        "card": card, "conv_inputs": layouts, "layouts": layout_agreement(torch, pipe, clip),
         "decode_launches": launches, "k3_launches": k3_launches,
         "epilogue_launches": epi_launches, "clips": 2, "graph_replays": replays,
         "host_syncs_per_frame": syncs / (2 * frames),
@@ -1093,24 +1026,11 @@ def phase_main_path(torch, gen, card):
     }, (pipe, clip, frame_ids, dets, mask)
 
 
-STAGE_A_RUNS = 3  # stage A timed after the counted clips, none the first after a capture
 LAYOUT_FRAMES = 2  # frames of the clip (x 5 views) for the layout comparisons
 #: The layout comparisons in f32, TF32 off: channels-last against NCHW
 #: heatmaps and detector heads within this relative norm (summation order
 #: only), and equal detection masks.
 LAYOUT_F32_REL = 1e-5
-
-
-def stage_a_times(torch, pipe, clip):
-    """ms of STAGE_A_RUNS stage A calls (`process_clip_nn`, to a sync)."""
-    runs = []
-    for _ in range(STAGE_A_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe.process_clip_nn(clip)
-        torch.cuda.synchronize()
-        runs.append((time.perf_counter() - t0) * 1e3)
-    return runs
 
 
 def layout_agreement(torch, pipe, clip):
@@ -1184,36 +1104,19 @@ def phase_int8_path(torch, card, main):
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import int8_conv as k2
     from tpupose_torch.ops import lap
-    from tpupose_torch.tracking.tracker import track_clip
 
     pipe, clip, frame_ids, dets_bf16, mask_bf16 = main
     frames, views = clip.shape[0], clip.shape[1]
     tcfg = pipe.tracker_cfg
     log = io.StringIO()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with redirect_stdout(log):
         # random weights drift by design: report the check, do not gate on it
         pipe.quantize_models(clip[:8, 0].contiguous(), on_drift="warn")
-    torch.cuda.synchronize()
-    quantize_s = time.perf_counter() - t0
     print(log.getvalue().rstrip(), flush=True)
     report = dict(pipe.last_quant_report)
     pipe.track_restart()
-
-    t0 = time.perf_counter()
     pipe.process_clip(frame_ids, clip)  # warm-up
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dets, mask = pipe.process_clip_nn(clip)
-    torch.cuda.synchronize()
-    stage_a_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        track_clip(tcfg, pipe.cams, pipe.state, dets, mask, frame_ids.cuda())
-    torch.cuda.synchronize()
-    stage_b_ms = (time.perf_counter() - t0) * 1e3
 
     # the int8 main path: counts from 0, two clips, counts read right after
     torch.cuda.reset_peak_memory_stats()
@@ -1224,14 +1127,12 @@ def phase_int8_path(torch, card, main):
     lap.launches = 0
     epilogue.launches = 0
     replays = card_replays()
-    clip_ms, syncs = [], 0
+    syncs = 0
     with nchw_conv_inputs(torch, pipe.detector, pipe.pose_model) as layouts:
         for _ in range(2):
-            t0 = time.perf_counter()
             with counted_syncs() as counted:
                 outs, dets, mask = pipe.process_clip(frame_ids, clip)
             torch.cuda.synchronize()
-            clip_ms.append((time.perf_counter() - t0) * 1e3)
             syncs += counted["syncs"]
     k1_launches, k2_launches, k3_launches = th.launches, k2.launches, lap.launches
     k2a_launches, stem_launches = k2.quantize_launches, k2.stem_launches
@@ -1260,26 +1161,19 @@ def phase_int8_path(torch, card, main):
              f"{k2a_launches}, the stem kernel {stem_launches} and K2b requantizing "
              f"{requant_launches} times, expected >= 1 and {expect}")
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
-    stage_a_runs = stage_a_times(torch, pipe, clip)
-    k2_ms, k2_calls, k2a_ms = k2_time_in_stage_a(torch, pipe, clip)
     layouts_int8 = int8_layouts_equal(torch, pipe, clip)
     both = (mask & mask_bf16)
     shift = torch.linalg.norm(dets[..., :2] - dets_bf16[..., :2], dim=-1)[both]
-    ms = statistics.median(clip_ms)
     return {
         "config": "the main path's pipeline after quantize_models (int8 YOLOv3-416 and "
                   "HRNet-W48 through K2, float heads)",
-        "card": card, "quantize_s": quantize_s, "self_check": report,
-        "first_clip_s": first_s, "clip_ms": clip_ms, "ms_per_clip": ms,
-        "fps": frames * 1e3 / ms, "stage_a_ms": stage_a_ms, "stage_b_ms": stage_b_ms,
+        "card": card, "self_check": report,
         "k2_launches": k2_launches, "k2_launches_per_clip": k2_launches / 2,
         "quantize_launches": k2a_launches, "quantize_launches_per_clip": k2a_launches / 2,
         "stem_launches": stem_launches, "epilogue_launches": epi_launches,
         "requant_launches": requant_launches, "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
-        "graph_replays": replays, "k2_ms_in_stage_a": k2_ms, "k2_calls_timed": k2_calls,
-        "k2a_ms_in_stage_a": k2a_ms, "k2b_and_stem_ms_in_stage_a": k2_ms - k2a_ms,
+        "graph_replays": replays,
         "quantize_cl_launches": k2a_cl_launches, "nhwc_launches": nhwc_launches,
-        "stage_a_runs_ms": stage_a_runs, "stage_a_median_ms": statistics.median(stage_a_runs),
         "conv_inputs": layouts, "layouts": layouts_int8,
         "host_syncs_per_frame": syncs / (2 * frames),
         "detections_valid": int(mask.sum()), "masks_equal_bf16": bool(torch.equal(mask, mask_bf16)),
@@ -1289,42 +1183,28 @@ def phase_int8_path(torch, card, main):
     }
 
 
-def k2_time_in_stage_a(torch, pipe, clip, shape=None):
-    """Summed device time of the K2 launches in one int8 stage A, by CUDA
-    events around each launch (after the counted runs; no host syncs), the
-    number of launches and the summed time of their K2a passes; with
-    `shape`, a (C, H, W) input, also the number of launches at it."""
+def k2_launches_at(torch, pipe, clip, shape):
+    """K2 launches in one int8 stage A whose input is of (C, H, W) `shape`."""
     from tpupose_torch.ops import int8_conv as k2
 
-    events, at_shape = {"k2": [], "k2a": []}, [0]
-    names = {"int8_conv_cuda": "k2", "int8_conv_requant_cuda": "k2",
-             "quantize_nhwc_cuda": "k2a"}
+    names = ("int8_conv_cuda", "int8_conv_requant_cuda")
     inner = {fn: getattr(k2, fn) for fn in names}
+    at_shape = [0]
 
-    def timed(fn):
+    def counted(fn):
         def run(*args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            y = inner[fn](*args, **kw)
-            end.record()
-            events[names[fn]].append((start, end))
-            at_shape[0] += names[fn] == "k2" and tuple(args[0].shape[1:]) == shape
-            return y
+            at_shape[0] += tuple(args[0].shape[1:]) == shape
+            return inner[fn](*args, **kw)
         return run
 
     for fn in names:
-        setattr(k2, fn, timed(fn))
+        setattr(k2, fn, counted(fn))
     try:
         pipe.process_clip_nn(clip)
     finally:
         for fn in names:
             setattr(k2, fn, inner[fn])
-    torch.cuda.synchronize()
-    ms = {name: sum(s.elapsed_time(e) for s, e in ev) for name, ev in events.items()}
-    if shape is None:
-        return ms["k2"], len(events["k2"]), ms["k2a"]
-    return ms["k2"], len(events["k2"]), at_shape[0]
+    return at_shape[0]
 
 
 def int8_layouts_equal(torch, pipe, clip):
@@ -1553,7 +1433,8 @@ def pack_one(torch, pipe, clip, frame_ids, mode):
     `Pipeline.pack_models` from a fresh tracker, the packed clip's K1 / K2
     / K2a / stem / epilogue launches counted from 0, then stage A
     (`process_clip_nn`, to a sync) unpacked and packed in turns; int8 also
-    K2's summed time in each stage A. The pipeline is left unpacked."""
+    K2's launches at the packed input in each. The pipeline is left
+    unpacked."""
     from tpupose_torch.ops import epilogue
     from tpupose_torch.ops import heatmap as th
     from tpupose_torch.ops import int8_conv as k2
@@ -1610,7 +1491,6 @@ def pack_one(torch, pipe, clip, frame_ids, mode):
                  f"{heat['bf16_vs_f32']}")
 
     times = {"U": [], "P": []}
-    k2_ms = {}
     for which in PACK_TIMED_ORDER:
         pipe.pose_cfg, pipe.pose_model = unpacked if which == "U" else packed
         torch.cuda.synchronize()
@@ -1621,7 +1501,7 @@ def pack_one(torch, pipe, clip, frame_ids, mode):
     if mode == "int8":
         for which in "UP":
             pipe.pose_cfg, pipe.pose_model = unpacked if which == "U" else packed
-            k2_ms[which], _, out[f"k2_launches_at_packed_shape_{which}"] = k2_time_in_stage_a(
+            out[f"k2_launches_at_packed_shape_{which}"] = k2_launches_at(
                 torch, pipe, clip, BRANCH0_PACKED[:3])
         cfg = unpacked[0]
         n_packed = 2 * cfg.stage_blocks * sum(cfg.stage_modules)  # conv1, conv2 a block
@@ -1635,8 +1515,6 @@ def pack_one(torch, pipe, clip, frame_ids, mode):
                stage_a_median_ms={"unpacked": statistics.median(times["U"]),
                                   "packed": statistics.median(times["P"])})
     out["stage_a_ratio"] = out["stage_a_median_ms"]["packed"] / out["stage_a_median_ms"]["unpacked"]
-    if k2_ms:
-        out["k2_ms_in_stage_a"] = {"unpacked": k2_ms["U"], "packed": k2_ms["P"]}
     return out
 
 
@@ -3237,142 +3115,12 @@ def phase_train_profile(torch, card):
     return out
 
 
-#: Kernel families of the stage-A profile: the first whose substrings a
-#: kernel's name holds takes it, else "other".
-PROFILE_FAMILIES = (
-    ("K1", ("heatmap_decode_kernel",)),
-    ("K2a", ("quantize_nhwc",)),
-    ("K2b", ("int8_conv_nhwc_kernel",)),
-    ("epilogue", ("bias_act_nhwc",)),
-    ("stem", ("int8_stem_kernel",)),
-    ("gather", ("int8_conv_kernel",)),
-    ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw", "NchwToNhwc", "NhwcToNchw")),
-    ("cuDNN conv", ("fprop", "conv", "cudnn", "implicit")),
-    ("crop matmuls", ("gemm", "Gemm", "nvjet", "cutlass", "xmma")),
-    ("NMS / top-K", ("sort", "Sort", "radix", "Radix", "topk", "TopK", "bitonic")),
-    ("copies (layout, dtype, cat)", ("copy", "Copy")),
-    ("memcpy / memset", ("Memcpy", "Memset", "memcpy", "memset")),
-    ("elementwise", ("elementwise", "reduce", "Reduce", "upsample", "index", "fill",
-                     "scatter", "gather", "where")),
-)
-PROFILE_ORDER = "CNNC"  # stage A channels-last (C) and NCHW (N) in turns, unprofiled
-PROFILE_TOP = 8  # kernels listed a family, the longest first
-
-
-def family_of(name):
-    return next((fam for fam, keys in PROFILE_FAMILIES if any(k in name for k in keys)),
-                "other")
-
-
 def device_events(torch, prof):
     """The kernels and copies of a torch.profiler session: its device-side
     events less the program's `span:*` ranges, which the profiler mirrors
     onto the device's timeline."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("span:")]
-
-
-def profiled_families(torch, fn):
-    """Device ms by kernel family (PROFILE_FAMILIES) of fn() under
-    torch.profiler, the PROFILE_TOP longest kernels of each, the device's busy ms
-    (the union of its kernels' intervals), the window from the first
-    kernel's start to the last one's end and the idle share of it; or the
-    error as a string."""
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = device_events(torch, prof)
-    except Exception as e:  # a machine may refuse CUPTI: report, do not gate
-        return f"not measured: {type(e).__name__}: {e}"
-    if not events:
-        return "not measured: the profiler recorded no device events"
-    fams, names = {}, {}
-    for e in events:
-        us = e.time_range.end - e.time_range.start
-        fam = family_of(e.name)
-        fams[fam] = fams.get(fam, 0.0) + us / 1e3
-        key = (fam, e.name[:160])
-        names[key] = names.get(key, 0.0) + us / 1e3
-    top = {}
-    for (fam, name), ms in sorted(names.items(), key=lambda kv: -kv[1]):
-        if len(top.setdefault(fam, [])) < PROFILE_TOP:
-            top[fam].append([name, ms])
-    busy, window = busy_and_window(events)
-    return {"family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])), "top": top,
-            "device_events": len(events), "busy_ms": busy / 1e3, "window_ms": window / 1e3,
-            "idle_share": 1.0 - busy / window if window > 0 else 0.0}
-
-
-def phase_stage_a_profile(torch, card):
-    """The stage-A profile, last (CUPTI stays attached): phase 5's models
-    rebuilt from the same seed, in bf16 and in int8 (`quantize_convs` with
-    `uncalibrated_scales`, the work of calibrated scales), on a 32-frame
-    clip of 5 random 720x1280 views, served channels-last and, with the
-    same models and clip, in NCHW (`nchw_model`): stage A's ms (host clock
-    to a sync, PROFILE_ORDER, unprofiled), then one stage A of each under
-    torch.profiler, device ms by kernel family and the idle share."""
-    from tpupose_torch.data.synthetic import make_scene
-    from tpupose_torch.geometry import make_camera_set
-    from tpupose_torch.models.hrnet import hrnet_init, hrnet_w48_config
-    from tpupose_torch.models.layers import fold_batchnorm
-    from tpupose_torch.models.quantize import (
-        hrnet_skip_ids,
-        quantize_convs,
-        uncalibrated_scales,
-        yolo_skip_ids,
-    )
-    from tpupose_torch.models.yolov3 import YoloConfig, yolov3_init
-    from tpupose_torch.pipeline import Pipeline
-    from tpupose_torch.tracking.tracker import TrackerConfig
-
-    views, frames, height, width = 5, 32, 720, 1280
-    det_cfg, pose_cfg = YoloConfig(max_candidates=4), hrnet_w48_config()
-    tcfg = TrackerConfig(num_cameras=views, max_dets=4, max_tracks=12, max_hyp=24)
-    cpu_gen = torch.Generator().manual_seed(0)
-    det = fold_batchnorm(yolov3_init(det_cfg, cpu_gen), dtype=torch.bfloat16)
-    pose = fold_batchnorm(hrnet_init(pose_cfg, cpu_gen), dtype=torch.bfloat16)
-    scene = make_scene(num_frames=1, num_cameras=views, num_actors=3, seed=0)
-    cams = make_camera_set(scene.P, scene.K, scene.RT, width, height)
-    gen = torch.Generator(device="cuda").manual_seed(19)
-    clip = torch.randint(0, 256, (frames, views, height, width, 3), generator=gen,
-                         device="cuda", dtype=torch.uint8)
-    out = {"card": card, "config": "phase 5's models and clip size; int8 by quantize_convs + "
-                                   "uncalibrated_scales", "families": [f for f, _ in
-                                                                     PROFILE_FAMILIES]}
-    for mode in ("bf16", "int8"):
-        pipe = Pipeline(cams, tcfg, det_cfg, det, pose_cfg, pose)
-        if mode == "int8":
-            pipe.detector = quantize_convs(pipe.detector, uncalibrated_scales(
-                pipe.detector, yolo_skip_ids(pipe.detector, det_cfg)))
-            pipe.pose_model = quantize_convs(pipe.pose_model, uncalibrated_scales(
-                pipe.pose_model, hrnet_skip_ids(pipe.pose_model)))
-        served = {"C": (pipe.detector, pipe.pose_model),
-                  "N": (nchw_model(torch, pipe.detector), nchw_model(torch, pipe.pose_model))}
-
-        def stage_a(which):
-            pipe.detector, pipe.pose_model = served[which]
-            pipe.process_clip_nn(clip)
-
-        for which in "CN":  # warm-ups
-            stage_a(which)
-        times = {"C": [], "N": []}
-        for which in PROFILE_ORDER:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stage_a(which)
-            torch.cuda.synchronize()
-            times[which].append((time.perf_counter() - t0) * 1e3)
-        out[mode] = {
-            layout: {"stage_a_ms": times[which],
-                     "stage_a_median_ms": statistics.median(times[which]),
-                     "profile": profiled_families(torch, lambda w=which: stage_a(w))}
-            for layout, which in (("channels_last", "C"), ("nchw", "N"))}
-        del pipe, served
-        torch.cuda.empty_cache()
-    return out
 
 
 #: Calls in one timed sample of phase 21, so that the host's wrapper time
@@ -3537,17 +3285,14 @@ def phase_vitpose(th, torch, gen, card):
     torch.cuda.synchronize()
     th.launches = epilogue.launches = attention.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     outs, dets, mask = pipe.process_clip(frame_ids, clip)
     torch.cuda.synchronize()
-    clip_ms = (time.perf_counter() - t0) * 1e3
     launches = {"epilogue.launches": epilogue.launches, "attention.launches": attention.launches,
                 "heatmap.launches": th.launches}
     if launches != VITPOSE_LAUNCHES:
         fail(f"a ViTPose-H clip launched {launches}, expected {VITPOSE_LAUNCHES}")
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
-    out.update(launches=launches, clip_ms=clip_ms, fps=frames * 1e3 / clip_ms,
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    out.update(launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                detections_valid=int(mask.sum()), seconds=time.perf_counter() - t_phase)
     return out
 
@@ -4085,7 +3830,6 @@ def multistream_clip(torch, float_models):
         broadcast_cameras,
         init_multistream_state,
         make_multistream_clip_fn,
-        make_multistream_step_fn,
     )
     from tpupose_torch.parallel import throughput
     from tpupose_torch.pipeline import Pipeline
@@ -4136,12 +3880,10 @@ def multistream_clip(torch, float_models):
             th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
             k2.requant_launches = lap.launches = epilogue.launches = 0
             before = set(card_steps())
-            t0 = time.perf_counter()
             with counted_syncs() as counted, nchw_conv_inputs(torch, det_m, pose_m) as layouts:
                 states, outs = fn(det_m, pose_m, broadcast_cameras(cams, s),
                                   init_multistream_state(tcfg, s), clip, fids)
             torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
         finally:
             throughput._clip_detections = inner
         check_channels_last(layouts, f"multistream clip ({mode})")
@@ -4159,24 +3901,6 @@ def multistream_clip(torch, float_models):
         if tuple(outs.pose3d.shape) != (s, f, 12, 17, 3) or not (
                 torch.isfinite(dets).all() and torch.isfinite(outs.pose3d).all()):
             fail(f"multistream clip ({mode}): shapes {tuple(outs.pose3d.shape)} or non-finite")
-        # the split, each stage alone to a sync
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            for k in range(0, f, chunk):
-                inner(det_cfg, pose_cfg, tcfg, det_m, pose_m,
-                      clip[:, k:k + chunk].reshape(-1, height, width, 3))
-        torch.cuda.synchronize()
-        stage_a_s = time.perf_counter() - t0
-        state = init_multistream_state(tcfg, s)
-        cams_s = broadcast_cameras(cams, s)
-        step = make_multistream_step_fn(tcfg)
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            for t in range(f):
-                state, _ = step(cams_s, state, dets[:, t], mask[:, t], fids[:, t])
-        torch.cuda.synchronize()
-        stage_b_s = time.perf_counter() - t0
         # each stream's stage B against track_clip fed its own detections
         with torch.inference_mode():
             for i in range(s):
@@ -4185,9 +3909,7 @@ def multistream_clip(torch, float_models):
                     if not torch.equal(getattr(outs, field)[i], getattr(ref, field)):
                         fail(f"multistream clip ({mode}) stream {i}: {field} differs from "
                              f"track_clip on its stage-A detections")
-        run = {"seconds": seconds, "fps": s * f / seconds, "stage_a_s": stage_a_s,
-               "stage_b_s": stage_b_s, "stage_b_ms_per_step": stage_b_s * 1e3 / f,
-               "launches": launches, "k3_warmup_launches": warmup, "peak_mem_gib": peak,
+        run = {"launches": launches, "k3_warmup_launches": warmup, "peak_mem_gib": peak,
                "host_syncs": counted["syncs"], "detections_valid": int(mask.sum()),
                "conv_inputs": layouts}
         if mode == "bf16":  # information: process_clip's stage A on the same frames
@@ -4232,9 +3954,6 @@ def phase_multistream(torch, card, gen, float_models):
 
 GRAPH_FRAMES = 64        # (a): frames of the single step, graphed against eager
 GRAPH_MS_FRAMES = 32     # (b): frames of the multistream step at each S
-GRAPH_TIMED_ORDER = "EGGE"  # (a): stage B eager (E) and graphed (G) in turns
-GRAPH_HOST_CALLS = 50    # (a): calls timed on the host behind one sleep
-GRAPH_PROFILED_FRAMES = 16  # (a): graphed frames under the profiler
 GRAPH_POSE_TOL = 5e-3    # metres, tests/test_tracker_parity.py's band, if not bit-equal
 
 
@@ -4333,7 +4052,7 @@ def profiled_device_events(torch, fn):
             "window_us": window, "idle_share": 1.0 - busy / window if window > 0 else 0.0}
 
 
-def host_us_behind_sleep(torch, fn, n=GRAPH_HOST_CALLS, sleep_s=0.2):
+def host_us_behind_sleep(torch, fn, n, sleep_s=0.2):
     """The host's time for one fn() while the card sleeps (nothing waits on
     it), in µs, over n calls."""
     fn()
@@ -4382,7 +4101,7 @@ def eager_clip(torch, cfg, cams, state, dets, mask, fids):
 
 def graphed_single(torch, caps):
     """(a) at one capacity set: make_step_fn and track_clip against the
-    eager step, their times, launches and graph."""
+    eager step, and the graph."""
     from tpupose_torch.tracking.tracker import (
         init_state,
         make_step_fn,
@@ -4392,20 +4111,16 @@ def graphed_single(torch, caps):
 
     dets, mask, fids, cams, cfg = stream_inputs(torch, graph_scene(GRAPH_FRAMES, 1), caps,
                                                 "cuda")
-    frames = GRAPH_FRAMES
     found, out = [], {}
     with torch.inference_mode():
         before = set(card_steps())
         step = make_step_fn(cfg)
         e_state = g_state = init_state(cfg, "cuda")
-        t0 = time.perf_counter()
         g_state, g_out = step(cams, g_state, dets[0], mask[0], fids[0])  # the capture
-        torch.cuda.synchronize()
-        out["first_call_s"] = time.perf_counter() - t0  # the capture if captured here
         captured = card_step("tracker_step", cfg, dets.shape[1:])
         out["captured_here"] = len(card_steps()) > len(before)
         e_state, e_out = tracker_step(cfg, cams, e_state, dets[0], mask[0], fids[0])
-        for t in range(frames):
+        for t in range(GRAPH_FRAMES):
             if t:
                 e_state, e_out = tracker_step(cfg, cams, e_state, dets[t], mask[t], fids[t])
                 g_state, g_out = step(cams, g_state, dets[t], mask[t], int(t))
@@ -4421,70 +4136,8 @@ def graphed_single(torch, caps):
     out["confirmed_tracks_last_frame"] = confirmed
     if confirmed < 2:
         fail(f"graphs at {caps}: the scene confirmed {confirmed} tracks")
-
-    # stage B ms per frame, eager and graphed in turns, host clock to a sync
-    runs = {"E": [], "G": []}
-    for kind in GRAPH_TIMED_ORDER:
-        run = eager_clip if kind == "E" else (lambda torch, *a: track_clip(*a))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            run(torch, cfg, cams, init_state(cfg, "cuda"), dets, mask, fids)
-        torch.cuda.synchronize()
-        runs[kind].append((time.perf_counter() - t0) * 1e3 / frames)
-    out["stage_b_ms_per_frame"] = {"eager": runs["E"], "graphed": runs["G"],
-                                   "order": GRAPH_TIMED_ORDER}
-    with torch.inference_mode():
-        state0 = init_state(cfg, "cuda")
-        out["graphed_device_ms_per_frame"] = device_ms_behind_sleep(
-            torch, lambda: track_clip(cfg, cams, state0, dets, mask, fids)) / frames
-        out["host_us_per_clip_frame"] = host_us_behind_sleep(
-            torch, lambda: track_clip(cfg, cams, state0, dets[:8], mask[:8], fids[:8]),
-            n=4) / 8
-        chain = [state0]
-
-        def one_step():
-            chain[0], _ = step(cams, chain[0], dets[5], mask[5], 5)
-
-        out["host_us_per_step_call"] = host_us_behind_sleep(torch, one_step)
-        out["host_us_per_replay"] = host_us_behind_sleep(torch, captured._replay)
-    # the timing replays advanced the static state behind the last returned
-    # one: the next call must copy its state in
-    captured._loaded_state = None
     out["graph"] = captured.stats()
-
-    def profiles():
-        """The eager step's device events of one frame and the graph's of
-        one replay, each clip's over GRAPH_PROFILED_FRAMES frames. Run after
-        every timing: once the profiler has run, CUPTI stays attached and
-        each later graph launch costs the host ~0.2 ms more (a replay 12.5
-        -> 217 µs on an H100)."""
-        n = GRAPH_PROFILED_FRAMES
-        with torch.inference_mode():
-            state = init_state(cfg, "cuda")
-            state, _ = tracker_step(cfg, cams, state, dets[0], mask[0], fids[0])
-            prof = {"eager_one_frame": profiled_device_events(
-                torch, lambda: tracker_step(cfg, cams, state, dets[1], mask[1], fids[1])),
-                "graphed_one_replay": profiled_device_events(torch, captured._replay),
-                "graphed_clip": profiled_device_events(
-                    torch, lambda: track_clip(cfg, cams, state0, dets[:n], mask[:n], fids[:n])),
-                "eager_clip": profiled_device_events(
-                    torch, lambda: eager_clip(torch, cfg, cams, state0, dets[:n], mask[:n],
-                                              fids[:n])),
-                "frames": n}
-        captured._loaded_state = None
-        # the profiler slows the host (and its kernels a little): the
-        # unprofiled stage B's busy share is about the profiled kernels'
-        # busy time over its frame time (above 1 where it is device-bound)
-        for kind, ms in (("eager", runs["E"]), ("graphed", runs["G"])):
-            clip = prof[f"{kind}_clip"]
-            if isinstance(clip, dict):
-                busy_ms = clip["busy_us"] / n / 1e3
-                prof[f"{kind}_busy_ms_per_frame"] = busy_ms
-                prof[f"{kind}_busy_over_unprofiled_frame"] = busy_ms / statistics.median(ms)
-        return prof
-
-    return out, profiles
+    return out
 
 
 def graphed_multistream(torch):
@@ -4508,29 +4161,24 @@ def graphed_multistream(torch):
         runs = {}
         for s in MS_STREAMS:
             cams_s = broadcast_cameras(cams, s)
-            found, ms = [], {"eager": [], "graphed": []}
+            found = []
             before = set(card_steps())
-            for rep in range(2):  # the first eager run warms functorch, the first graphed captures
+            for _ in range(2):  # the first graphed run captures, the second replays
                 e_states, e_outs, g_states, g_outs = [], [], [], []
                 for kind, fn in (("eager", lambda *a: multistream_step(cfg, *a)),
                                  ("graphed", step)):
                     state = init_multistream_state(cfg, s)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
                     with torch.inference_mode():
                         for t in range(GRAPH_MS_FRAMES):
                             state, o = fn(cams_s, state, dets[:s, t], mask[:s, t],
                                           fids[t].expand(s))
                             (e_states if kind == "eager" else g_states).append(state)
                             (e_outs if kind == "eager" else g_outs).append(o)
-                    torch.cuda.synchronize()
-                    ms[kind].append((time.perf_counter() - t0) * 1e3 / GRAPH_MS_FRAMES)
                 for t in range(GRAPH_MS_FRAMES):
                     found += mismatches(torch, g_states[t], e_states[t], f"S={s} frame {t} state")
                     found += mismatches(torch, g_outs[t], e_outs[t], f"S={s} frame {t} output")
             captured = card_step("multistream_step", cfg, (s,) + tuple(dets.shape[2:]))
-            runs[s] = {"ms_per_step": ms, "captured_here": len(card_steps()) > len(before),
-                       "first_runs_include": "functorch set-up; the capture if captured here",
+            runs[s] = {"captured_here": len(card_steps()) > len(before),
                        "compare": ({"bit_equal": True} if not found else
                                    gate_mismatches(found, f"multistream graphs at {name}, S={s}")),
                        "graph": captured.stats()}
@@ -4542,15 +4190,10 @@ def phase_graphs(torch, card):
     """Phase 19: the tracker step as a captured CUDA graph (see the module
     docstring)."""
     t_phase = time.perf_counter()
-    single, profiles = {}, {}
-    for name, caps in MS_CAPS.items():
-        single[name], profiles[name] = graphed_single(torch, caps)
+    single = {name: graphed_single(torch, caps) for name, caps in MS_CAPS.items()}
     emit("graphs_single", card=card, **single)
     multistream = graphed_multistream(torch)
     emit("graphs_multistream", card=card, **multistream)
-    for name in MS_CAPS:  # last: the profiler slows every later launch
-        single[name]["profile"] = profiles[name]()
-    emit("graphs_profile", card=card, **{name: single[name]["profile"] for name in MS_CAPS})
     return {"card": card, "single": single, "multistream": multistream,
             "seconds": time.perf_counter() - t_phase}
 
@@ -5058,12 +4701,11 @@ def main():
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
         elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {
-                "k2", "k3", "ingest", "parallel", "graphs", "train", "profile", "epilogue",
-                "vitpose"}:
+                "k2", "k3", "ingest", "parallel", "graphs", "train", "epilogue", "vitpose"}:
             only = set(args[1:])
         else:
             fail("usage: chip_smoke.py [--learned-seeds SEED ... | "
-                 "--only k2|k3|ingest|parallel|graphs|train|profile|epilogue|vitpose ...]",
+                 "--only k2|k3|ingest|parallel|graphs|train|epilogue|vitpose ...]",
                  2)
     try:
         import torch
@@ -5113,8 +4755,6 @@ def main():
             emit("graphs", **phase_graphs(torch, card), captured=graphs_summary())
         if "train" in only:
             emit("train_profile", **phase_train_profile(torch, card))
-        if "profile" in only:
-            emit("stage_a_profile", **phase_stage_a_profile(torch, card))
         if "epilogue" in only:
             emit("epilogue", **phase_epilogue(torch, card))
         if "vitpose" in only:
@@ -5169,12 +4809,12 @@ def main():
     parallel = phase_parallel(torch, card)
     emit("parallel", **parallel)
     par_launches = [r["streams"]["launches"] for r in parallel["ranks"]]
-    # last: the profiler that phase 19 ends with slows every later launch
     emit("graphs", **phase_graphs(torch, card))
     captured = graphs_summary()
     emit("graphs_captured", card=card, graphs=captured)
+    # after every phase that times the host's launches: the profiler slows
+    # every later one
     emit("train_profile", **phase_train_profile(torch, card))
-    emit("stage_a_profile", **phase_stage_a_profile(torch, card))
     epi = phase_epilogue(torch, card)
     emit("epilogue", **epi)
     vitpose = phase_vitpose(th, torch, gen, card)
@@ -5207,18 +4847,14 @@ def main():
         "source": "tpupose_torch/csrc/int8_conv.cu",
         "replaces": "tpupose/models/quantize.py:210",
         "launches": int8["k2_launches"],
-        "max_abs_err": k2["max_abs_err"], "ms": conv["nhwc"]["ms"],
-        "plain_ms": conv["nhwc"]["plain_ms"], "bound_ms": conv["nhwc"]["bound_ms"],
-        "bound_by": conv["nhwc"]["bound_by"], "library_ms": None,
-        "layout": "channels-last (the main path's; NCHW under 'nchw')",
-        "nhwc_launches": int8["nhwc_launches"], "k2b_ms": conv["nhwc"]["k2b"]["ms"],
-        "int8_input_ms": conv["nhwc"]["int8_input"]["ms"],
+        "max_abs_err": k2["max_abs_err"], "ms": conv["ms"],
+        "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
+        "bound_by": conv["bound_by"], "library_ms": None, "layout": "channels-last",
+        "nhwc_launches": int8["nhwc_launches"], "k2b_ms": conv["k2b"]["ms"],
+        "int8_input_ms": conv["int8_input"]["ms"],
         "design_bound_ms": conv["design_bound_ms"],
-        "bf16_cudnn_ms": conv["nhwc"]["bf16_cudnn_ms"], "shape": conv["shape"],
-        "nchw": {"ms": conv["ms"], "plain_ms": conv["plain_ms"], "k2b_ms": conv["k2b"]["ms"],
-                 "bf16_cudnn_ms": conv["bf16_cudnn_ms"]},
-        "yolo_3x3_128_256": {"nhwc": k2["timed"]["yolo_3x3_128_256"]["nhwc"],
-                             "nchw_ms": k2["timed"]["yolo_3x3_128_256"]["ms"]},
+        "bf16_cudnn_ms": conv["bf16_cudnn_ms"], "shape": conv["shape"],
+        "yolo_3x3_128_256": k2["timed"]["yolo_3x3_128_256"],
         "packed_branch0": {
             "shape": packed["shape"], "ms": packed["ms"], "plain_ms": packed["plain_ms"],
             "bound_ms": packed["bound_ms"], "bound_by": packed["bound_by"],
@@ -5239,18 +4875,13 @@ def main():
         "source": "tpupose_torch/csrc/int8_conv.cu",
         "replaces": "tpupose/models/quantize.py:210",
         "launches": int8["stem_launches"],
-        "max_abs_err": k2["stem_max_abs_err"], "ms": stem["nhwc"]["ms"],
-        "plain_ms": stem["nhwc"]["plain_ms"], "bound_ms": stem["bound_ms"],
-        "bound_by": stem["bound_by"], "library_ms": None,
-        "layout": "channels-last (the main path's; NCHW under 'nchw')",
-        "gather_ms": stem["gather_ms"], "bf16_cudnn_ms": stem["nhwc"]["bf16_cudnn_ms"],
-        "nchw": {"ms": stem["ms"], "plain_ms": stem["plain_ms"],
-                 "bf16_cudnn_ms": stem["bf16_cudnn_ms"]},
+        "max_abs_err": k2["stem_max_abs_err"], "ms": stem["ms"],
+        "plain_ms": stem["plain_ms"], "bound_ms": stem["bound_ms"],
+        "bound_by": stem["bound_by"], "library_ms": None, "layout": "channels-last",
+        "gather_ms": stem["gather_ms"], "bf16_cudnn_ms": stem["bf16_cudnn_ms"],
         "shape": stem["shape"], "yolo_stem": {
-            **{f: yolo_stem[f] for f in ("shape", "bound_ms", "bound_by", "gather_ms")},
-            "ms": yolo_stem["nhwc"]["ms"], "plain_ms": yolo_stem["nhwc"]["plain_ms"],
-            "bf16_cudnn_ms": yolo_stem["nhwc"]["bf16_cudnn_ms"],
-            "nchw": {f: yolo_stem[f] for f in ("ms", "plain_ms", "bf16_cudnn_ms")}},
+            f: yolo_stem[f] for f in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "gather_ms", "bf16_cudnn_ms")},
         "cli_launches": {m: c["int8_conv.stem_launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2_stem"],
         "multistream_launches": {m: c["k2_stem"] for m, c in ms_launches.items()},
@@ -5259,13 +4890,11 @@ def main():
         "source": "tpupose_torch/csrc/int8_conv.cu",
         "replaces": "tpupose/models/quantize.py:229",
         "launches": int8["quantize_launches"],
-        "max_abs_err": k2["k2a"]["max_abs_err"], "ms": conv["nhwc"]["k2a"]["ms"],
-        "plain_ms": conv["nhwc"]["k2a"]["plain_ms"], "bound_ms": conv["nhwc"]["k2a"]["bound_ms"],
-        "bound_by": conv["nhwc"]["k2a"]["bound_by"], "library_ms": None,
-        "layout": "channels-last input: the elementwise mode (the main path's; the "
-                  "transposing mode on an NCHW input under 'nchw')",
+        "max_abs_err": k2["k2a"]["max_abs_err"], "ms": conv["k2a"]["ms"],
+        "plain_ms": conv["k2a"]["plain_ms"], "bound_ms": conv["k2a"]["bound_ms"],
+        "bound_by": conv["k2a"]["bound_by"], "library_ms": None,
+        "layout": "channels-last input: the elementwise mode",
         "channels_last_launches": int8["quantize_cl_launches"],
-        "nchw": {"ms": conv["k2a"]["ms"], "plain_ms": conv["k2a"]["plain_ms"]},
         "shape": conv["shape"][:4],
         "cli_launches": {m: c["int8_conv.quantize_launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2a"],

@@ -16,7 +16,7 @@
 * The benchmark's readers of these spans and counters, loaded by path.
 * `cli.evalmodel --profile` writes the trace and prints the span lines,
   and says "not measured" of a span name whose spans the store dropped.
-* `chip_smoke.py`'s profile readers leave the spans' device-side copies
+* `chip_smoke.py`'s profile reader leaves the spans' device-side copies
   out of the kernels.
 * On the card (marked `card`): positive device ms, the parts within the
   batch, and a training step captured inside `recording()` still equal to
@@ -382,7 +382,7 @@ def test_evalmodel_profile_says_not_measured_past_the_store(tmp_path, capsys, mo
 
 def test_chip_smoke_profiles_leave_out_the_span_ranges(monkeypatch):
     """The profiler mirrors each `span:*` range onto the device's timeline:
-    chip_smoke's profile readers count kernels and copies alone."""
+    chip_smoke's profile reader counts kernels and copies alone."""
     spec = importlib.util.spec_from_file_location("chip_smoke_spans", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
@@ -404,9 +404,6 @@ def test_chip_smoke_profiles_leave_out_the_span_ranges(monkeypatch):
     one = smoke.profiled_device_events(torch, lambda: None)
     assert (one["device_events"], one["memcpy_memset"], one["busy_us"], one["window_us"]) == (
         2, 1, 20, 30)
-    fams = smoke.profiled_families(torch, lambda: None)
-    assert fams["device_events"] == 2 and fams["busy_ms"] == pytest.approx(0.02)
-    assert sum(fams["family_ms"].values()) == pytest.approx(0.02)
 
 
 @pytest.fixture
