@@ -65,7 +65,14 @@ backend flags), each held against its eager body:
      416x416 (x160), each with its bound; K2a and K2 also at width-packed
      branch 0 (`ops.packing`: 3x3 96->96 at 96x36, x640, K = 864), checked
      as the main path's shapes and timed beside the unpacked branch 0,
-     with the bf16 cuDNN conv's bound;
+     with the bf16 cuDNN conv's bound; K2b's halo path (`halo_path`, by
+     shape): the checked launches that took it, K2b's ms on it and on the
+     per-tap path (the rule forced either way), with a bf16 store and
+     requantizing, and its bound at branch 0, branch 1 (3x3 96->96 at 48x36,
+     x640) and YOLO's 3x3 128->256 (which the rule declines), and K2b
+     forced onto it at
+     HALO_EDGE_SHAPES, on an int8 input in every store mode, torch.equal to
+     the plain version on the whole output;
   5. the main path at full width in bf16: `Pipeline.process_clip` with
      YOLOv3-416 (max_candidates=4) and HRNet-W48 384x288, random weights
      from a seed, BN folded into bf16 weights, 32-frame clips of 5 views of
@@ -82,10 +89,10 @@ backend flags), each held against its eager body:
   6. the int8 main path: `Pipeline.quantize_models` on 8 frames of one view
      (on_drift="warn": random weights drift by design, so the self-check
      report is printed and not gated on), then `process_clip` twice on the
-     same clip; K1, K2, K2a, stem-kernel, K2b-requantizing and conv-epilogue
-     launch counts (364 K2, 203 K2a, 2 stem, 159 requantizing and 204
-     epilogue per clip expected, STEP_LAUNCHES; every K2 and K2a launch in
-     its channels-last mode),
+     same clip; K1, K2, K2a, stem-kernel, K2b-requantizing, K2b-halo and
+     conv-epilogue launch counts (364 K2, 203 K2a, 2 stem, 159 requantizing,
+     132 on the halo path and 204 epilogue per clip expected, STEP_LAUNCHES;
+     every K2 and K2a launch in its channels-last mode),
      no NCHW conv input, peak memory, and the int8-vs-bf16 keypoint
      shift (for information); then every quantized conv on SUB_CROPS crops
      and SUB_IMAGES images, channels-last, torch.equal to the same conv on
@@ -97,8 +104,8 @@ backend flags), each held against its eager body:
      test; K2's calls counted by input dtype and K2a's: none on an int8
      (channels-last) input, one on every float input but the stem's;
   8. the staged API: `process_frame` over the first 4 frames against
-     `process_clip` on those frames (equal masks, detections within atol
-     2e-2 / rtol 1e-3);
+     `process_clip` on those frames one frame a clip, the same batch of
+     views (equal masks, detections within atol 2e-2 / rtol 1e-3);
   9. the tracker on a synthetic scene with 5 views and 3 people: the same
      detections replayed through `person_track` on the card and on the CPU
      must give the same track ids, and 3 confirmed tracks; the card's track
@@ -359,7 +366,10 @@ bundle loop as `bundle_launches`, K1's and K3's in phase 17 (d)'s loop
 from disk as `ingest_launches`, K1's and K3's per rank in phase 18 (b) as
 `parallel_launches_per_rank`; K2's `packed_branch0` holds phase 4's
 times and bounds at the packed branch-0 shape beside the unpacked one's
-and phase 16 (c)'s K2 launches at that shape a packed clip; the stem kernel's row
+and phase 16 (c)'s K2 launches at that shape a packed clip; K2's `halo` holds
+K2b's halo path: phase 6's, 10's and 15 (d)'s launches on it, phase 4's
+checked launches and edge checks, and its rows at branch 0, branch 1 and
+YOLO's 3x3 128->256 (`halo_row`); the stem kernel's row
 times HRNet's stem and, under `yolo_stem`, YOLO's; K2's, K2a's and the
 stem kernel's `ms` and `plain_ms` are their channels-last modes' (the main
 path's); K3's `launches` are
@@ -410,6 +420,15 @@ STEM_EDGE_BATCH = 4
 #: form (`ops.packing`): 96->96 at 96x36, K = 864 (phase 4, phase 16 (c)).
 BRANCH0 = (48, 96, 72, 48, 3, 1, 1)
 BRANCH0_PACKED = (96, 96, 36, 96, 3, 1, 1)
+#: HRNet-W48's branch-1 3x3 conv, 96->96 at 48x36 (phase 4's halo rows).
+BRANCH1 = (96, 48, 36, 96, 3, 1, 1)
+#: K2b's halo path forced at shapes off the main path, held whole against
+#: plain in phase 4 (`halo_edges`): (Cin, H, W, Cout) with Cin 16 and 256,
+#: images smaller than a patch, H and W that no patch divides, a Cout past
+#: one channel tile and no multiple of 16.
+HALO_EDGE_SHAPES = ((16, 20, 30, 24), (32, 5, 3, 40), (48, 37, 23, 80), (16, 1, 1, 16),
+                    (256, 13, 13, 48), (64, 9, 200, 72))
+HALO_EDGE_BATCH = 3
 
 #: configs/Shelf/model_configs.yaml as yaml.safe_load reads it, but with
 #: the bench's MAX_CANDIDATES of 4 (bench.py:95-110), so that the CLI's
@@ -778,6 +797,70 @@ def phase_k2a(torch, gen, hr_shapes, yo_shapes):
             "distinct_inputs": len(inputs), "max_abs_err": 0.0}
 
 
+@contextlib.contextmanager
+def halo_rule(k2, take):
+    """K2b's halo path taken (`take`) or declined at every shape, in place
+    of its shape rule: to time the per-tap path where the rule takes the
+    halo, and to check the halo path where the rule declines it."""
+    rule = k2.halo_path
+    k2.halo_path = lambda *args: take
+    try:
+        yield
+    finally:
+        k2.halo_path = rule
+
+
+def halo_edges(torch, gen):
+    """K2b on its halo path (the shape rule forced) at HALO_EDGE_SHAPES, on
+    an int8 channels-last input, in every store mode (NHWC and NCHW f32,
+    bf16 and int8 requant-relu; the requantizing mode through bf16 with
+    ReLU and f32 with leaky ReLU), each launch on the halo path and its
+    whole output `torch.equal` to the plain version."""
+    from tpupose_torch.ops import int8_conv as k2
+
+    b16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    inv_next = torch.tensor([127.0 / 4.0], device="cuda")
+    checked = 0
+    with halo_rule(k2, True):
+        for cin, h, w, cout in HALO_EDGE_SHAPES:
+            for out_dtype, nhwc, requant in [(b16, True, None), (f32, True, None),
+                                             (i8, True, (b16, "relu")), (i8, True, (f32, "leaky")),
+                                             (b16, False, None), (f32, False, None),
+                                             (i8, False, None)]:
+                gain = 120.0 if out_dtype == i8 else 40.0
+                wq, wk, x, _, mul, add = k2_operands(torch, k2, gen, (cin, h, w, cout, 3, 1, 1),
+                                                     HALO_EDGE_BATCH, i8, out_dtype, gain)
+                xi = x.contiguous(memory_format=torch.channels_last)
+                before = k2.halo_launches
+                got = k2.gemm_nhwc_cuda(xi.permute(0, 2, 3, 1), wk, (3, 3), mul, add, out_dtype,
+                                        nhwc_out=nhwc,
+                                        requant=None if requant is None else (*requant, inv_next))
+                if k2.halo_launches != before + 1:
+                    fail(f"K2b halo edge {(cin, h, w, cout)}: not launched on the halo path")
+                if requant is None:
+                    ref = k2.int8_conv_plain(xi, wq, None, mul, add, out_dtype)
+                else:
+                    ref = k2.int8_conv_requant_plain(xi, wq, None, mul, add, *requant, inv_next)
+                if not torch.equal(got, ref):
+                    fail(f"K2b halo edge {(cin, h, w, cout)} -> {out_dtype} nhwc={nhwc} "
+                         f"requant={requant}: {int((got != ref).sum())} outputs differ from "
+                         f"the plain version")
+                checked += 1
+    return {"shapes": [list(sh) for sh in HALO_EDGE_SHAPES], "batch": HALO_EDGE_BATCH,
+            "checked": checked, "max_abs_err": 0.0}
+
+
+def halo_row(timed):
+    """The kernels line's row of K2b's two paths at one of time_k2's 3x3
+    stride-1 shapes: whether the rule takes the halo path there, the halo
+    path's and the per-tap path's ms against the bound, with a bf16 store
+    and requantizing, and the A bytes a block copies a pixel."""
+    return {"shape": timed["shape"], "halo_path": timed["halo_path"],
+            "halo_tile": timed["halo_tile"], "a_bytes_per_pixel": timed["a_bytes_per_pixel"],
+            **{f"{mode}_{f}": timed[mode][f] for mode in ("k2b", "k2b_requant")
+               for f in ("halo_ms", "per_tap_ms", "bound_ms", "bound_by")}}
+
+
 def time_k2(torch, gen, shape, batch):
     """Times of one conv shape at `batch`, bf16 in and out, on a
     channels-last input (the main path's layout): K2 as the main path
@@ -814,6 +897,19 @@ def time_k2(torch, gen, shape, batch):
                           xq, wk, (k, k), mul, add, b16, stride, dil, nhwc_out=True), reps=10),
                       **bound(xq.numel() + wq.numel() + y.numel() * 2 + vectors, ops,
                               H100_INT8_OPS_PER_S)}
+        out["halo_path"] = k2.halo_path(cin, k, k, stride, dil, h, w)
+        # both K2b paths where the halo path can run: 3x3, stride 1
+        paths = {"halo_ms": True, "per_tap_ms": False} if k == 3 and stride == dil == 1 else {}
+        if paths:
+            th_, tw_ = k2.halo_tile(h, w)
+            # A bytes a block copies from L2 into shared memory per output pixel
+            out["a_bytes_per_pixel"] = {"per_tap": k * k * cin,
+                                        "halo": (th_ + 2) * (tw_ + 2) * cin / (th_ * tw_)}
+            out["halo_tile"] = [th_, tw_]
+        for name, take in paths.items():
+            with halo_rule(k2, take):
+                out["k2b"][name] = cuda_time_ms(lambda: k2.gemm_nhwc_cuda(
+                    xq, wk, (k, k), mul, add, b16, stride, dil, nhwc_out=True), reps=10)
         out["design_bytes"] = out["k2a"]["bytes"] + out["k2b"]["bytes"]
         out["design_bound_ms"] = out["design_bytes"] / H100_BYTES_PER_S * 1e3
         # an int8 channels-last input: K2b reads it in place, no K2a
@@ -841,6 +937,11 @@ def time_k2(torch, gen, shape, batch):
             return k2.quantize_nhwc_cuda(epilogue.bias_act_cuda(z, act="relu"), inv_next)
 
         out["k2b_requant"]["three_passes_ms"] = cuda_time_ms(three_passes, reps=10)
+        for name, take in paths.items():
+            with halo_rule(k2, take):
+                out["k2b_requant"][name] = cuda_time_ms(
+                    lambda: k2.int8_conv_requant_cuda(xi, wk, (k, k), None, mul, add, b16,
+                                                      "relu", inv_next, stride, dil), reps=10)
         del xq, xi
     if k2.stem_path(cin, k, k):  # the stems' route before the stem kernel
         out["gather_ms"] = cuda_time_ms(lambda: k2.gather_conv_cuda(
@@ -879,7 +980,7 @@ def phase_k2(torch, gen, card):
              + [(sh, STEM_EDGE_BATCH, STEM_EDGE_BATCH, modes + [(f32, f32), (f32, i8)],
                  120.0) for sh in STEM_EDGE_SHAPES])
     checked, stems, gathered, max_err, stem_err = 0, 0, 0, 0.0, 0.0
-    checked_cl = 0
+    checked_cl, halo0 = 0, k2.halo_launches
     for shape, batch, sub, shape_modes, gain in cases:
         cin, _, _, _, k, stride, dil = shape
         stem = k2.stem_path(cin, k, k)
@@ -928,6 +1029,8 @@ def phase_k2(torch, gen, card):
             stems += stem
             gathered += not (stem or k2.channels_last(cin))
             del x, xc, got, got_cl
+    on_halo_path = k2.halo_launches - halo0
+    edges = halo_edges(torch, gen)
     # the gather kernel reads NCHW only: a channels-last input is refused
     wq, wk, x, inv, mul, add = k2_operands(torch, k2, gen, (8, 12, 10, 16, 3, 1, 1), 2,
                                            b16, b16)
@@ -940,6 +1043,7 @@ def phase_k2(torch, gen, card):
     timed = {name: time_k2(torch, gen, shape, batch)
              for name, shape, batch in (
                  ("hrnet_branch0_3x3_48", BRANCH0, MAIN_CROPS),
+                 ("hrnet_branch1_3x3_96", BRANCH1, MAIN_CROPS),
                  ("hrnet_branch0_packed_3x3_96", BRANCH0_PACKED, MAIN_CROPS),
                  ("yolo_3x3_128_256", (128, 52, 52, 256, 3, 1, 1), MAIN_IMAGES),
                  ("hrnet_stem_3x3_s2_3_64", (3, 384, 288, 64, 3, 2, 1), MAIN_CROPS),
@@ -947,6 +1051,7 @@ def phase_k2(torch, gen, card):
     return {"card": card, "checked": checked, "checked_channels_last": checked_cl,
             "checked_on_stem_kernel": stems,
             "checked_on_gather_path": gathered, "stem_max_abs_err": stem_err,
+            "k2b_launches_on_halo_path": on_halo_path, "halo_edges": edges,
             "k2a": k2a, "batch": {"hrnet_w48": MAIN_CROPS, "yolov3_416": MAIN_IMAGES},
             "compared_images": {"hrnet_w48": 2 * SUB_CROPS, "yolov3_416": 2 * SUB_IMAGES,
                                 "stems": "all"},
@@ -1123,7 +1228,7 @@ def phase_int8_path(torch, card, main):
     th.launches = 0
     k2.launches = 0
     k2.quantize_launches = k2.quantize_cl_launches = 0
-    k2.stem_launches = k2.nhwc_launches = k2.requant_launches = 0
+    k2.stem_launches = k2.nhwc_launches = k2.requant_launches = k2.halo_launches = 0
     lap.launches = 0
     epilogue.launches = 0
     replays = card_replays()
@@ -1137,7 +1242,7 @@ def phase_int8_path(torch, card, main):
     k1_launches, k2_launches, k3_launches = th.launches, k2.launches, lap.launches
     k2a_launches, stem_launches = k2.quantize_launches, k2.stem_launches
     k2a_cl_launches, nhwc_launches = k2.quantize_cl_launches, k2.nhwc_launches
-    requant_launches = k2.requant_launches
+    requant_launches, halo_launches = k2.requant_launches, k2.halo_launches
     epi_launches = epilogue.launches
     check_channels_last(layouts, "int8 clip path")
     if epi_launches != 2 * STEP_LAUNCHES["int8"]["epilogue.launches"]:
@@ -1154,12 +1259,13 @@ def phase_int8_path(torch, card, main):
              f"expected {2 * frames * (1 + views)} in {2 * frames}")
     expect = STEP_LAUNCHES["int8"]
     expect = tuple(2 * expect[f"int8_conv.{k}"] for k in (
-        "launches", "quantize_launches", "stem_launches", "requant_launches"))
+        "launches", "quantize_launches", "stem_launches", "requant_launches", "halo_launches"))
     if k1_launches < 1 or (k2_launches, k2a_launches, stem_launches,
-                           requant_launches) != expect:
+                           requant_launches, halo_launches) != expect:
         fail(f"two int8 clips launched K1 {k1_launches}, K2 {k2_launches}, K2a "
-             f"{k2a_launches}, the stem kernel {stem_launches} and K2b requantizing "
-             f"{requant_launches} times, expected >= 1 and {expect}")
+             f"{k2a_launches}, the stem kernel {stem_launches}, K2b requantizing "
+             f"{requant_launches} and K2b on the halo path {halo_launches} times, expected "
+             f">= 1 and {expect}")
     check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
     layouts_int8 = int8_layouts_equal(torch, pipe, clip)
     both = (mask & mask_bf16)
@@ -1171,7 +1277,8 @@ def phase_int8_path(torch, card, main):
         "k2_launches": k2_launches, "k2_launches_per_clip": k2_launches / 2,
         "quantize_launches": k2a_launches, "quantize_launches_per_clip": k2a_launches / 2,
         "stem_launches": stem_launches, "epilogue_launches": epi_launches,
-        "requant_launches": requant_launches, "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
+        "requant_launches": requant_launches, "halo_launches": halo_launches,
+        "k1_launches": k1_launches, "k3_launches": k3_launches, "clips": 2,
         "graph_replays": replays,
         "quantize_cl_launches": k2a_cl_launches, "nhwc_launches": nhwc_launches,
         "conv_inputs": layouts, "layouts": layouts_int8,
@@ -1371,20 +1478,25 @@ def phase_resident(torch, card, pipe, clip):
 
 
 def phase_staged(torch, card, pipe, clip, frame_ids):
-    """process_frame over the first 4 frames against process_clip on them."""
+    """process_frame over the first 4 frames against process_clip on the
+    same frames, one frame a clip, so that both run stage A on the same
+    batch of views: cuDNN may sum a float conv (YOLOv3's head) in another
+    order at another batch size, and on random weights an exp of such a
+    sum can move a detection by millions."""
     n = 4
     pipe.track_restart()
-    outs_c, dets_c, mask_c = pipe.process_clip(frame_ids[:n], clip[:n])
+    ref = [pipe.process_clip(frame_ids[t:t + 1], clip[t:t + 1]) for t in range(n)]
     pipe.track_restart()
     worst, replays = 0.0, card_replays()
     for t in range(n):
         out, dets, mask = pipe.process_frame(t, clip[t])
-        if not torch.equal(mask, mask_c[t]):
+        outs_c, dets_c, mask_c = ref[t]
+        if not torch.equal(mask, mask_c[0]):
             fail(f"process_frame {t}: masks differ from process_clip")
-        if not torch.equal(out.valid, outs_c.valid[t]):
+        if not torch.equal(out.valid, outs_c.valid[0]):
             fail(f"process_frame {t}: track validity differs from process_clip")
-        err = (dets - dets_c[t]).abs()
-        if bool((err > 2e-2 + 1e-3 * dets_c[t].abs()).any()):
+        err = (dets - dets_c[0]).abs()
+        if bool((err > 2e-2 + 1e-3 * dets_c[0].abs()).any()):
             fail(f"process_frame {t}: detections differ from process_clip by up to "
                  f"{float(err.max())}")
         worst = max(worst, float(err.max()))
@@ -1449,17 +1561,18 @@ def pack_one(torch, pipe, clip, frame_ids, mode):
     pipe.track_restart()
     torch.cuda.synchronize()
     th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
-    k2.requant_launches = epilogue.launches = 0
+    k2.requant_launches = k2.halo_launches = epilogue.launches = 0
     outs_p, dets_p, mask_p = pipe.process_clip(frame_ids, clip)
     torch.cuda.synchronize()
     launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
                 "k2_stem": k2.stem_launches, "k2b_requant": k2.requant_launches,
-                "epilogue": epilogue.launches}
+                "k2b_halo": k2.halo_launches, "epilogue": epilogue.launches}
     expect = STEP_LAUNCHES[mode]
     if tuple(launches.values()) != (
             expect["heatmap.launches"], expect["int8_conv.launches"],
             expect["int8_conv.quantize_launches"], expect["int8_conv.stem_launches"],
-            expect["int8_conv.requant_launches"], expect["epilogue.launches"]):
+            expect["int8_conv.requant_launches"], expect["int8_conv.halo_launches"],
+            expect["epilogue.launches"]):
         fail(f"the packed {mode} clip launched {launches}, expected {expect}")
     if not torch.equal(mask_p, mask_u):
         fail(f"packed {mode} clip: detection masks differ from the unpacked clip")
@@ -1628,12 +1741,18 @@ CLI_HEIGHT, CLI_WIDTH = 720, 1280
 #: 104 basic blocks, 4 bottlenecks' 2 and 12 fuse-chain steps, YOLOv3-416's
 #: 23 residual 1x1s and 3 x 4 conv-set steps (tests/test_torch_int8_requant.py).
 REQUANT_PAIRS = (104 + 4 * 2 + 12) + (23 + 3 * 4)
-#: K1, K2, K2a, K2b-requantizing and conv-epilogue launches per
+#: int8 convs whose K2b launch takes the halo path (`ops.int8_conv.halo_path`,
+#: by shape alone): HRNet-W48's 3x3 stride-1 convs of branches 0 (64) and 1
+#: (64) and layer1 (4), packed branch 0 or not; none of YOLOv3-416's
+#: (tests/test_torch_k2b_halo.py).
+HALO_CONVS = 64 + 64 + 4
+#: K1, K2, K2a, K2b-requantizing, K2b-halo and conv-epilogue launches per
 #: `process_clip` or `process_frame` call (one stage A batch each): one
 #: decode; in int8 the 364 quantized convs of YOLOv3-416 and HRNet-W48, 2 RGB
 #: stems through the stem kernel, REQUANT_PAIRS of them writing the next
 #: conv's int8 input, which then launches no K2a, so 362 - REQUANT_PAIRS
-#: through K2a (phase 6's counts); and one epilogue an engaged call site,
+#: through K2a (phase 6's counts), HALO_CONVS of the 362 K2b launches on the
+#: halo path; and one epilogue an engaged call site,
 #: packed branch 0 or not: in bf16 HRNet's 292 convs of 8k outputs and 15
 #: fuse rows' own branches, YOLOv3's 72 convs with BN; in int8 16 fewer, the
 #: call sites whose only term is a float conv's bias (HRNet's downsample and
@@ -1642,10 +1761,12 @@ REQUANT_PAIRS = (104 + 4 * 2 + 12) + (23 + 3 * 4)
 STEP_LAUNCHES = {
     "bf16": {"heatmap.launches": 1, "int8_conv.launches": 0,
              "int8_conv.quantize_launches": 0, "int8_conv.stem_launches": 0,
-             "int8_conv.requant_launches": 0, "epilogue.launches": 307 + 72},
+             "int8_conv.requant_launches": 0, "int8_conv.halo_launches": 0,
+             "epilogue.launches": 307 + 72},
     "int8": {"heatmap.launches": 1, "int8_conv.launches": 364,
              "int8_conv.quantize_launches": 362 - REQUANT_PAIRS,
              "int8_conv.stem_launches": 2, "int8_conv.requant_launches": REQUANT_PAIRS,
+             "int8_conv.halo_launches": HALO_CONVS,
              "epilogue.launches": 291 + 72 - REQUANT_PAIRS},
 }
 
@@ -1889,7 +2010,8 @@ def phase_cli_path(torch, card):
     from tpupose_torch.ops import int8_conv as k2
 
     counters = [(th, "launches"), (k2, "launches"), (k2, "quantize_launches"),
-                (k2, "stem_launches"), (k2, "requant_launches"), (epilogue, "launches")]
+                (k2, "stem_launches"), (k2, "requant_launches"), (k2, "halo_launches"),
+                (epilogue, "launches")]
     out = {"card": card, "config": "configs/Shelf/model_configs.yaml with MAX_CANDIDATES 4: "
            "YOLOv3-416 + HRNet-W48 384x288 from .weights / .pth, BN folded, bf16; "
            f"{CLI_FRAMES} frames x 5 views x {CLI_HEIGHT}x{CLI_WIDTH} uint8, --clip {CLI_CLIP}"}
@@ -2428,16 +2550,18 @@ def phase_int8_qat(torch, card, models, clip, frame_ids):
     pipe.process_clip(frame_ids, clip)  # warm-up
     torch.cuda.synchronize()
     th.launches = k2.launches = k2.quantize_launches = k2.requant_launches = 0
+    k2.halo_launches = 0
     t0 = time.perf_counter()
     outs, dets, mask = pipe.process_clip(frame_ids, clip)
     torch.cuda.synchronize()
     clip_ms = (time.perf_counter() - t0) * 1e3
     launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
-                "k2b_requant": k2.requant_launches}
+                "k2b_requant": k2.requant_launches, "k2b_halo": k2.halo_launches}
     expect = STEP_LAUNCHES["int8"]
     expect = {"k1": 1, "k2": expect["int8_conv.launches"],
               "k2a": expect["int8_conv.quantize_launches"],
-              "k2b_requant": expect["int8_conv.requant_launches"]}
+              "k2b_requant": expect["int8_conv.requant_launches"],
+              "k2b_halo": expect["int8_conv.halo_launches"]}
     if launches != expect:
         fail(f"the int8 clip after distill-QAT launched {launches}, expected {expect}")
     check_clip_outputs(torch, outs, dets, mask, clip.shape[0], clip.shape[1], tcfg)
@@ -3858,6 +3982,7 @@ def multistream_clip(torch, float_models):
                      "k2a": n_chunks * c["int8_conv.quantize_launches"],
                      "k2_stem": n_chunks * c["int8_conv.stem_launches"],
                      "k2b_requant": n_chunks * c["int8_conv.requant_launches"],
+                     "k2b_halo": n_chunks * c["int8_conv.halo_launches"],
                      "epilogue": n_chunks * c["epilogue.launches"],
                      "k3": f * (1 + views)} for mode, c in STEP_LAUNCHES.items()}
     inner = throughput._clip_detections
@@ -3878,7 +4003,7 @@ def multistream_clip(torch, float_models):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             th.launches = k2.launches = k2.quantize_launches = k2.stem_launches = 0
-            k2.requant_launches = lap.launches = epilogue.launches = 0
+            k2.requant_launches = k2.halo_launches = lap.launches = epilogue.launches = 0
             before = set(card_steps())
             with counted_syncs() as counted, nchw_conv_inputs(torch, det_m, pose_m) as layouts:
                 states, outs = fn(det_m, pose_m, broadcast_cameras(cams, s),
@@ -3889,7 +4014,8 @@ def multistream_clip(torch, float_models):
         check_channels_last(layouts, f"multistream clip ({mode})")
         launches = {"k1": th.launches, "k2": k2.launches, "k2a": k2.quantize_launches,
                     "k2_stem": k2.stem_launches, "k2b_requant": k2.requant_launches,
-                    "epilogue": epilogue.launches, "k3": lap.launches}
+                    "k2b_halo": k2.halo_launches, "epilogue": epilogue.launches,
+                    "k3": lap.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
         # a graph captured in this run ran its warm-up's K3 launches too
         warmup = graph_k3_warmups(before)
@@ -4870,6 +4996,14 @@ def main():
         "cli_launches": {m: c["int8_conv.launches"] for m, c in cli_launches.items()},
         "learned_int8_launches": train["e"]["int8_launches"]["k2"],
         "multistream_launches": {m: c["k2"] for m, c in ms_launches.items()},
+        "halo": {
+            "launches": int8["halo_launches"],
+            "cli_launches": {m: c["int8_conv.halo_launches"] for m, c in cli_launches.items()},
+            "multistream_launches": {m: c["k2b_halo"] for m, c in ms_launches.items()},
+            "checked_launches": k2["k2b_launches_on_halo_path"],
+            "edges_checked": k2["halo_edges"]["checked"],
+            "rows": {name: halo_row(k2["timed"][name]) for name in (
+                "hrnet_branch0_3x3_48", "hrnet_branch1_3x3_96", "yolo_3x3_128_256")}},
     }, {
         "name": "int8_stem", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",

@@ -1,5 +1,5 @@
-"""Step-by-step CPU emulations of two CUDA kernels' order of operations, held
-against the plain versions and the JAX package.
+"""Step-by-step CPU emulations of three CUDA kernels' order of operations,
+held against the plain versions and the JAX package.
 
 * K3, the batched masked LAP (`tpupose_torch/csrc/lap.cu`): the argmin as
   two warp minimum reductions, first over an order-preserving integer key
@@ -21,8 +21,14 @@ against the plain versions and the JAX package.
   row's (w, ci) elements from a 16-byte chunk boundary, K positions at
   r * halo_stride + c * Cin + ci from their pixel) held equal to the plain
   version on the channels-last input, its result channels-last.
+* K2b's halo path (`tpupose_torch/csrc/int8_conv.cu`, `HALO`): block by
+  block of `halo_tile` output pixels, the zero-filled input halo in the
+  kernel's padded layout, each GEMM row's ldmatrix address plus its K
+  chunk's offset from the kernel's table, against `pack_weight`'s rows;
+  every ldmatrix phase on eight distinct bank groups. Held equal to
+  `int8_conv_plain` and to the JAX package's `_int8_conv`.
 
-Tolerances: none. Both kernels are exact by design (the same f32
+Tolerances: none. The kernels are exact by design (the same f32
 operations in the same order; int32 sums of int8 products).
 """
 import functools
@@ -316,3 +322,95 @@ def test_stem_tile_covers_the_main_path_stems():
         rows, cols = tk.stem_tile(ho, wo)
         assert cols % 16 == 0 and 16 <= cols <= 512 and 1 <= rows <= ho
         assert -(-wo // cols) * cols - wo < 16 * -(-wo // 512)  # runs of near-equal width
+
+
+def _k2b_halo_emulation(xq, wk, mul, add, out_dtype):
+    """K2b's halo path on the (N, H, W, Cin) int8 operand, block by block:
+    the th x tw patch from `halo_tile`, its zero-filled input halo laid out
+    as the kernel lays it (`halo_layout`: an odd number of 16-byte chunks a
+    pixel, a row pitch equal to tw pixels' modulo 8; spare chunks hold
+    garbage), each GEMM row's ldmatrix address (a row past th * tw reads
+    the row th * tw before it) plus its K chunk's offset from the kernel's
+    table (tap (r, c) and 16-channel group q of chunk j; a chunk past K at
+    offset 0), the int32 sums against `pack_weight`'s rows, then the
+    epilogue's arithmetic. Also checks that every ldmatrix phase of eight
+    rows in the patch reads eight distinct 16-byte bank groups."""
+    n, h, w, cin = xq.shape
+    cout = mul.shape[0]
+    th, tw = tk.halo_tile(h, w)
+    assert th * tw <= tk.GEMM_ROWS
+    cpc = cin // 16
+    pix, pitch = tk.halo_layout(cin, tw)
+    kpad = wk.shape[1]
+    steps = -(-9 * cin // 64)
+    nchunks = 4 * steps
+    # the kernel's table: chunk j's offset from its row's address
+    k_off = torch.zeros(nchunks, dtype=torch.long)
+    for j in range(nchunks):
+        tap = j // cpc
+        r = tap // 3
+        k_off[j] = 16 * (r * pitch + (tap - 3 * r) * pix + j - tap * cpc) if r < 3 else 0
+    rows = torch.arange(tk.GEMM_ROWS) % (th * tw)
+    a_row = 16 * (rows // tw * pitch + rows % tw * pix)
+    in_patch = torch.arange(tk.GEMM_ROWS) < th * tw
+    for j in range(nchunks):  # ldmatrix phases: 8 consecutive rows at one chunk
+        banks = ((a_row + k_off[j]) // 16 % 8).reshape(-1, 8)[in_patch.reshape(-1, 8).all(1)]
+        assert all(len(set(b.tolist())) == 8 for b in banks)
+    b = torch.zeros((wk.shape[0], 16 * nchunks), dtype=torch.float64)
+    b[:, :kpad] = wk.to(torch.float64)  # zero-filled past kpad
+    flat = xq.reshape(n, h, w * cin)
+    tiles_h, tiles_w = -(-h // th), -(-w // tw)
+    out = torch.empty((n, h, w, cout), dtype=out_dtype)
+    for img in range(n):
+        for ty in range(tiles_h):
+            for tx in range(tiles_w):
+                oy0, ox0 = ty * th, tx * tw
+                halo = torch.full(((th + 2) * pitch * 16,), 0x5A, dtype=torch.int8)
+                ch = torch.arange((tw + 2) * cpc)
+                dst = 16 * (ch // cpc * pix + ch % cpc)
+                gc = (ox0 - 1) * cpc + ch
+                for hr in range(th + 2):
+                    ih = oy0 - 1 + hr
+                    ok = (gc >= 0) & (gc < w * cpc) & (0 <= ih < h)
+                    src = flat[img, min(max(ih, 0), h - 1)].reshape(-1, 16)[gc.clamp(0, w * cpc - 1)]
+                    chunk = torch.where(ok[:, None], src, torch.zeros_like(src))
+                    idx = hr * pitch * 16 + dst[:, None] + torch.arange(16)
+                    halo[idx.reshape(-1)] = chunk.reshape(-1)
+                addr = a_row[:, None, None] + k_off[None, :, None] + torch.arange(16)
+                a = halo[addr].reshape(tk.GEMM_ROWS, -1).to(torch.float64)
+                acc = (a @ b.T).to(torch.int32)[:, :cout]  # rows past Cout: weights 0
+                y = tk.epilogue(acc.T[:, :, None], mul, add, out_dtype)[:, :, 0].T
+                for row in range(th * tw):
+                    oy, ox = oy0 + row // tw, ox0 + row % tw
+                    if oy < h and ox < w:
+                        out[img, oy, ox] = y[row]
+    return out.permute(0, 3, 1, 2)
+
+
+#: (cin, cout, h, w, n): HRNet-W48 branch 0, branch 1 and layer1, YOLOv3's
+#: 128->256 at 52x52, Cin 16 and 256, an image smaller than a patch, and
+#: H, W that no patch divides
+HALO_CASES = [(48, 48, 96, 72, 2), (96, 96, 48, 36, 1), (64, 64, 96, 72, 1),
+              (128, 256, 52, 52, 1), (16, 24, 20, 30, 2), (256, 40, 13, 13, 1),
+              (32, 16, 5, 3, 2), (48, 80, 37, 23, 1)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,n", HALO_CASES)
+def test_k2b_halo_emulation_equals_plain_and_jax(cin, cout, h, w, n):
+    rng = np.random.default_rng(cin * 1000 + h * 10 + w)
+    wq = torch.as_tensor(rng.integers(-127, 128, size=(cout, cin, 3, 3)).astype(np.int8))
+    xq = torch.as_tensor(rng.integers(-127, 128, size=(n, h, w, cin)).astype(np.int8))
+    x = xq.permute(0, 3, 1, 2)  # the channels-last int8 activation K2b reads in place
+    out_dtype = (torch.bfloat16, torch.int8, torch.float32)[(cin + h) % 3]
+    acc_std = 73.3 * 73.3 * (9 * cin) ** 0.5
+    mul = torch.as_tensor(rng.uniform(0.5, 1.5, size=cout).astype(np.float32)) / acc_std
+    add = torch.as_tensor(rng.standard_normal(cout).astype(np.float32))
+    if out_dtype == torch.int8:
+        mul, add = mul * 40, add * 10
+    got = _k2b_halo_emulation(xq, tk.pack_weight(wq), mul, add, out_dtype)
+    assert torch.equal(got, tk.int8_conv_plain(x, wq, None, mul, add, out_dtype))
+    # the int32 sums against the JAX package's conv of the same codes
+    acc_j = np.array(jq._int8_conv(jnp.asarray(xq.numpy()),
+                                     jnp.asarray(wq.permute(2, 3, 1, 0).numpy())))
+    ref = tk.epilogue(torch.as_tensor(acc_j).permute(0, 3, 1, 2), mul, add, out_dtype)
+    assert torch.equal(got, ref)

@@ -103,6 +103,40 @@
 //   down to 0.21 GB); the next conv reads it in place, as it reads the
 //   int8-resident blocks' tensors. The int8-resident blocks' requant-relu
 //   (above) is other arithmetic, the JAX package's, and stays apart.
+//   Halo path (the wrapper's `halo_path`: 3 x 3, stride 1, dilation 1, at
+//   least 6 K steps, where `halo_tile`'s patches fill at least 0.95 of
+//   their GEMM rows and a block's shared memory leaves 4 blocks an SM;
+//   HRNet-W48's branches 0 and 1 and layer1: 132 of a stage-A batch's 362
+//   K2b launches, none of YOLOv3-416's). The per-tap loads above copy each
+//   input byte from L2 into shared memory once a tap, 9 x Cp bytes a
+//   pixel, each 16-byte copy half a 32-byte sector at Cp 48. On this path
+//   a block's 128 GEMM rows are a th x tw patch of one image's output (16 x
+//   8 at 96 x 72), whose input halo, (th + 2) x (tw + 2) pixels of all Cp
+//   channels, it copies into shared memory once, along contiguous input
+//   rows, with B's first stage; every tap's A fragments are `ldmatrix` rows
+//   at shifted addresses in it (a K chunk's offset from a table, the same
+//   for every row). At branch 0 that is 1.41 x 48 bytes a pixel where the
+//   per-tap path moved 9 x 48. Halo pixels take an odd number of 16-byte
+//   chunks and halo rows a pitch that equals tw pixels' modulo 8, so an
+//   `ldmatrix` phase's eight consecutive pixels meet no bank conflict at
+//   any Cp; the wrapper lays the halo out (`Halo`) and the kernel takes it.
+//   B, its ring, the mma and the epilogues are the per-tap path's; the
+//   sums are exact in any order, so the two paths are bit-equal.
+//   Measured on an H100 80GB HBM3 at 700 W, per-tap -> halo, bf16 store /
+//   requantizing: HRNet branch 0 (640 crops) 0.795 -> 0.681 / 0.807 ->
+//   0.666 ms; branch 1 0.556 -> 0.514 / 0.566 -> 0.520; layer1 0.787 ->
+//   0.781 / 0.823 -> 0.782. What bounds the engaged convs now is neither
+//   bytes (0.19 ms at branch 0) nor the tensor cores: with no mma it takes
+//   no less, with no copy of the halo at all 0.61 ms, without the B loads
+//   0.64, without the stores 0.53. Persistent blocks that load the next
+//   patch's halo into a second buffer while one computes, 256-row blocks,
+//   deeper B rings (6, 8 stages) and 5 blocks an SM were no faster. The
+//   rule declines where the halo path measured slower with a bf16 store:
+//   patches that waste more than a twentieth of their rows (YOLOv3's 64 ->
+//   128 at 104 x 104, fill 0.94, +2%; 128 -> 256 at 52 x 52, 0.88, +3.5%;
+//   branches 2 and 3, 0.84), a K of 5 steps (YOLOv3's 32 -> 64 at 208 x
+//   208, +2.6%: the halo lands whole before the first step) and a block of
+//   62 KB (3 an SM: YOLOv3's 256 -> 512 at 26 x 26, +6%).
 //   Left for later: `wgmma` with TMA; a 48-wide N tile for branch 0, whose
 //   Cout of 48 wastes a quarter of a 64-wide tile.
 //
@@ -729,14 +763,41 @@ __device__ __forceinline__ void locate(long long img0, int p0, int r, int hw,
   }
 }
 
-// Dynamic shared memory: the cp.async ring, reused by the epilogue's
-// output tile (NCHW: kGN rows of kGM outputs; NHWC: kGM rows of kGN
-// outputs; each row padded by 16 bytes).
+// Dynamic shared memory of the per-tap path: the cp.async ring, reused by
+// the epilogue's output tile (NCHW: kGN rows of kGM outputs; NHWC: kGM rows
+// of kGN outputs; each row padded by 16 bytes).
+template <int OUT, bool NHWC>
+constexpr int gemm_tile_smem() {
+  constexpr int size = static_cast<int>(sizeof(typename Out<OUT>::T));
+  return NHWC ? kGM * (kGN * size + 16) : kGN * (kGM * size + 16);
+}
 template <int OUT, bool NHWC>
 constexpr int gemm_smem() {
   constexpr int pipe = kStages * (kGM + kGN) * kGK;
-  constexpr int size = static_cast<int>(sizeof(typename Out<OUT>::T));
-  constexpr int tile = NHWC ? kGM * (kGN * size + 16) : kGN * (kGM * size + 16);
+  constexpr int tile = gemm_tile_smem<OUT, NHWC>();
+  return pipe > tile ? pipe : tile;
+}
+
+// The halo path's patch and its halo's layout in shared memory, as the
+// wrapper's `halo_tile` and `halo_layout` (ops/int8_conv.py) choose them:
+// th x tw output patches; a halo pixel of `pix` 16-byte chunks (an odd
+// number, at least Cp/16), a halo row of tw + kw - 1 pixels a pitch of
+// `row` chunks, equal to tw pixels' modulo 8, so that the eight GEMM rows
+// of an `ldmatrix` phase, consecutive pixels of the patch, also where they
+// wrap to its next row, fall on eight distinct 16-byte bank groups; the
+// halo's th + kh - 1 rows take `bytes`, a multiple of 128. th == 0: the
+// per-tap path.
+struct Halo {
+  int th, tw, pix, row, bytes;
+};
+
+// Dynamic shared memory of the halo path: the halo, the B ring and the K
+// chunks' offsets, or the epilogue's output tile where that is larger.
+template <int OUT, bool NHWC>
+int halo_smem(const Shape& s, const Halo& hl) {
+  const int steps = (s.k + kGK - 1) / kGK;
+  const int pipe = hl.bytes + kStages * kGN * kGK + steps * (kGK / 16) * 4;
+  constexpr int tile = gemm_tile_smem<OUT, NHWC>();
   return pipe > tile ? pipe : tile;
 }
 
@@ -747,19 +808,30 @@ constexpr int gemm_smem() {
 // MID != kNoMid (NHWC int8 output only): the requantizing mode with
 // activation ACT and the next conv's 1 / x_scale at `inv_next`; the loads,
 // the mma pipeline and the stores are the same.
-template <int OUT, bool NHWC, int MID, int ACT>
+// HALO, the halo path (stride 1, dilation 1, an output as large as the
+// input; the patch and layout `hl` from the wrapper): the block's 128 GEMM
+// rows are a th x tw patch of one image's output (row i is pixel
+// (i / tw, i % tw); rows past th*tw compute and store nothing), and A
+// comes from that patch's input halo, copied into shared memory once, all
+// its channels, in place of one cp.async a tap and a pixel. Only the source of the A fragments and the
+// pixel of each output row differ; B's ring, the mma pipeline and the
+// epilogues are the per-tap path's.
+template <int OUT, bool NHWC, int MID, int ACT, bool HALO>
 __global__ void __launch_bounds__(kGThreads, 4)
 int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
                       const float* __restrict__ mul, const float* __restrict__ add,
                       void* __restrict__ y, const Shape s,
-                      const float* __restrict__ inv_next_p) {
+                      const float* __restrict__ inv_next_p, const Halo hl) {
   static_assert(MID == kNoMid || (OUT == kI8 && NHWC), "requantizing is NHWC int8 only");
   using O = typename Out<OUT>::T;
   constexpr int kAPass = kGM / kGRows, kBPass = kGN / kGRows;
   constexpr int kAStage = kGM * kGK, kBStage = kGN * kGK;
   extern __shared__ __align__(128) int8_t smem[];
+  // per-tap: the ring's A stages, then its B stages; halo: the halo, then
+  // the B stages
   int8_t* const a_s = smem;
-  int8_t* const b_s = smem + kStages * kAStage;
+  int8_t* const b_s = smem + (HALO ? hl.bytes : kStages * kAStage);
+  const int th = hl.th, tw = hl.tw;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -768,34 +840,55 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
   const int n_tiles = (s.cout + kGN - 1) / kGN;
   // Consecutive blocks share their pixels and walk the channel tiles, so
   // the A rows they read come from L2.
-  const long long m0 = static_cast<long long>(blockIdx.x / n_tiles) * kGM;
+  const int mt = static_cast<int>(blockIdx.x / n_tiles);
   const int n0 = static_cast<int>(blockIdx.x % n_tiles) * kGN;
   const int hw_out = s.ho * s.wo;
   const long long m_total = static_cast<long long>(s.n) * hw_out;
-  const long long img0 = m0 / hw_out;  // the block's one 64-bit division
+  // per-tap: rows m0 .. m0 + 127 of the (N, Ho, Wo) pixels
+  const long long m0 = static_cast<long long>(mt) * kGM;
+  const long long img0 = HALO ? 0 : m0 / hw_out;  // the block's one 64-bit division
   const int p0 = static_cast<int>(m0 - img0 * hw_out);
+  // halo: the patch (oy0.., ox0..) of image img, tiles in row-major order
+  long long img = 0;
+  int oy0 = 0, ox0 = 0;
+  if constexpr (HALO) {
+    const int tiles_w = (s.wo + tw - 1) / tw;
+    const int per_img = (s.ho + th - 1) / th * tiles_w;
+    img = mt / per_img;
+    const int tile = mt - static_cast<int>(img) * per_img;
+    const int ty = tile / tiles_w;
+    oy0 = ty * th;
+    ox0 = (tile - ty * tiles_w) * tw;
+  }
+  const int cpc = s.cin >> 4;                       // 16-byte chunks of a pixel
+  const int pix_chunks = hl.pix;     // of a halo pixel
+  const int row_pitch = hl.row;      // of a halo row
+  const int halo_w = tw + s.kw - 1;  // pixels of a halo row
 
-  // This thread copies segment `seg` (16 K bytes) of rows row0 + i*kGRows.
+  // Per-tap: this thread copies segment `seg` (16 K bytes) of rows
+  // row0 + i*kGRows.
   const int seg = tid & 3, row0 = tid >> 2;
   long long a_pix[kAPass];
   int a_ih[kAPass], a_iw[kAPass];
+  if constexpr (!HALO) {
 #pragma unroll
-  for (int i = 0; i < kAPass; ++i) {
-    const long long m = m0 + row0 + i * kGRows;
-    a_pix[i] = 0;
-    a_ih[i] = -(1 << 29);  // fails every bounds check: a pixel past M
-    a_iw[i] = 0;
-    if (m < m_total) {
-      long long img;
-      int p;
-      locate(img0, p0, row0 + i * kGRows, hw_out, img, p);
-      const int oh = p / s.wo, ow = p - oh * s.wo;
-      a_ih[i] = oh * s.stride - s.pad_h;
-      a_iw[i] = ow * s.stride - s.pad_w;
-      a_pix[i] = ((img * s.h + a_ih[i]) * s.w + a_iw[i]) * s.cin;
+    for (int i = 0; i < kAPass; ++i) {
+      const long long m = m0 + row0 + i * kGRows;
+      a_pix[i] = 0;
+      a_ih[i] = -(1 << 29);  // fails every bounds check: a pixel past M
+      a_iw[i] = 0;
+      if (m < m_total) {
+        long long im;
+        int p;
+        locate(img0, p0, row0 + i * kGRows, hw_out, im, p);
+        const int oh = p / s.wo, ow = p - oh * s.wo;
+        a_ih[i] = oh * s.stride - s.pad_h;
+        a_iw[i] = ow * s.stride - s.pad_w;
+        a_pix[i] = ((im * s.h + a_ih[i]) * s.w + a_iw[i]) * s.cin;
+      }
     }
   }
-  // K position of this thread's segment: tap (kr, kc), channel kci.
+  // Per-tap: K position of this thread's segment: tap (kr, kc), channel kci.
   int kr = 0, kc = 0, kci = seg * 16;
   auto settle = [&]() {
     while (kci >= s.cin) {
@@ -803,9 +896,9 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
       if (++kc == s.kw) { kc = 0; ++kr; }
     }
   };
-  settle();
+  if constexpr (!HALO) settle();
 
-  auto load_stage = [&](int slot, int step) {
+  auto load_a = [&](int slot) {
     const bool k_ok = kr < s.kh;
     const int dh = kr * s.dil, dw = kc * s.dil;
     const int tap = (dh * s.w + dw) * s.cin + kci;
@@ -819,6 +912,41 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
     }
     kci += kGK;
     settle();
+  };
+
+  // Halo: the patch's input rows oy0 - ph .. and columns ox0 - pw .., all
+  // channels, one warp a row; a halo row is halo_w * Cp consecutive bytes
+  // of the input, copied as 16-byte chunks (hc, q) of pixel hc, zero-filled
+  // outside the image. A pixel's spare chunk (Cp/16 even) stays unwritten
+  // and unread.
+  auto load_halo = [&]() {
+    const int row_chunks = halo_w * cpc;
+    const int col0 = (ox0 - s.pad_w) * cpc;  // the input chunk of a row's first
+    const int w_chunks = s.w * cpc;
+    const int dhc = 32 / cpc, dq = 32 - dhc * cpc;  // (hc, q) of ch + 32 from ch's
+    const int hc0 = lane / cpc, q0 = lane - hc0 * cpc;  // of ch = lane
+    const uint32_t dst = smem_addr(a_s);
+    for (int hr = warp; hr < th + s.kh - 1; hr += kGThreads / 32) {
+      const int ih = oy0 - s.pad_h + hr;
+      const bool row_ok = static_cast<unsigned>(ih) < static_cast<unsigned>(s.h);
+      const long long src = (img * s.h + ih) * static_cast<long long>(s.w) * s.cin;
+      int hc = hc0, q = q0;
+      for (int ch = lane; ch < row_chunks; ch += 32) {
+        const int gc = col0 + ch;
+        const bool ok = row_ok && gc >= 0 && gc < w_chunks;
+        cp_async16(dst + 16 * (hr * row_pitch + hc * pix_chunks + q),
+                   ok ? xq + (src + 16LL * gc) : xq, ok);
+        hc += dhc;
+        q += dq;
+        if (q >= cpc) {
+          q -= cpc;
+          ++hc;
+        }
+      }
+    }
+  };
+
+  auto load_b = [&](int slot, int step) {
     const int kb = step * kGK + seg * 16;
     const uint32_t b_dst = smem_addr(b_s + slot * kBStage);
 #pragma unroll
@@ -830,6 +958,29 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
     }
   };
 
+  // Halo: the A row address of this lane's ldmatrix rows (wm*64 + mi*16 +
+  // (lane & 15)) at tap (0, 0); a row past th*tw, which stores nothing,
+  // reads the row th*tw before it. The offset of K chunk j from a row's
+  // address, tap (r, c) and 16-channel group q of j = (r*kw + c)*Cp/16 + q,
+  // sits in a table after the B ring, one entry a chunk of the K steps; a
+  // chunk past K meets zero weight rows and reads the row's own chunk 0.
+  int a_row[4];
+  int* const k_off = reinterpret_cast<int*>(b_s + kStages * kBStage);
+  const int steps = (s.k + kGK - 1) / kGK;
+  if constexpr (HALO) {
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      const int row = (wm * 64 + mi * 16 + (lane & 15)) % (th * tw);
+      const int ly = row / tw;
+      a_row[mi] = 16 * (ly * row_pitch + (row - ly * tw) * pix_chunks);
+    }
+    for (int j = tid; j < steps * (kGK / 16); j += kGThreads) {
+      const int tap = j / cpc, r = tap / s.kw;
+      k_off[j] = r < s.kh ? 16 * (r * row_pitch + (tap - r * s.kw) * pix_chunks + j - tap * cpc)
+                          : 0;
+    }
+  }
+
   int acc[4][4][4];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
@@ -838,16 +989,24 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
 
-  auto compute = [&](int slot) {
-    const uint32_t a_base = smem_addr(a_s + slot * kAStage);
+  auto compute = [&](int step) {
+    const int slot = step % kStages;
+    const uint32_t a_base = smem_addr(HALO ? a_s : a_s + slot * kAStage);
     const uint32_t b_base = smem_addr(b_s + slot * kBStage);
 #pragma unroll
     for (int kk = 0; kk < kGK / 32; ++kk) {
       uint32_t af[4][4], bf[4][2];
+      if constexpr (HALO) {
+        // this lane's chunk: 4*step + 2*kk + (lane >> 4)
+        const uint32_t a_k = a_base + k_off[step * (kGK / 16) + 2 * kk + (lane >> 4)];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], a_base + swizzle(wm * 64 + mi * 16 + (lane & 15),
-                                             2 * kk + (lane >> 4)));
+        for (int mi = 0; mi < 4; ++mi) ldmatrix_x4(af[mi], a_k + a_row[mi]);
+      } else {
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+          ldmatrix_x4(af[mi], a_base + swizzle(wm * 64 + mi * 16 + (lane & 15),
+                                               2 * kk + (lane >> 4)));
+      }
 #pragma unroll
       for (int pair = 0; pair < 2; ++pair) {
         uint32_t r[4];
@@ -865,22 +1024,42 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
     }
   };
 
-  const int steps = (s.k + kGK - 1) / kGK;
+  // the halo lands with B's first stage, in the ring's first group (the
+  // first wait's __syncthreads also publishes the K table)
+  if constexpr (HALO) load_halo();
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < steps) load_stage(st, st);
+    if (st < steps) {
+      if constexpr (!HALO) load_a(st);
+      load_b(st, st);
+    }
     cp_async_commit();
   }
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // stage `step` has landed; stage step-1 is consumed
     const int next = step + kStages - 1;
-    if (next < steps) load_stage(next % kStages, next);
+    if (next < steps) {
+      if constexpr (!HALO) load_a(next % kStages);
+      load_b(next % kStages, next);
+    }
     cp_async_commit();
-    compute(step % kStages);
+    compute(step);
   }
   cp_async_wait<0>();
   __syncthreads();
+
+  // The output pixel of tile row `row`, as its index in (N, Ho, Wo), or -1
+  // where the row stores nothing.
+  auto pixel = [&](int row) -> long long {
+    if constexpr (HALO) {
+      const int ly = row / tw, oy = oy0 + ly, ox = ox0 + row - ly * tw;
+      if (row >= th * tw || oy >= s.ho || ox >= s.wo) return -1;
+      return (img * s.ho + oy) * s.wo + ox;
+    } else {
+      return m0 + row < m_total ? m0 + row : -1;
+    }
+  };
 
   int8_t* const o_s = smem;
   const bool has_add = add != nullptr;
@@ -923,8 +1102,9 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
     O* const out = static_cast<O*>(y);
     for (int e = tid; e < kGM * kRunsN; e += kGThreads) {
       const int row = e / kRunsN, c0 = (e % kRunsN) * E;
-      const long long m = m0 + row;
-      if (c0 >= cols || m >= m_total) continue;
+      if (c0 >= cols) continue;
+      const long long m = pixel(row);
+      if (m < 0) continue;
       const long long o = m * s.cout + n0 + c0;
       const int8_t* src = o_s + row * kORowN + c0 * static_cast<int>(sizeof(O));
       if (c0 + E <= cols && o % E == 0) {
@@ -961,68 +1141,126 @@ int8_conv_nhwc_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
   __syncthreads();
 
   // Store: each channel row of the tile as 16-byte runs of E consecutive
-  // pixels; a run that crosses an image or is misaligned stores scalars.
+  // pixels; a run that crosses an image (per-tap) or leaves a patch row or
+  // the image (halo), or is misaligned, stores scalars.
   constexpr int E = 16 / static_cast<int>(sizeof(O));
   constexpr int kRuns = kGM / E;
   const int rows = min(kGN, s.cout - n0);
   O* const out = static_cast<O*>(y);
   for (int e = tid; e < rows * kRuns; e += kGThreads) {
     const int col = e / kRuns, run = e % kRuns;
-    if (m0 + run * E >= m_total) continue;
-    long long img;
-    int p;
-    locate(img0, p0, run * E, hw_out, img, p);
-    const int co = n0 + col;
-    const long long o = (img * s.cout + co) * hw_out + p;
     const int8_t* src = o_s + col * kORow + run * 16;
-    if (p + E <= hw_out && o % E == 0) {
-      *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(src);
-    } else {
+    if constexpr (HALO) {
+      // pixel m of channel co sits at (img*Cout + co)*HoWo + m - img*HoWo
+      const long long base = (img * (s.cout - 1) + n0 + col) * static_cast<long long>(hw_out);
+      const long long m = pixel(run * E);
+      // the E rows are E consecutive pixels of the plane where the last is
+      // E - 1 past the first (the end of a patch row jumps further)
+      if (m >= 0 && pixel(run * E + E - 1) == m + E - 1 && (base + m) % E == 0) {
+        *reinterpret_cast<uint4*>(out + base + m) = *reinterpret_cast<const uint4*>(src);
+      } else {
 #pragma unroll
-      for (int i = 0; i < E; ++i) {
-        if (m0 + run * E + i >= m_total) break;
-        locate(img0, p0, run * E + i, hw_out, img, p);
-        out[(img * s.cout + co) * hw_out + p] = reinterpret_cast<const O*>(src)[i];
+        for (int i = 0; i < E; ++i) {
+          const long long mi = pixel(run * E + i);
+          if (mi >= 0) out[base + mi] = reinterpret_cast<const O*>(src)[i];
+        }
+      }
+    } else {
+      if (m0 + run * E >= m_total) continue;
+      long long im;
+      int p;
+      locate(img0, p0, run * E, hw_out, im, p);
+      const int co = n0 + col;
+      const long long o = (im * s.cout + co) * hw_out + p;
+      if (p + E <= hw_out && o % E == 0) {
+        *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          if (m0 + run * E + i >= m_total) break;
+          locate(img0, p0, run * E + i, hw_out, im, p);
+          out[(im * s.cout + co) * hw_out + p] = reinterpret_cast<const O*>(src)[i];
+        }
       }
     }
   }
 }
 
-template <int OUT, bool NHWC, int MID = kNoMid, int ACT = kActNone>
-int launch_gemm(const int8_t* xq, const int8_t* wk, const float* mul,
-                const float* add, void* y, const Shape& s, cudaStream_t stream,
-                const float* inv_next = nullptr) {
-  constexpr int kSmem = gemm_smem<OUT, NHWC>();
-  // More would need cudaFuncSetAttribute(MaxDynamicSharedMemorySize) first.
-  static_assert(kSmem <= 48 * 1024, "K2b's shared memory passes the default 48 KB");
-  const long long m_tiles = (static_cast<long long>(s.n) * s.ho * s.wo + kGM - 1) / kGM;
+// A halo the kernel takes: none (all zero), or th x tw patches of at most
+// kGM pixels on a stride-1, undilated conv whose output is its input's
+// size, in a layout whose pixels, rows and bytes hold what the kernel
+// copies and reads.
+inline bool halo_ok(const Shape& s, const Halo& hl) {
+  if (hl.th == 0) return hl.tw == 0 && hl.pix == 0 && hl.row == 0 && hl.bytes == 0;
+  return hl.th > 0 && hl.tw > 0 && hl.th * hl.tw <= kGM && s.stride == 1 && s.dil == 1 &&
+         s.ho == s.h && s.wo == s.w && 2 * s.pad_h == s.kh - 1 && 2 * s.pad_w == s.kw - 1 &&
+         16 * hl.pix >= s.cin && hl.row >= (hl.tw + s.kw - 1) * hl.pix &&
+         hl.bytes % 128 == 0 && hl.bytes >= (hl.th + s.kh - 1) * hl.row * 16;
+}
+
+template <int OUT, bool NHWC, int MID, int ACT, bool HALO>
+int launch_gemm_path(const int8_t* xq, const int8_t* wk, const float* mul, const float* add,
+                     void* y, const Shape& s, cudaStream_t stream, const float* inv_next,
+                     const Halo& hl) {
+  auto kernel = int8_conv_nhwc_kernel<OUT, NHWC, MID, ACT, HALO>;
+  long long m_tiles;
+  int smem;
+  if constexpr (HALO) {
+    m_tiles = static_cast<long long>(s.n) * ((s.ho + hl.th - 1) / hl.th) *
+              ((s.wo + hl.tw - 1) / hl.tw);
+    smem = halo_smem<OUT, NHWC>(s, hl);
+    if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  } else {
+    constexpr int kSmem = gemm_smem<OUT, NHWC>();
+    // More would need cudaFuncSetAttribute(MaxDynamicSharedMemorySize) first.
+    static_assert(kSmem <= 48 * 1024, "K2b's shared memory passes the default 48 KB");
+    m_tiles = (static_cast<long long>(s.n) * s.ho * s.wo + kGM - 1) / kGM;
+    smem = kSmem;
+  }
   const long long blocks = m_tiles * ((s.cout + kGN - 1) / kGN);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int8_conv_nhwc_kernel<OUT, NHWC, MID, ACT><<<static_cast<unsigned>(blocks), kGThreads,
-                                               kSmem, stream>>>(xq, wk, mul, add, y, s,
-                                                                inv_next);
+  kernel<<<static_cast<unsigned>(blocks), kGThreads, smem, stream>>>(xq, wk, mul, add, y, s,
+                                                                    inv_next, hl);
   return static_cast<int>(cudaGetLastError());
+}
+
+// hl.th > 0: the halo path; else the per-tap path.
+template <int OUT, bool NHWC, int MID = kNoMid, int ACT = kActNone>
+int launch_gemm(const int8_t* xq, const int8_t* wk, const float* mul, const float* add,
+                void* y, const Shape& s, cudaStream_t stream, const float* inv_next,
+                const Halo& hl) {
+  return hl.th > 0
+      ? launch_gemm_path<OUT, NHWC, MID, ACT, true>(xq, wk, mul, add, y, s, stream, inv_next, hl)
+      : launch_gemm_path<OUT, NHWC, MID, ACT, false>(xq, wk, mul, add, y, s, stream, inv_next,
+                                                     hl);
 }
 
 template <int MID>
 int launch_requant(int act, const int8_t* xq, const int8_t* wk, const float* mul,
                    const float* add, void* y, const Shape& s, cudaStream_t stream,
-                   const float* inv_next) {
+                   const float* inv_next, const Halo& hl) {
   switch (act) {
     case kActNone:
-      return launch_gemm<kI8, true, MID, kActNone>(xq, wk, mul, add, y, s, stream, inv_next);
+      return launch_gemm<kI8, true, MID, kActNone>(xq, wk, mul, add, y, s, stream, inv_next, hl);
     case kActRelu:
-      return launch_gemm<kI8, true, MID, kActRelu>(xq, wk, mul, add, y, s, stream, inv_next);
+      return launch_gemm<kI8, true, MID, kActRelu>(xq, wk, mul, add, y, s, stream, inv_next, hl);
     default:
-      return launch_gemm<kI8, true, MID, kActLeaky>(xq, wk, mul, add, y, s, stream, inv_next);
+      return launch_gemm<kI8, true, MID, kActLeaky>(xq, wk, mul, add, y, s, stream, inv_next,
+                                                    hl);
   }
 }
 
 template <int OUT>
 int launch_gemm_layout(bool nhwc_out, const int8_t* xq, const int8_t* wk, const float* mul,
-                       const float* add, void* y, const Shape& s, cudaStream_t stream) {
-  return nhwc_out ? launch_gemm<OUT, true>(xq, wk, mul, add, y, s, stream)
-                  : launch_gemm<OUT, false>(xq, wk, mul, add, y, s, stream);
+                       const float* add, void* y, const Shape& s, cudaStream_t stream,
+                       const Halo& hl) {
+  return nhwc_out ? launch_gemm<OUT, true>(xq, wk, mul, add, y, s, stream, nullptr, hl)
+                  : launch_gemm<OUT, false>(xq, wk, mul, add, y, s, stream, nullptr, hl);
 }
 
 // ---------------------------------------------------------------------------
@@ -1569,26 +1807,38 @@ extern "C" int tpupose_quantize_nhwc_cl(const void* x, int in_type, const float*
 // add may be null. y: (n, cout, ho, wo) contiguous, or (n, ho, wo, cout)
 // where nhwc_out, out_type 0 f32 / 1 bf16
 // (dequantize) or 2 int8 (requantize-relu). xq, wk and y 16-byte aligned.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// tile_h > 0 takes the halo path with tile_h x tile_w output patches
+// (tile_h * tile_w <= 128; stride 1, dilation 1, an output of the input's
+// size) and the halo's layout halo_pix, halo_row, halo_bytes (`Halo`);
+// all five 0 the per-tap path.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// an error without launching where the halo path's shared memory passes
+// 227 KB.
 extern "C" int tpupose_int8_conv_nhwc(const int8_t* xq, const int8_t* wk,
                                       const float* mul, const float* add, void* y,
                                       int out_type, int n, int cp, int h, int w,
                                       int cout, int kh, int kw, int stride,
                                       int pad_h, int pad_w, int dil, int ho, int wo,
-                                      int kpad, int nhwc_out, void* stream) {
+                                      int kpad, int nhwc_out, int tile_h, int tile_w,
+                                      int halo_pix, int halo_row, int halo_bytes,
+                                      void* stream) {
   const Shape s{n, cp, h, w, cout, kh, kw, stride, pad_h, pad_w, dil, ho, wo,
                     cp * kh * kw, kpad};
   if (static_cast<long long>(n) * ho * wo == 0 || cout == 0) return 0;
-  if (cp % 16 != 0 || kpad % kBK != 0 || kpad < s.k)
+  const Halo hl{tile_h, tile_w, halo_pix, halo_row, halo_bytes};
+  if (cp % 16 != 0 || kpad % kBK != 0 || kpad < s.k || !halo_ok(s, hl))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wk) |
        reinterpret_cast<uintptr_t>(y)) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (out_type) {
-    case kF32: return launch_gemm_layout<kF32>(nhwc_out, xq, wk, mul, add, y, s, st);
-    case kBF16: return launch_gemm_layout<kBF16>(nhwc_out, xq, wk, mul, add, y, s, st);
-    case kI8: return launch_gemm_layout<kI8>(nhwc_out, xq, wk, mul, add, y, s, st);
+    case kF32:
+      return launch_gemm_layout<kF32>(nhwc_out, xq, wk, mul, add, y, s, st, hl);
+    case kBF16:
+      return launch_gemm_layout<kBF16>(nhwc_out, xq, wk, mul, add, y, s, st, hl);
+    case kI8:
+      return launch_gemm_layout<kI8>(nhwc_out, xq, wk, mul, add, y, s, st, hl);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1597,28 +1847,32 @@ extern "C" int tpupose_int8_conv_nhwc(const int8_t* xq, const int8_t* wk,
 // y is always (n, ho, wo, cout) int8, the next conv's operand; mid_type 0
 // f32 / 1 bf16 is the type the dequantized value is rounded to, act 0 none
 // / 1 ReLU / 2 leaky ReLU at 0.1, and inv_next one f32 on the device, the
-// next conv's 1 / x_scale. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// next conv's 1 / x_scale; tile_h .. halo_bytes as tpupose_int8_conv_nhwc's.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int tpupose_int8_conv_nhwc_requant(const int8_t* xq, const int8_t* wk,
                                               const float* mul, const float* add, void* y,
                                               int mid_type, int act, const float* inv_next,
                                               int n, int cp, int h, int w, int cout,
                                               int kh, int kw, int stride, int pad_h,
                                               int pad_w, int dil, int ho, int wo, int kpad,
-                                              void* stream) {
+                                              int tile_h, int tile_w, int halo_pix,
+                                              int halo_row, int halo_bytes, void* stream) {
   const Shape s{n, cp, h, w, cout, kh, kw, stride, pad_h, pad_w, dil, ho, wo,
                 cp * kh * kw, kpad};
+  const Halo hl{tile_h, tile_w, halo_pix, halo_row, halo_bytes};
   if (static_cast<long long>(n) * ho * wo == 0 || cout == 0) return 0;
   if (cp % 16 != 0 || kpad % kBK != 0 || kpad < s.k || inv_next == nullptr ||
-      act < kActNone || act > kActLeaky)
+      act < kActNone || act > kActLeaky || !halo_ok(s, hl))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wk) |
        reinterpret_cast<uintptr_t>(y)) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mid_type) {
-    case kF32: return launch_requant<kF32>(act, xq, wk, mul, add, y, s, st, inv_next);
-    case kBF16: return launch_requant<kBF16>(act, xq, wk, mul, add, y, s, st, inv_next);
+    case kF32:
+      return launch_requant<kF32>(act, xq, wk, mul, add, y, s, st, inv_next, hl);
+    case kBF16:
+      return launch_requant<kBF16>(act, xq, wk, mul, add, y, s, st, inv_next, hl);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -38,13 +38,18 @@ with `mul` and `add` per output channel (`add` may be None).
     channels-last input and writes a channels-last output. Any other Cin
     raises: the gather kernel reads NCHW only, and takes a channels-last
     input only through the caller's own conversion.
+  - Either layout: K2b takes its halo path where `halo_path` holds (3 x 3,
+    stride 1, by the shape alone): a block computes a `halo_tile` patch of
+    output pixels from their input halo, copied into shared memory once,
+    in place of one copy a tap; bit-equal to the per-tap path.
   `quantize_nhwc_cuda`, `gemm_nhwc_cuda` and `gather_conv_cuda` launch K2a,
   K2b and the gather kernel alone. `launches` counts K2b, stem and gather
   launches, one per conv; `stem_launches` the stem kernel's alone;
   `nhwc_launches` the K2b and stem launches that wrote a channels-last
   output; `requant_launches` the K2b launches that wrote the next conv's
-  int8 input; `quantize_launches` K2a launches, `quantize_cl_launches`
-  those of its elementwise mode.
+  int8 input; `halo_launches` the K2b launches on the halo path;
+  `quantize_launches` K2a launches, `quantize_cl_launches` those of its
+  elementwise mode.
 * The requantizing mode, for a conv whose activated output one other int8
   conv alone reads (`models.layers.chain_out` decides where): one call
   writes that conv's int8 input,
@@ -62,6 +67,7 @@ with `mul` and `add` per output channel (`add` may be None).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -86,6 +92,9 @@ nhwc_launches = 0
 #: int8 input, also counted in `launches` and `nhwc_launches` (reset
 #: freely).
 requant_launches = 0
+#: Launches of K2b on the halo path (`halo_path`), also counted in
+#: `launches` (reset freely).
+halo_launches = 0
 
 #: Tile of the kernel's weight operand: rows padded to BLOCK_N, K to BLOCK_K.
 BLOCK_N = 64
@@ -125,6 +134,108 @@ def stem_tile(ho, wo):
     runs = -(-wo // 512)
     cols = _round_up(-(-wo // runs), 16)
     return max(1, min(ho, STEM_TILE_PIXELS // cols)), cols
+
+
+#: Output pixels a K2b block computes: the rows of its GEMM tile.
+GEMM_ROWS = 128
+#: Shared memory of K2b's B ring: 4 stages of 64 weight rows x 64 K bytes.
+GEMM_RING_BYTES = 4 * 64 * 64
+#: Shared memory a K2b block may take on the halo path: four blocks an SM,
+#: the most K2b's 128 registers a thread allow (228 KB of shared memory an
+#: SM on Hopper, 1 KB of it reserved a block). At 3 blocks an SM (YOLOv3's
+#: 3 x 3 256 -> 512 at 26 x 26, 62 KB) the halo path measured slower than the
+#: per-tap path on an H100.
+HALO_SMEM_LIMIT = 56 * 1024
+
+
+@functools.lru_cache(maxsize=256)
+def halo_tile(ho, wo):
+    """(th, tw), the output patch of one K2b block on the halo path: at most
+    GEMM_ROWS pixels, the fewest patches over an Ho x Wo output, then the
+    smallest halo, (th + 2) * (tw + 2) pixels (the rows past th * tw and the
+    patches' overhang past the output are wasted GEMM rows). Each side is
+    the output's extent split into equal parts: 16 x 8 at 96 x 72, 7 x 18
+    at 48 x 36, 9 x 13 at 52 x 52, 12 x 9 at 24 x 18 and 12 x 9. Cached:
+    the wrapper asks at every launch."""
+    best = None
+    for tw_max in range(1, min(wo, GEMM_ROWS) + 1):
+        nw = -(-wo // tw_max)
+        tw = -(-wo // nw)
+        nh = -(-ho // min(ho, GEMM_ROWS // tw))
+        th = -(-ho // nh)
+        key = (nh * nw, (th + 2) * (tw + 2), -tw)
+        if best is None or key < best[0]:
+            best = (key, (th, tw))
+    return best[1]
+
+
+def halo_layout(cin, tw):
+    """(pixel, row) pitches of the halo path's halo in shared memory, in
+    16-byte chunks, at Cin `cin` and patch width `tw` (3 x 3 taps): a pixel
+    holds its Cp = Cin rounded up to 16 channels in an odd number of chunks
+    (one spare where Cp / 16 is even), and a row of tw + 2 pixels a pitch
+    that equals tw pixels' modulo 8, so that the eight consecutive pixels of
+    an `ldmatrix` phase fall on eight bank groups, also across a patch row's
+    end. The kernel takes this layout from `gemm_nhwc_cuda` (csrc/int8_conv.cu
+    `Halo`) and has no copy of it."""
+    pixel = (_round_up(cin, CHANNELS) // CHANNELS) | 1
+    return pixel, (tw + 2) * pixel + (-2 * pixel) % 8
+
+
+def halo_bytes(cin, th, tw):
+    """Shared memory bytes of the halo: th + 2 rows of `halo_layout`'s
+    pitch, rounded up to 128."""
+    return _round_up((th + 2) * halo_layout(cin, tw)[1] * CHANNELS, 128)
+
+
+def halo_smem(cin, th, tw):
+    """Shared memory bytes of a halo-path block: its halo (`halo_bytes`), B
+    ring and table of K offsets (one int32 a 16-byte chunk of its 64-byte K
+    steps). The kernel reuses them for its epilogue's output tile, which
+    takes less than HALO_SMEM_LIMIT at every store mode."""
+    steps = -(-9 * _round_up(cin, CHANNELS) // 64)
+    return halo_bytes(cin, th, tw) + GEMM_RING_BYTES + 16 * steps
+
+
+def halo_fill(h, w):
+    """The share of a halo-path launch's GEMM rows that compute an output
+    pixel of an H x W output: H * W over `halo_tile`'s patches times
+    GEMM_ROWS."""
+    th, tw = halo_tile(h, w)
+    return h * w / (-(-h // th) * -(-w // tw) * GEMM_ROWS)
+
+
+#: The least `halo_fill` the halo path takes. On an H100 (80GB HBM3, 700 W),
+#: K2b per-tap -> halo with a bf16 store: 0.556 -> 0.514 ms at HRNet-W48's
+#: branch 1 (fill 0.964), but 0.613 -> 0.626 at YOLOv3-416's 3 x 3 64 -> 128
+#: at 104 x 104 (0.939) and 0.578 -> 0.598 at 128 -> 256 at 52 x 52 (0.880):
+#: the GEMM rows a patch wastes cost more than the halo saves.
+HALO_MIN_FILL = 0.95
+#: The fewest 64-byte K steps (9 x Cp / 64, rounded up) the halo path takes.
+#: A block's whole halo lands before its first step, where the per-tap
+#: path's A comes a step at a time behind the ring; with a short K that
+#: wait is not made up. On the H100 above, with a bf16 store: 0.885 -> 0.908
+#: ms at YOLOv3-416's 3 x 3 32 -> 64 at 208 x 208 (5 steps, fill 1), 0.795
+#: -> 0.681 at HRNet-W48's branch 0, 48 -> 48 (7 steps).
+HALO_MIN_STEPS = 6
+
+
+@functools.lru_cache(maxsize=256)
+def halo_path(cin, kh, kw, stride, dilation, h, w):
+    """True where K2b takes the halo path: a channels-last conv of 3 x 3
+    taps, stride 1, dilation 1 (its output as large as its input), of at
+    least HALO_MIN_STEPS K steps, whose patches fill at least HALO_MIN_FILL
+    of their GEMM rows (`halo_fill`) and whose block's shared memory
+    (`halo_smem` at `halo_tile(h, w)`) is at most HALO_SMEM_LIMIT. The halo
+    copies each input byte into shared memory once a block where the
+    per-tap path copies it once a tap; a 1 x 1 or strided conv reads each
+    input byte about once either way. On the main path: HRNet-W48's
+    branches 0 and 1 and layer1; none of YOLOv3-416's convs."""
+    if not (channels_last(cin) and kh == kw == 3 and stride == dilation == 1):
+        return False
+    return (-(-9 * _round_up(cin, CHANNELS) // 64) >= HALO_MIN_STEPS
+            and halo_fill(h, w) >= HALO_MIN_FILL
+            and halo_smem(cin, *halo_tile(h, w)) <= HALO_SMEM_LIMIT)
 
 
 def pack_weight(weight_q):
@@ -227,8 +338,8 @@ _GATHER_ARGS = [_P, _I] + [_P] * 5 + [_I] * 15 + [_P]
 _STEM_ARGS = [_P, _I] + [_P] * 5 + [_I] * 18 + [_P]
 _QUANTIZE_ARGS = [_P, _I, _P, _P] + [_I] * 5 + [_P]
 _QUANTIZE_CL_ARGS = [_P, _I, _P, _P, ctypes.c_longlong, _P]
-_GEMM_ARGS = [_P] * 5 + [_I] * 16 + [_P]
-_REQUANT_ARGS = [_P] * 5 + [_I] * 2 + [_P] + [_I] * 14 + [_P]
+_GEMM_ARGS = [_P] * 5 + [_I] * 21 + [_P]
+_REQUANT_ARGS = [_P] * 5 + [_I] * 2 + [_P] + [_I] * 19 + [_P]
 _ACTS = {None: 0, "relu": 1, "leaky": 2}
 
 
@@ -331,7 +442,7 @@ def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
     channels-last int8 input of the next conv (`out_dtype` int8 and
     `nhwc_out` required). Launches on the current stream, does not
     synchronize, and raises on a failed launch."""
-    global launches, nhwc_launches, requant_launches
+    global launches, nhwc_launches, requant_launches, halo_launches
     dev = xq.device
     if dev.type != "cuda":
         raise ValueError(f"gemm_nhwc_cuda needs CUDA tensors, got {dev}")
@@ -360,21 +471,27 @@ def gemm_nhwc_cuda(xq, weight_k, kernel_hw, mul, add, out_dtype, stride=1,
     if n == 0:
         return y
     add_p = None if add is None else add.data_ptr()
+    halo = halo_path(cin, kh, kw, stride, dilation, h, w)
+    tile = (0,) * 5
+    if halo:
+        th, tw = halo_tile(ho, wo)
+        tile = (th, tw, *halo_layout(cin, tw), halo_bytes(cin, th, tw))
     geometry = (n, cin, h, w, cout, kh, kw, stride, kh // 2, kw // 2, dilation, ho, wo, kpad)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if requant is None:
             rc = _kernel("tpupose_int8_conv_nhwc", _GEMM_ARGS)(
                 xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(), add_p, y.data_ptr(),
-                _CODES[out_dtype], *geometry, int(nhwc_out), stream)
+                _CODES[out_dtype], *geometry, int(nhwc_out), *tile, stream)
         else:
             rc = _kernel("tpupose_int8_conv_nhwc_requant", _REQUANT_ARGS)(
                 xq.data_ptr(), weight_k.data_ptr(), mul.data_ptr(), add_p, y.data_ptr(),
-                _CODES[mid_dtype], _ACTS[act], inv_next.data_ptr(), *geometry, stream)
+                _CODES[mid_dtype], _ACTS[act], inv_next.data_ptr(), *geometry, *tile, stream)
     _check_launch(rc, "int8_conv GEMM (K2b)")
     launches += 1
     nhwc_launches += nhwc_out
     requant_launches += requant is not None
+    halo_launches += halo
     return y
 
 
