@@ -350,6 +350,17 @@ backend flags), each held against its eager body:
      fused attention's and K1's launches counted from 0 over one clip
      against VITPOSE_LAUNCHES, its outputs checked as phase 5's, its peak
      memory.
+ 23. HRFormer-B on the main path (`hrformer`), at `hrformer-b-clip32`'s
+     shapes, YOLOv3-416 and HRFormer-B from a seed, BN folded (jittered),
+     bf16: (a) the conv epilogue's GELU at branch 0's FFN over 640 crops,
+     fc1's and dw3x3's bias + GELU (312 wide) and fc2's bias + GELU +
+     residual (78 wide, the flat mode), each served by `conv_out` /
+     `finish` and held bit for bit against the composed passes; (b) a
+     32-frame clip of 5 random 776x1032 views through
+     `Pipeline.process_clip` (a warm-up clip first), the epilogue's, the
+     fused attention's and K1's launches counted from 0 over one clip
+     against HRFORMER_LAUNCHES, its outputs checked as phase 5's, its peak
+     memory.
 With `--learned-seeds`, it builds the kernels and runs only phase 13 (e)
 for each seed given, reporting the errors without gating on them (the
 K2-against-plain check still fails the run). With `--only k2 k3`, it builds
@@ -357,7 +368,7 @@ the kernels and runs only phase 4 (k2) and phase 15 (a) (k3); with
 `--only ingest`, phase 17, its checkpoint files written anew from phase
 10's seed; with `--only parallel`, phase 18; with `--only graphs`, phase 19;
 with `--only train`, phase 13 and then 13 (f); with `--only epilogue`,
-phase 21; with `--only vitpose`, phase 22.
+phase 21; with `--only vitpose`, phase 22; with `--only hrformer`, phase 23.
 It prints a JSON line per phase, then `{"kernels": [...]}` (with each
 kernel's launches in phase 10 as `cli_launches`, in phase 15 (d) as
 `multistream_launches`, K1's in phase 14 as `e2e_launches`, K2's and
@@ -383,7 +394,8 @@ bf16 clips', `int8_clip_launches` phase 6's two int8 clips', and
 `packed_launches` phase 16 (c)'s packed clip's, each held against
 STEP_LAUNCHES, and its times are phase 21's; K1's and the epilogue's
 launches in phase 22 (c)'s ViTPose-H clip as `vitpose_launches`, held
-against VITPOSE_LAUNCHES), the nvidia-smi line, and last `{"ok": true,
+against VITPOSE_LAUNCHES, and in phase 23 (b)'s HRFormer-B clip as
+`hrformer_launches`, held against HRFORMER_LAUNCHES), the nvidia-smi line, and last `{"ok": true,
 "device": {...}}`. It needs a CUDA card and the repository around it;
 without either it exits non-zero and prints no result. The f32
 comparisons run with TF32 off (so do phase 11's f32 fake-quant
@@ -1776,6 +1788,15 @@ STEP_LAUNCHES = {
 #: transposed convs, the fused attention's one a block, K1's one (phase 22).
 VITPOSE_LAUNCHES = {"epilogue.launches": 72 + 2, "attention.launches": 32,
                     "heatmap.launches": 1}
+
+
+#: Launches of one HRFormer-B stage-A batch (a 32-frame clip of 5 views,
+#: 640 crops): the epilogue's at YOLOv3-416's 72 call sites and HRFormer's
+#: 233 (the stem's 2, stage 1's 7, the transitions' 4, three a block's FFN
+#: over 44 blocks, the fuse layers' 88), the fused attention's one a block,
+#: K1's one (phase 23).
+HRFORMER_LAUNCHES = {"epilogue.launches": 72 + 233, "attention.launches": 44,
+                     "heatmap.launches": 1}
 
 
 def jitter_bn(torch, model, gen):
@@ -3421,6 +3442,93 @@ def phase_vitpose(th, torch, gen, card):
     return out
 
 
+def phase_hrformer(th, torch, gen, card):
+    """Phase 23: HRFormer-B on the main path at `hrformer-b-clip32`'s
+    shapes: (a) the epilogue's GELU at branch 0's FFN, (b) the launches of
+    one clip (HRFORMER_LAUNCHES)."""
+    from tpupose_torch.data.synthetic import make_scene
+    from tpupose_torch.geometry import make_camera_set
+    from tpupose_torch.models.hrformer import hrformer_b_config, hrformer_init
+    from tpupose_torch.models.layers import conv_out, finish, fold_batchnorm
+    from tpupose_torch.models.yolov3 import YoloConfig, yolov3_init
+    from tpupose_torch.ops import attention, epilogue
+    from tpupose_torch.pipeline import Pipeline
+    from tpupose_torch.tracking.tracker import TrackerConfig
+
+    t_phase = time.perf_counter()
+    cfg = hrformer_b_config()
+    with torch.device("cuda"):
+        pose = hrformer_init(cfg, torch.Generator(device="cuda").manual_seed(23))
+    pose = fold_batchnorm(jitter_bn(torch, pose, gen), dtype=torch.bfloat16)
+    with torch.no_grad():
+        for m in pose.modules():  # live conv biases: the folded BN shifts and the FFN's own
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.add_(torch.randn(m.bias.shape, generator=gen, device="cuda").to(
+                    m.bias.dtype), alpha=0.1)
+    out = {"card": card, "config": "YOLOv3-416 (max_candidates=4) + HRFormer-B 384x288, "
+                                   "BN folded, bf16; 32 frames x 5 views x 776x1032 uint8"}
+
+    # (a) branch 0's FFN of the first block over 640 crops, each conv's epilogue
+    ffn = pose.backbone.stage2[0].branches[0][0].ffn
+    h, w = cfg.heatmap_size
+    c = cfg.branch_channels[0]
+    x = (2 * torch.randn((MAIN_CROPS, c, h, w), generator=gen, device="cuda")).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    skip = torch.randn((MAIN_CROPS, c, h, w), generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    rows = []
+    with torch.no_grad():
+        y = x
+        for name, bn, kw in (("fc1", ffn.norm1, {}), ("dw3x3", ffn.norm2, {}),
+                             ("fc2", ffn.norm3, {"skip": skip, "act_first": True})):
+            conv = conv_out(getattr(ffn, name), bn, y, any_width=True)
+            if not conv.fused or conv.bias is None:
+                fail(f"HRFormer FFN: {name}'s output is not served by the epilogue "
+                     f"(fused={conv.fused})")
+            before = epilogue.launches
+            got = finish(conv, act="gelu", **kw)
+            ref = epilogue.bias_act_plain(conv.y, conv.bias, act="gelu", **kw)
+            torch.cuda.synchronize()
+            if epilogue.launches - before != 1:
+                fail(f"HRFormer FFN: {name}'s epilogue took the composed ops")
+            ulps = int((got.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max())
+            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                fail(f"HRFormer FFN: the GELU epilogue differs from the composed passes after "
+                     f"{name} by up to {ulps} bf16 ulps")
+            rows.append({"layer": name, "shape": list(got.shape), "max_ulps": ulps})
+            y = got
+    out["ffn_epilogue"] = rows
+    del x, skip, y, got, ref, conv
+    torch.cuda.empty_cache()
+
+    # (b) one clip through the served path, launches counted from 0
+    views, frames, height, width = 5, 32, 776, 1032
+    det_cfg = YoloConfig(max_candidates=4)
+    tcfg = TrackerConfig(num_cameras=views, max_dets=4, max_tracks=12, max_hyp=24)
+    detector = fold_batchnorm(yolov3_init(det_cfg, torch.Generator().manual_seed(0)),
+                              dtype=torch.bfloat16)
+    scene = make_scene(num_frames=1, num_cameras=views, num_actors=3, seed=0)
+    pipe = Pipeline(make_camera_set(scene.P, scene.K, scene.RT, width, height), tcfg, det_cfg,
+                    detector, cfg, pose)
+    clip = torch.randint(0, 256, (frames, views, height, width, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    frame_ids = torch.arange(frames, dtype=torch.int32)
+    pipe.process_clip(frame_ids, clip)  # warm-up
+    torch.cuda.synchronize()
+    th.launches = epilogue.launches = attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    outs, dets, mask = pipe.process_clip(frame_ids, clip)
+    torch.cuda.synchronize()
+    launches = {"epilogue.launches": epilogue.launches, "attention.launches": attention.launches,
+                "heatmap.launches": th.launches}
+    if launches != HRFORMER_LAUNCHES:
+        fail(f"an HRFormer-B clip launched {launches}, expected {HRFORMER_LAUNCHES}")
+    check_clip_outputs(torch, outs, dets, mask, frames, views, tcfg)
+    out.update(launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               detections_valid=int(mask.sum()), seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def phase_train(torch, card):
     """Phase 13: HRNet-W48 384x288 training at full width on blob batches,
     every step a captured CUDA graph after its warm-ups: (a) the JAX
@@ -4827,11 +4935,12 @@ def main():
         if args[0] == "--learned-seeds" and len(args) > 1 and all(a.isdigit() for a in args[1:]):
             seeds = [int(a) for a in args[1:]]
         elif args[0] == "--only" and len(args) > 1 and set(args[1:]) <= {
-                "k2", "k3", "ingest", "parallel", "graphs", "train", "epilogue", "vitpose"}:
+                "k2", "k3", "ingest", "parallel", "graphs", "train", "epilogue", "vitpose",
+                "hrformer"}:
             only = set(args[1:])
         else:
             fail("usage: chip_smoke.py [--learned-seeds SEED ... | "
-                 "--only k2|k3|ingest|parallel|graphs|train|epilogue|vitpose ...]",
+                 "--only k2|k3|ingest|parallel|graphs|train|epilogue|vitpose|hrformer ...]",
                  2)
     try:
         import torch
@@ -4885,6 +4994,8 @@ def main():
             emit("epilogue", **phase_epilogue(torch, card))
         if "vitpose" in only:
             emit("vitpose", **phase_vitpose(th, torch, gen, card))
+        if "hrformer" in only:
+            emit("hrformer", **phase_hrformer(th, torch, gen, card))
         return
     k1 = phase_kernel(th, torch, gen)
     emit("k1_vs_plain", card=card, **k1)
@@ -4945,6 +5056,8 @@ def main():
     emit("epilogue", **epi)
     vitpose = phase_vitpose(th, torch, gen, card)
     emit("vitpose", **vitpose)
+    hrformer = phase_hrformer(th, torch, gen, card)
+    emit("hrformer", **hrformer)
 
     quarter = k1["modes"]["quarter"]
     conv, packed = k2["timed"]["hrnet_branch0_3x3_48"], k2["timed"]["hrnet_branch0_packed_3x3_96"]
@@ -4968,6 +5081,7 @@ def main():
         "parallel_launches_per_rank": [c["k1"] for c in par_launches],
         "vitpose_launches": vitpose["launches"]["heatmap.launches"],
         "vitpose_max_abs_err": vitpose["k1"]["max_abs_err"],
+        "hrformer_launches": hrformer["launches"]["heatmap.launches"],
     }, {
         "name": "int8_conv", "route": "cuda",
         "source": "tpupose_torch/csrc/int8_conv.cu",
@@ -5072,6 +5186,8 @@ def main():
         "multistream_launches": {m: c["epilogue"] for m, c in ms_launches.items()},
         "vitpose_launches": vitpose["launches"]["epilogue.launches"],
         "vitpose_head": vitpose["head_epilogue"],
+        "hrformer_launches": hrformer["launches"]["epilogue.launches"],
+        "hrformer_ffn": hrformer["ffn_epilogue"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,11 @@
   the composed one.
 * Under autograd nothing engages: forward and gradients equal the composed
   path's, and the epilogue is never called.
+* The GELU mode (exact erf, HRFormer's FFN) is bit for bit the composed
+  bias add, `F.gelu` and skip add, with the skip after or before it or
+  none, bf16 and f32; the flat mode takes any width without an upsample
+  where the output holds 8k elements, each vector's channels repeating with
+  the period the kernel's grid keeps.
 * On the card (marked `card`): the kernel bit for bit against the plain
   version at HRNet-W48's branch 0, a fuse-upsample shape and YOLOv3-416's
   (160, 256, 52, 52), and in every mode at small shapes; a full-width bf16
@@ -285,6 +290,54 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         epilogue.bias_act_cuda(src, act="relu")
 
 
+GELU_MODES = list(itertools.product(
+    (torch.bfloat16, torch.float32), (False, True), (None, "after", "before"), (24, 78)))
+
+
+def _composed_gelu(src, bias, skip, act_first):
+    """HRFormer's FFN as composed ops: the conv's bias added in place, exact
+    GELU, the block's residual added after it (or the GELU after the sum)."""
+    y = src.clone()
+    if bias is not None:
+        y.add_(bias.to(y.dtype).reshape(1, -1, 1, 1))
+    if skip is None:
+        return F.gelu(y)
+    return skip + F.gelu(y) if act_first else F.gelu(skip + y)
+
+
+@pytest.mark.parametrize("dtype,with_bias,skip_mode,c", GELU_MODES)
+def test_plain_gelu_is_the_composed_ops(dtype, with_bias, skip_mode, c):
+    gen = torch.Generator().manual_seed(c + len(str(skip_mode)))
+    src, bias, skip = _operands(dtype, with_bias, skip_mode, 0, gen, shape=(2, c, 6, 5))
+    act_first = skip_mode == "before"
+    got = epilogue.bias_act_plain(src, bias, skip, 0, "gelu", act_first)
+    ref = _composed_gelu(src, bias, skip, act_first)
+    assert got.shape == ref.shape == (2, c, 6, 5)
+    assert torch.equal(_bits(got), _bits(ref))
+    assert torch.equal(_bits(epilogue.bias_act(src, bias, skip, 0, "gelu", act_first)),
+                       _bits(ref))
+
+
+@pytest.mark.parametrize("c", [6, 12, 24, 78, 156, 312])
+def test_flat_mode_serves_any_width_without_an_upsample(c):
+    assert epilogue.serves(c, 640 * 96 * 72 * c)
+    assert epilogue.serves(c, 3 * c) == (c % 8 == 0)
+    assert epilogue.serves(c, 640 * c, up=1) == (c % 8 == 0)
+    # the kernel's bias channels: vector v's k-th element is channel
+    # (8 (v % pv) + k) % C, pv = C / gcd(C, 8), and its grid stride, a
+    # multiple of pv, keeps them a thread's through the loop
+    pv = c // np.gcd(c, 8)
+    v = np.arange(4 * pv * 8)[:, None]
+    k = np.arange(8)[None, :]
+    assert (((8 * (v % pv) + k) % c) == ((8 * v + k) % c)).all()
+    x = torch.zeros(2, c, 6, 5).contiguous(memory_format=torch.channels_last)
+    conv = tl.Conv2d(c, c, 1, bias=True)
+    with torch.no_grad():
+        assert tl.conv_out(conv, None, x, any_width=True).fused
+        assert tl.conv_out(conv, None, x).fused == (c % 8 == 0)
+        assert tl.tensor_out(x, any_width=True).fused
+
+
 # -- served forwards against the composed ones ---------------------------------
 
 def _folded(dtype=torch.bfloat16, seed=0):
@@ -486,6 +539,49 @@ def test_kernel_equals_plain(card):
         assert torch.equal(_bits(got), _bits(ref)), shape
         del src, skip, got, ref
     assert epilogue.launches - before == len(MODES) + len(CARD_SHAPES)
+
+
+#: HRFormer-B's FFN and fuse at branch 0 (and 1) of 640 crops: fc1's and
+#: dw3x3's bias + GELU (312 wide), fc2's bias + GELU + residual (78 and 156
+#: wide, the flat mode), a fuse row's sum and ReLU (78 wide).
+GELU_CARD_SHAPES = [
+    ((640, 312, 96, 72), True, False, "gelu", False),
+    ((640, 78, 96, 72), True, True, "gelu", True),
+    ((640, 156, 48, 36), True, True, "gelu", True),
+    ((640, 78, 96, 72), True, True, "relu", False),
+]
+
+
+@pytest.mark.card
+def test_kernel_gelu_and_flat_mode_equal_plain(card):
+    """The GELU mode and the flat mode bit for bit against PyTorch's
+    composed passes on the card, in every GELU mode at small shapes (24 and
+    78 wide) and at HRFormer-B's branch-0 shapes."""
+    gen = torch.Generator().manual_seed(0)
+    before = epilogue.launches
+    for dtype, with_bias, skip_mode, c in GELU_MODES:
+        src, bias, skip = (None if t is None else t.to(card) for t in _operands(
+            dtype, with_bias, skip_mode, 0, gen, shape=(2, c, 6, 5)))
+        act_first = skip_mode == "before"
+        got = epilogue.bias_act_cuda(src, bias, skip, 0, "gelu", act_first)
+        ref = epilogue.bias_act_plain(src, bias, skip, 0, "gelu", act_first)
+        assert torch.equal(_bits(got), _bits(ref)), (dtype, with_bias, skip_mode, c)
+    gen = torch.Generator(device=card).manual_seed(0)
+    for shape, with_bias, with_skip, act, act_first in GELU_CARD_SHAPES:
+        mk = dict(generator=gen, device=card)
+        src = (2 * torch.randn(shape, **mk)).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bias = torch.randn(shape[1], **mk).to(torch.bfloat16) if with_bias else None
+        skip = (torch.randn(shape, **mk).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last) if with_skip else None)
+        got = epilogue.bias_act_cuda(src, bias, skip, 0, act, act_first)
+        ref = epilogue.bias_act_plain(src, bias, skip, 0, act, act_first)
+        torch.cuda.synchronize()
+        ulps = (_bits(got).int() - _bits(ref).int()).abs().max()
+        print(f"{shape} {act}: largest difference {int(ulps)} bf16 ulps")
+        assert torch.equal(_bits(got), _bits(ref)), shape
+        del src, skip, got, ref
+    assert epilogue.launches - before == len(GELU_MODES) + len(GELU_CARD_SHAPES)
 
 
 @pytest.mark.card

@@ -10,21 +10,25 @@
 // layers, a nearest upsample that writes the coarse term at full size. This
 // kernel is those passes as one, read once and written once.
 //
-// What it computes, for an (N, H, W, C) output, C % 8 == 0, in f32 from
-// bf16 (or f32) operands:
+// What it computes, for an (N, H, W, C) output, in f32 from bf16 (or f32)
+// operands, where C % 8 == 0 or, without an upsample, where the output holds
+// a multiple of 8 elements (HRFormer's 78- and 156-wide branches):
 //   t = src[n, h >> u, w >> u, c]                  (u = 0..3: nearest upsample)
 //   t = rn(t + bias[c])                            (where there is a bias)
 //   t = act(t)                                     (where the activation is first)
 //   t = rn(t + skip[n, h, w, c])                   (where there is a skip)
 //   t = act(t)                                     (otherwise)
 //   act: none; ReLU `isnan(t) ? t : fmaxf(t, 0)`, exact; leaky ReLU
-//   `t > 0 ? t : rn(t * 0.1f)`.
+//   `t > 0 ? t : rn(t * 0.1f)`; GELU `rn(t * 0.5f * (1 + erff(t * M_SQRT1_2)))`,
+//   exact erf in f32, ATen's `GeluCUDAKernelImpl` (approximate "none") term
+//   for term.
 // rn rounds to the output's type: bf16 (round to nearest even) or f32. Each
 // step is the arithmetic of the PyTorch kernel it replaces (ATen's add with
 // alpha 1 on opmath floats, `launch_clamp_scalar`'s min clamp,
 // `leaky_relu_kernel`), rounded where that kernel writes bf16, with
 // round-to-nearest intrinsics so that nvcc cannot contract a product into
-// an add: the output is bit-equal to the composed ops
+// an add (and erff from the same CUDA math library as ATen's): the output
+// is bit-equal to the composed ops
 // (tpupose_torch/ops/epilogue.py `bias_act_plain`). A bias added before a
 // nearest upsample or after it gives the same values, so the coarse term's
 // bias is added on the fly.
@@ -46,6 +50,15 @@
 // faster than one. An upsampled src is addressed from the pixel's (n, h, w),
 // found with 32-bit divisions (the wrapper keeps every index below 2^31).
 // The wrapper checks that every tensor is 16-byte aligned.
+//
+// Flat mode (C % 8 != 0, no upsample): the tensors are read as one flat
+// array of 8-element vectors, a vector's elements lying in one pixel or two.
+// Element e's channel is e % C, and vector v's first channel (8 v) % C
+// repeats with a period of C / gcd(C, 8) vectors; the grid is a multiple of
+// that period too, so a thread's 8 bias values are again loaded once. For C
+// % 8 == 0 the period is C / 8 and the grid the one above. The flat mode and
+// GELU are instantiations of their own (FLAT, GELU), so that the other
+// modes run the code they had.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,7 +73,7 @@ constexpr int kBlocksPerSM = 64;
 constexpr int kMaxDevices = 64;
 
 enum { kF32 = 0, kBF16 = 1 };
-enum { kNone = 0, kRelu = 1, kLeaky = 2 };
+enum { kNone = 0, kRelu = 1, kLeaky = 2, kGelu = 3 };
 
 // 8 consecutive elements of type T at element offset e, as floats.
 template <int T>
@@ -112,8 +125,15 @@ __device__ __forceinline__ float rn(float v) {
   return v;
 }
 
-template <int T>
+// GELU has an instantiation of its own, so that erff's code does not weigh
+// on the other activations' registers.
+template <int T, bool GELU>
 __device__ __forceinline__ float activate(float v, int act) {
+  if constexpr (GELU) {
+    // x * 0.5 * (1 + erf(x * M_SQRT1_2)), left to right, as ATen writes it
+    const float e = erff(__fmul_rn(v, 0.70710678118654752440f));
+    return rn<T>(__fmul_rn(__fmul_rn(v, 0.5f), __fadd_rn(1.f, e)));
+  }
   if (act == kRelu) return isnan(v) ? v : fmaxf(v, 0.f);
   if (act == kLeaky) return v > 0.f ? v : rn<T>(__fmul_rn(v, 0.1f));
   return v;
@@ -125,15 +145,17 @@ struct Args {
   const void* skip;  // the output's shape, or null
   void* out;
   unsigned vecs;     // output elements / 8
-  unsigned cv;       // C / 8
+  unsigned cv;       // C / 8 (C % 8 == 0 where there is an upsample)
+  unsigned pv;       // vectors a period of the channels: C / gcd(C, 8)
+  unsigned c;        // C
   unsigned w, h;     // the output's width and height
   unsigned ws, hs;   // src's (w >> up, h >> up)
   int up, act, act_first;
 };
 
-template <int T, bool UP>
+template <int T, bool UP, bool FLAT, bool GELU>
 __global__ void __launch_bounds__(kThreads) bias_act_nhwc_kernel(const Args a) {
-  const unsigned stride = gridDim.x * kThreads;  // a multiple of cv
+  const unsigned stride = gridDim.x * kThreads;  // a multiple of pv
   unsigned v = blockIdx.x * kThreads + threadIdx.x;
   if (v >= a.vecs) return;
   const unsigned c8 = v % a.cv;
@@ -141,12 +163,14 @@ __global__ void __launch_bounds__(kThreads) bias_act_nhwc_kernel(const Args a) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) b[k] = 0.f;
   if (a.bias != nullptr) {
+    const unsigned c0 = (FLAT ? v % a.pv : c8) * 8;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
+      const unsigned ch = FLAT ? (c0 + k) % a.c : c0 + k;
       if constexpr (T == kBF16) {
-        b[k] = __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[c8 * 8 + k]);
+        b[k] = __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[ch]);
       } else {
-        b[k] = static_cast<const float*>(a.bias)[c8 * 8 + k];
+        b[k] = static_cast<const float*>(a.bias)[ch];
       }
     }
   }
@@ -166,9 +190,9 @@ __global__ void __launch_bounds__(kThreads) bias_act_nhwc_kernel(const Args a) {
     for (int k = 0; k < 8; ++k) {
       float o = t[k];
       if (a.bias != nullptr) o = rn<T>(__fadd_rn(o, b[k]));
-      if (a.act_first) o = activate<T>(o, a.act);
+      if (a.act_first) o = activate<T, GELU>(o, a.act);
       if (a.skip != nullptr) o = rn<T>(__fadd_rn(o, s[k]));
-      if (!a.act_first) o = activate<T>(o, a.act);
+      if (!a.act_first) o = activate<T, GELU>(o, a.act);
       t[k] = o;
     }
     store8<T>(a.out, static_cast<long long>(v) * 8, t);
@@ -185,8 +209,8 @@ unsigned gcd(unsigned a, unsigned b) {
 }
 
 // kBlocksPerSM blocks an SM, no more than the output needs, rounded up to a
-// multiple of lcm(kThreads, cv) / kThreads.
-int grid_for(unsigned vecs, unsigned cv, unsigned* blocks) {
+// multiple of lcm(kThreads, pv) / kThreads.
+int grid_for(unsigned vecs, unsigned pv, unsigned* blocks) {
   static int sms[kMaxDevices] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -196,7 +220,7 @@ int grid_for(unsigned vecs, unsigned cv, unsigned* blocks) {
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const unsigned unit = cv / gcd(cv, kThreads);  // blocks a grid is a multiple of
+  const unsigned unit = pv / gcd(pv, kThreads);  // blocks a grid is a multiple of
   const unsigned long long need = (vecs + kThreads - 1) / kThreads;
   unsigned long long want = static_cast<unsigned long long>(sms[dev]) * kBlocksPerSM;
   if (want > need) want = need;
@@ -206,15 +230,26 @@ int grid_for(unsigned vecs, unsigned cv, unsigned* blocks) {
   return 0;
 }
 
+template <int T, bool UP, bool FLAT>
+void launch_act(const Args& a, unsigned blocks, cudaStream_t stream) {
+  if (a.act == kGelu) {
+    bias_act_nhwc_kernel<T, UP, FLAT, true><<<blocks, kThreads, 0, stream>>>(a);
+  } else {
+    bias_act_nhwc_kernel<T, UP, FLAT, false><<<blocks, kThreads, 0, stream>>>(a);
+  }
+}
+
 template <int T>
 int launch(const Args& a, cudaStream_t stream) {
   unsigned blocks = 0;
-  const int rc = grid_for(a.vecs, a.cv, &blocks);
+  const int rc = grid_for(a.vecs, a.pv, &blocks);
   if (rc != 0) return rc;
   if (a.up > 0) {
-    bias_act_nhwc_kernel<T, true><<<blocks, kThreads, 0, stream>>>(a);
+    launch_act<T, true, false>(a, blocks, stream);
+  } else if (a.c % 8 != 0) {
+    launch_act<T, false, true>(a, blocks, stream);
   } else {
-    bias_act_nhwc_kernel<T, false><<<blocks, kThreads, 0, stream>>>(a);
+    launch_act<T, false, false>(a, blocks, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -224,22 +259,27 @@ int launch(const Args& a, cudaStream_t stream) {
 // out (n, h, w, c) = the epilogue above of src (n, h >> up, w >> up, c),
 // bias (c,) (or null) and skip (n, h, w, c) (or null), all contiguous in
 // that order (channels-last), of one type: dtype 0 f32 / 1 bf16. c % 8 == 0,
-// h and w multiples of 2^up, up in 0..3, act 0 none / 1 ReLU / 2 leaky ReLU
-// at 0.1, act_first nonzero for act(t) + skip. src, skip and out 16-byte
-// aligned; n*h*w*c / 8 below 2^31. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// or up 0 and n*h*w*c % 8 == 0 (flat mode); h and w multiples of 2^up, up in
+// 0..3, act 0 none / 1 ReLU / 2 leaky ReLU at 0.1 / 3 GELU (erf), act_first
+// nonzero for act(t) + skip. src, skip and out 16-byte aligned; n*h*w*c / 8
+// below 2^31. Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int tpupose_bias_act_nhwc(const void* src, const void* bias, const void* skip,
                                      void* out, int dtype, int n, int h, int w, int c,
                                      int up, int act, int act_first, void* stream) {
-  if (n < 0 || h < 0 || w < 0 || c <= 0 || c % 8 != 0 || up < 0 || up > 3 ||
-      act < kNone || act > kLeaky || h % (1 << up) != 0 || w % (1 << up) != 0)
+  if (n < 0 || h < 0 || w < 0 || c <= 0 || up < 0 || up > 3 ||
+      act < kNone || act > kGelu || h % (1 << up) != 0 || w % (1 << up) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned long long vecs = static_cast<unsigned long long>(n) * h * w * (c / 8);
+  const unsigned long long elems = static_cast<unsigned long long>(n) * h * w * c;
+  if (c % 8 != 0 && (up != 0 || elems % 8 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned long long vecs = elems / 8;
   if (vecs == 0) return 0;
   if (vecs >= (1ull << 31)) return static_cast<int>(cudaErrorInvalidValue);
   for (const void* p : {src, skip, static_cast<const void*>(out)})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{src, bias, skip, out, static_cast<unsigned>(vecs), static_cast<unsigned>(c / 8),
+  const unsigned cu = static_cast<unsigned>(c);
+  const Args a{src, bias, skip, out, static_cast<unsigned>(vecs),
+               c % 8 == 0 ? cu / 8 : 1u, cu / gcd(cu, 8), cu,
                static_cast<unsigned>(w), static_cast<unsigned>(h),
                static_cast<unsigned>(w >> up), static_cast<unsigned>(h >> up),
                up, act, act_first != 0};

@@ -1,4 +1,4 @@
-"""Neural backends: HRNet, ViTPose and YOLOv3 as nn.Modules, weight
+"""Neural backends: HRNet, ViTPose, HRFormer and YOLOv3 as nn.Modules, weight
 conversion and checkpoint loading, int8 post-training quantization;
 training (`train`) and save / resume (`checkpoint`) in their own
 modules."""
@@ -13,6 +13,12 @@ from tpupose_torch.models.convert import (
     state_dict_to_darknet_array,
     write_darknet_file,
     yolo_state_dict_from_jax,
+)
+from tpupose_torch.models.hrformer import (
+    HRFormer,
+    HRFormerConfig,
+    hrformer_b_config,
+    hrformer_init,
 )
 from tpupose_torch.models.hrnet import (
     HRNet,
@@ -50,6 +56,10 @@ __all__ = [
     "state_dict_to_darknet_array",
     "write_darknet_file",
     "yolo_state_dict_from_jax",
+    "HRFormer",
+    "HRFormerConfig",
+    "hrformer_b_config",
+    "hrformer_init",
     "HRNet",
     "HRNetConfig",
     "hrnet_init",

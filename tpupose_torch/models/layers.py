@@ -46,14 +46,14 @@ from tpupose_torch.ops.int8_conv import channels_last, int8_conv, int8_conv_requ
 from tpupose_torch.ops.layout import is_channels_last, memory_format_of
 
 
-def conv_apply(weight, bias, x, stride=1, dilation=1):
+def conv_apply(weight, bias, x, stride=1, dilation=1, groups=1):
     """Conv with torch padding (k//2 per side) in x's dtype and layout (the
     weight is copied only where its layout differs from x's)."""
     kh, kw = weight.shape[2], weight.shape[3]
     w = weight.to(x.dtype).contiguous(memory_format=memory_format_of(x))
     return F.conv2d(
         x, w, None if bias is None else bias.to(x.dtype),
-        stride=stride, padding=(kh // 2, kw // 2), dilation=dilation,
+        stride=stride, padding=(kh // 2, kw // 2), dilation=dilation, groups=groups,
     )
 
 
@@ -225,10 +225,12 @@ def quantile_linear(a, q):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d with padding k//2 that computes in the input's dtype and
-    reports its input to an active `ActRecorder`."""
+    reports its input to an active `ActRecorder` (`groups`: HRFormer's
+    depthwise convs)."""
 
-    def __init__(self, cin, cout, k, stride=1, bias=False):
-        super().__init__(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
+    def __init__(self, cin, cout, k, stride=1, bias=False, groups=1):
+        super().__init__(cin, cout, k, stride=stride, padding=k // 2, bias=bias,
+                         groups=groups)
 
     def forward(self, x, add_bias=True):
         """The conv of x; `add_bias=False` leaves the bias to the caller
@@ -236,7 +238,7 @@ class Conv2d(nn.Conv2d):
         if ActRecorder.active is not None:
             ActRecorder.active.observe(self, x)
         return conv_apply(self.weight, self.bias if add_bias else None, x, self.stride,
-                          self.dilation)
+                          self.dilation, self.groups)
 
 
 class QuantConv2d(nn.Module):
@@ -337,7 +339,8 @@ def fold_batchnorm(model: nn.Module, dtype=None) -> nn.Module:
     nn.Identity, so its keys leave the state_dict as the JAX package's
     folded trees drop them. A transposed conv (ViTPose's head) folds the
     same way, its output channels on the weight's dim 1. Pairs are
-    siblings named convN / bnN, conv / bn, or i / i+1 (Sequential).
+    siblings named convN / bnN, conv / bn, i / i+1 (Sequential), or as a
+    module's `bn_pairs` ({conv name: bn name}) says.
     `dtype` then casts every parameter (e.g. torch.bfloat16 serving
     weights). Returns the model.
     """
@@ -347,7 +350,9 @@ def fold_batchnorm(model: nn.Module, dtype=None) -> nn.Module:
             conv = children[name]
             if not isinstance(conv, (nn.Conv2d, nn.ConvTranspose2d)):
                 continue
-            if name.startswith("conv") and name != "conv":
+            if name in getattr(module, "bn_pairs", {}):
+                partner = module.bn_pairs[name]
+            elif name.startswith("conv") and name != "conv":
                 partner = "bn" + name[4:]
             elif name == "conv":
                 partner = "bn"
@@ -390,17 +395,25 @@ def _folded(bn):
     return bn is None or isinstance(bn, nn.Identity)
 
 
-def _served(x, channels):
+def _served(x, channels, pixels=None):
     """Grad off, a channels-last x, and `channels` a multiple of the
-    epilogue's granule: what the one-pass epilogue needs of a tensor."""
-    return (not torch.is_grad_enabled() and is_channels_last(x)
-            and channels % epilogue.CHANNELS == 0)
+    epilogue's granule: what the one-pass epilogue needs of a tensor. Where
+    `pixels` (the output's N H W) is given, any width whose output the
+    kernel's flat mode takes (`epilogue.serves`; no upsample follows): the
+    networks of other widths, HRFormer's, ask for it."""
+    if torch.is_grad_enabled() or not is_channels_last(x):
+        return False
+    if pixels is None:
+        return channels % epilogue.CHANNELS == 0
+    return epilogue.serves(channels, pixels * channels)
 
 
-def tensor_out(t):
+def tensor_out(t, any_width=False):
     """A tensor that is no conv's output (a fuse layer's own branch, an
-    int8-resident block's last conv) as a `ConvOut`, for `finish`."""
-    return ConvOut(t, None, _served(t, t.shape[1]))
+    int8-resident block's last conv) as a `ConvOut`, for `finish`;
+    `any_width` as `conv_out`'s."""
+    pixels = t.numel() // t.shape[1] if any_width and t.shape[1] else None
+    return ConvOut(t, None, _served(t, t.shape[1], pixels))
 
 
 def bias_in_epilogue(device):
@@ -411,10 +424,12 @@ def bias_in_epilogue(device):
     return device.type == "cuda"
 
 
-def conv_out(conv, bn, x, dtype=None):
+def conv_out(conv, bn, x, dtype=None, any_width=False):
     """`conv` then `bn` (None, a folded BN's nn.Identity, or a live BN) on
     x, as a `ConvOut` for `finish`; `dtype` is a `QuantConv2d`'s output
-    dtype where x is int8 (`chain_out`).
+    dtype where x is int8 (`chain_out`). `any_width` lets an output of any
+    width take the one-pass epilogue where its flat mode serves it (no
+    upsample may follow): HRFormer's 78- and 156-wide branches.
 
     The one-pass epilogue engages where nothing needs the composed ops:
     grad off (serving: training and QAT keep autograd's ops), the BN
@@ -426,7 +441,11 @@ def conv_out(conv, bn, x, dtype=None):
     """
     quant = isinstance(conv, QuantConv2d)
     cout = conv.weight_q.shape[0] if quant else conv.out_channels
-    if not (type(conv) in (Conv2d, QuantConv2d) and _folded(bn) and _served(x, cout)):
+    pixels = None
+    if any_width:
+        s = conv.stride[0] if isinstance(conv.stride, tuple) else conv.stride
+        pixels = x.shape[0] * (-(-x.shape[2] // s)) * (-(-x.shape[3] // s))
+    if not (type(conv) in (Conv2d, QuantConv2d) and _folded(bn) and _served(x, cout, pixels)):
         y = conv(x, dtype) if quant else conv(x)
         return ConvOut(y if bn is None else bn(y))
     if quant:

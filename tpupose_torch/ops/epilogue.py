@@ -8,13 +8,17 @@ these is a pass over the conv's output of its own; here they are one:
 
 every term optional, rounded to the tensors' dtype after each step as the
 composed ops round: up in 0..3 reads a coarser src by nearest neighbour;
-act is None, "relu" or "leaky" (leaky ReLU at LEAKY_SLOPE); `act_first`
-applies the activation before the skip (Darknet's `x + act(conv(x))`).
+act is None, "relu", "leaky" (leaky ReLU at LEAKY_SLOPE) or "gelu" (exact
+erf GELU, `F.gelu`, in f32 as PyTorch computes it); `act_first` applies
+the activation before the skip (Darknet's `x + act(conv(x))`, HRFormer's
+FFN `x + gelu(bn(fc2(h)))`).
 
 * `bias_act_plain` is the plain torch version, the composed ops themselves
   (a conv's bias add as cuDNN's path in PyTorch adds it, a separate add).
 * `bias_act_cuda` launches the hand-written kernel on channels-last bf16 or
-  f32 tensors with C % 8 == 0 and counts its launches in `launches`.
+  f32 tensors with C % 8 == 0, or of any C without an upsample where the
+  output holds a multiple of 8 elements (`serves`), and counts its
+  launches in `launches`.
 * `bias_act` is what the models call: a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel, which raises rather than fall
   back; a call with nothing to do returns `src` itself.
@@ -33,7 +37,7 @@ LEAKY_SLOPE = 0.1
 #: Channel granule of the kernel: 8 channels move as one 16-byte vector.
 CHANNELS = 8
 
-_ACTS = {None: 0, "relu": 1, "leaky": 2}
+_ACTS = {None: 0, "relu": 1, "leaky": 2, "gelu": 3}
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -44,6 +48,8 @@ def _act(y, act):
         return F.relu(y)
     if act == "leaky":
         return F.leaky_relu(y, negative_slope=LEAKY_SLOPE)
+    if act == "gelu":
+        return F.gelu(y)
     raise ValueError(f"unknown activation {act!r}")
 
 
@@ -77,14 +83,21 @@ def _channels_last(t):
     return t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
 
 
+def serves(channels, elements, up=0):
+    """True where the kernel takes an output of `channels` channels and
+    `elements` elements: C % 8 == 0, or, without an upsample, any C where
+    the output holds a multiple of 8 elements (its flat mode)."""
+    return channels % CHANNELS == 0 or (not up and elements % CHANNELS == 0)
+
+
 def bias_act_cuda(src, bias=None, skip=None, up=0, act=None, act_first=False):
     """`bias_act_plain` as one launch of the hand-written kernel.
 
     src: (N, C, h, w) channels-last bf16 or f32 on a CUDA device, C % 8 ==
-    0; bias: (C,) on it (cast to src's dtype); skip: (N, C, h << up, w <<
-    up) channels-last of src's dtype, or None. Every tensor 16-byte aligned
-    and the output below 2^34 elements. Returns a new channels-last tensor
-    of the output's shape. Launches on the current stream, does not
+    0 or (no upsample) N C h w % 8 == 0; bias: (C,) on it (cast to src's
+    dtype); skip: (N, C, h << up, w << up) channels-last of src's dtype, or
+    None. Every tensor 16-byte aligned and the output below 2^34 elements.
+    Returns a new channels-last tensor of the output's shape. Launches on the current stream, does not
     synchronize, and raises on anything else and on a failed launch.
     """
     global launches
@@ -97,9 +110,10 @@ def bias_act_cuda(src, bias=None, skip=None, up=0, act=None, act_first=False):
         raise ValueError(f"bias_act_cuda: act {act!r}, up {up!r}")
     n, c, h, w = src.shape if src.dim() == 4 else (0, 0, 0, 0)
     shape = (n, c, h << up, w << up)
-    if not _channels_last(src) or c % CHANNELS:
-        raise ValueError(f"bias_act_cuda needs a channels-last (N, 8k, H, W) src, got "
-                         f"{tuple(src.shape)} strides {src.stride()}")
+    if not _channels_last(src) or not serves(c, n * c * shape[2] * shape[3], up):
+        raise ValueError(f"bias_act_cuda needs a channels-last (N, C, H, W) src with C % 8 "
+                         f"== 0 (or, without an upsample, 8k elements), got "
+                         f"{tuple(src.shape)} strides {src.stride()}, up {up}")
     if skip is not None and (skip.device != dev or skip.dtype != src.dtype
                              or tuple(skip.shape) != shape or not _channels_last(skip)):
         raise ValueError(f"bias_act_cuda: skip {tuple(skip.shape)} {skip.dtype} does not "

@@ -18,7 +18,7 @@ import torch
 from tpupose_torch.models.hrnet import HRNetConfig
 from tpupose_torch.models.yolov3 import YoloConfig
 from tpupose_torch.parallel.streams import captured_multistream_step
-from tpupose_torch.pipeline.facade import _clip_detections
+from tpupose_torch.pipeline.facade import _clip_detections, needs_hrnet
 from tpupose_torch.tracking.tracker import TrackerConfig
 from tpupose_torch.utils import timing
 
@@ -49,9 +49,11 @@ def make_multistream_clip_fn(det_cfg: YoloConfig, pose_cfg: HRNetConfig,
     (`_auto_chunk` when None; no chunking when it does not divide F), so
     the live intermediates are one chunk's. Chunking is exact: every
     stage-A op is per image. `image_hw` is accepted as in the JAX package
-    and ignored: the geometry comes from the clip's shape.
+    and ignored: the geometry comes from the clip's shape. HRNet only:
+    another pose net raises (`facade.needs_hrnet`).
     """
     del image_hw
+    needs_hrnet(pose_cfg, "the multi-stream clip function")
 
     def fn(detector, pose_model, cams_s, states_s, clip, frame_ids):
         s, f, c, h, w, _ = clip.shape

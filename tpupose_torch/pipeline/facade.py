@@ -4,7 +4,8 @@ Counterpart of `tpupose/pipeline/facade.py`: the clip path, the staged API
 (`person_detect`, `person_pose_detect`, `person_track`, `process_frame`,
 `process_clips_nn`) and int8 serving (`quantize_models` with its drift
 self-check). Stage A (`_clip_detections`) runs YOLOv3 and the pose net
-(HRNet, or ViTPose: `PoseConfig`) over every frame of a clip as one batch;
+(HRNet, ViTPose or HRFormer: `PoseConfig`) over every frame of a clip as
+one batch;
 stage B runs the tracker over the frames, on CUDA as a captured graph of
 the tracker step replayed each frame
 (`tracking.tracker.make_step_fn`, `track_clip`). The pipeline lives on one
@@ -55,7 +56,7 @@ MIN_CALIB_SAMPLES = 8
 
 class PoseConfig(Protocol):
     """What stage A reads of a pose net's configuration (`HRNetConfig`,
-    `ViTPoseConfig`); the net itself is a module whose `forward(crops,
+    `ViTPoseConfig`, `HRFormerConfig`); the net itself is a module whose `forward(crops,
     compute_dtype)` takes (N, 3, h, w) normalized crops and returns f32
     (N, J, h/4, w/4) heatmaps."""
 
@@ -70,7 +71,8 @@ def needs_hrnet(pose_cfg, what):
     if pose_cfg is not None and not isinstance(pose_cfg, HRNetConfig):
         raise NotImplementedError(
             f"{what} serves HRNet only; the pose net is {type(pose_cfg).__name__} "
-            "(ViTPose has no packed or int8 path yet): serve it in bf16")
+            "(ViTPose and HRFormer have no packed, int8 or multi-stream path yet): "
+            "serve it in bf16 through Pipeline.process_clip")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -88,7 +90,8 @@ def _clip_detections(det_cfg, pose_cfg, tcfg, detector, pose_model, images,
                      compute_dtype=torch.bfloat16):
     """Batched detect -> crop -> pose -> decode for N images, padded to the
     tracker's max_dets. The pose net's forward is the span `stage_a.hrnet`
-    whichever net it is (HRNet or ViTPose), the name the benchmark reads.
+    whichever net it is (HRNet, ViTPose or HRFormer), the name the benchmark
+    reads.
 
     Args:
       images: (N, H, W, 3) uint8 / float RGB (NHWC).
@@ -157,7 +160,8 @@ class Pipeline:
       tracker_cfg: TrackerConfig.
       det_cfg, detector: YoloConfig and YOLOv3 module (optional for replay).
       pose_cfg, pose_model: the pose net's configuration (`PoseConfig`: an
-        HRNetConfig or a ViTPoseConfig) and its module (optional).
+        HRNetConfig, a ViTPoseConfig or an HRFormerConfig) and its module
+        (optional).
       state: initial TrackerState (default: empty).
       device: torch device; None means CUDA, which must be present.
       compute_dtype: the networks' compute dtype (bf16 serving default).
